@@ -1,0 +1,114 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` with ``nvcc`` and load
+them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes ``build/repro_torch/lib<name>-<hash>.so``
+at the repository root (listed in ``.gitignore``), where ``<hash>`` covers
+the sources and the flags, so an edited kernel is rebuilt and a built one
+is reused.  The libraries have a plain C interface: no PyTorch headers,
+so one compiles in seconds.  :func:`build_all` starts one ``nvcc`` per
+source at once.  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("matmul", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a source."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelBuildError("nvcc not found (PATH, CUDA_HOME): the CUDA "
+                           "kernels are built on a machine with the toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):     # .cu and shared .cuh headers
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.log").write_text(log)
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc failed on csrc/{name}.cu "
+                               f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names: List[str] = SOURCES) -> None:
+    """Compile every missing library, one ``nvcc`` per source, all at once."""
+    jobs = {n: _start(n) for n in names}
+    errors = []
+    for n, job in jobs.items():
+        if job is not None:
+            try:
+                _finish(n, job)
+            except KernelBuildError as e:
+                errors.append(str(e))
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    """``nvcc``'s output (``-Xptxas -v``: registers, shared memory, spills)
+    from the last build of ``name`` in this checkout, or ''."""
+    p = BUILD_DIR / f"{name}.log"
+    return p.read_text() if p.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _LIBS[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,134 @@
+"""Kernel entry points and the one predicate for which tiles can launch.
+
+``tiles`` is the factor tuple the NeuroVectorizer agent injected
+(``repro_torch.core.vectorizer``); ``None`` takes the heuristic baseline,
+as in ``repro/kernels/ops.py``.  A CPU tensor takes the kernel's plain
+PyTorch version; a CUDA tensor launches the Hopper kernel or raises.
+
+Which tiles launch (:func:`tile_ok`).  The reference clamps are applied
+first: ``bm <= ceil8(M)``, ``bn, bk <= ceil128(N | K)`` for matmul and
+``bq <= Sq``, ``bkv <= Skv`` for attention.  The f32 accumulator of a CTA
+lives in registers, and that is the limit:
+
+* matmul: the CTA tile is ``bm`` rounded up to a power of two of at least
+  16 rows by ``bn`` rounded up to a power of two of at least 128 columns;
+  it launches when ``rows * cols <= 128 * 256`` (128 f32 a thread at 256
+  threads).  ``bk`` is streamed through shared memory and never limits.
+* attention: ``bq * D <= 128 * 128`` (16 rows a warp, at most 8 warps),
+  and the blocks must divide the sequence (``Sq % bq == Skv % bkv == 0``).
+  A decode site (Sq == 1) never launches K2, so any positive tile is fine.
+
+``CostModelEnv(legality="h100")`` prices exactly these tiles as illegal.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import matmul as kmm
+
+MM_ACC_LIMIT = 128 * 256        # f32 accumulator elements of a K1 CTA
+ATTN_ACC_LIMIT = 128 * 128      # f32 accumulator elements of a K2 CTA
+MM_MAX_ROWS, MM_MAX_COLS = 256, 512
+
+
+def _ceil_mult(x, m):
+    return -(-x // m) * m
+
+
+def _pow2_at_least(x, lo):
+    x = np.maximum(np.asarray(x, np.int64), 1)
+    return np.maximum(lo, 2 ** np.ceil(np.log2(x)).astype(np.int64))
+
+
+def matmul_tiles_legal(M, N, K, bm, bn, bk):
+    """Elementwise (numpy-broadcast) K1 launch predicate."""
+    bm, bn, bk = (np.asarray(a, np.int64) for a in (bm, bn, bk))
+    pos = (bm > 0) & (bn > 0) & (bk > 0)
+    rows = _pow2_at_least(np.minimum(bm, _ceil_mult(M, 8)), 16)
+    cols = _pow2_at_least(np.minimum(bn, _ceil_mult(N, 128)), 128)
+    return (pos & (rows <= MM_MAX_ROWS) & (cols <= MM_MAX_COLS)
+            & (rows * cols <= MM_ACC_LIMIT))
+
+
+def attention_tiles_legal(Sq, Skv, D, bq, bkv):
+    """Elementwise (numpy-broadcast) K2 launch predicate."""
+    bq, bkv = np.asarray(bq, np.int64), np.asarray(bkv, np.int64)
+    pos = (bq > 0) & (bkv > 0)
+    bq_e = np.maximum(np.minimum(bq, Sq), 1)
+    bkv_e = np.maximum(np.minimum(bkv, Skv), 1)
+    launched = ((bq_e * D <= ATTN_ACC_LIMIT) & (Sq % bq_e == 0)
+                & (Skv % bkv_e == 0))
+    # Sq == 1 (decode) never launches K2: it takes the plain branch
+    return pos & ((np.asarray(Sq) == 1) | launched)
+
+
+def tile_ok(site, tiles) -> bool:
+    """True when the Hopper kernel for ``site`` launches with ``tiles``.
+    Sites of a kind without a Hopper kernel (``chunk_scan``) are False."""
+    if site.kind == "matmul":
+        return bool(matmul_tiles_legal(site.m, site.n, site.k, *tiles[:3]))
+    if site.kind == "attention":
+        return bool(attention_tiles_legal(site.m, site.k, site.n,
+                                          *tiles[:2]))
+    return False
+
+
+def matmul_tile_plan(M: int, N: int, K: int, tiles):
+    """``(bm, bn, bk, rows, cols)``: the clamped tiles (the CTA strides)
+    and the compiled CTA tile covering them, or ``None`` if illegal."""
+    bm, bn, bk = (int(t) for t in tiles[:3])
+    if not matmul_tiles_legal(M, N, K, bm, bn, bk):
+        return None
+    bm_e = min(bm, _ceil_mult(M, 8))
+    bn_e = min(bn, _ceil_mult(N, 128))
+    bk_e = min(bk, _ceil_mult(K, 128))
+    return (bm_e, bn_e, bk_e, int(_pow2_at_least(bm_e, 16)),
+            int(_pow2_at_least(bn_e, 128)))
+
+
+def _default_matmul_tiles(M: int, N: int, K: int) -> Tuple[int, int, int]:
+    from repro_torch.core.costmodel import baseline_matmul_tiles
+    return baseline_matmul_tiles(M, N, K)
+
+
+def _default_attn_tiles(Sq: int, Skv: int) -> Tuple[int, int]:
+    from repro_torch.core.costmodel import baseline_attn_tiles
+    return baseline_attn_tiles(Sq, Skv)
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor,
+           tiles: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """``x(M,K) @ w(K,N)`` through K1 (CUDA) or its plain version (CPU)."""
+    M, K = x.shape
+    N = w.shape[1]
+    bm, bn, bk = (tiles[:3] if tiles is not None
+                  else _default_matmul_tiles(M, N, K))
+    if _route(x) == "cuda":
+        return kmm.matmul_cuda(x, w, bm, bn, bk)
+    return kmm.matmul_plain(x, w)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, scale: float,
+                    tiles: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """Attention forward through K2 (CUDA) or its plain version (CPU).
+    ``tiles`` carries the unified 3-head action; attention uses the first
+    two factors.  k and v keep their Hkv heads (GQA)."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    bq, bkv = (tiles[:2] if tiles is not None
+               else _default_attn_tiles(Sq, Skv))
+    if _route(q) == "cuda":
+        return kfa.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                        bq=bq, bkv=bkv)
+    return kfa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     bq=bq, bkv=bkv)

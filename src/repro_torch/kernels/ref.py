@@ -1,0 +1,22 @@
+"""Plain PyTorch oracles for the kernels (the allclose targets); the
+counterparts of ``repro/kernels/ref.py``."""
+from __future__ import annotations
+
+import torch
+
+
+def matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return (x.float() @ w.float()).to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, scale: float) -> torch.Tensor:
+    """q: (B,H,Sq,D); k,v: (B,H,Skv,D) (heads already expanded)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
+    if causal:
+        Sq, Skv = q.shape[2], k.shape[2]
+        kpos = torch.arange(Skv, device=q.device)
+        qpos = torch.arange(Sq, device=q.device) + (Skv - Sq)
+        s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)

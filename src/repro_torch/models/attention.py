@@ -1,0 +1,76 @@
+"""GQA self-attention with RoPE, qk-norm and a KV cache (the port of
+``repro/models/attention.py``; cross-attention waits)."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import compute
+from repro_torch.models.common import (apply_rope, dense_init,
+                                       rms_head_norm)
+
+
+def attn_init(cfg: ModelConfig, gen, dtype, device):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": dense_init(gen, (d, hq * hd), dtype, device),
+         "wk": dense_init(gen, (d, hkv * hd), dtype, device),
+         "wv": dense_init(gen, (d, hkv * hd), dtype, device),
+         "wo": dense_init(gen, (hq * hd, d), dtype, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
+
+
+def _split_heads(x, n_heads, hd):
+    B, S, _ = x.shape
+    return x.reshape(B, S, n_heads, hd).transpose(1, 2)    # (B,H,S,hd)
+
+
+def _merge_heads(x):
+    B, H, S, hd = x.shape
+    return x.transpose(1, 2).reshape(B, S, H * hd)
+
+
+def apply_attn(cfg: ModelConfig, p, x, *, positions, causal: bool,
+               cache: Optional[dict] = None, decode_pos: Optional[int] = None,
+               site_prefix: str = "attn"):
+    """Self-attention.  ``cache`` holds (B, Hkv, ctx, hd) k/v views of the
+    stacked cache and is written IN PLACE (the reference returns a fresh
+    cache; the port saves the copy): prefill writes the fresh k/v into the
+    first S slots and attends over them; decode writes slot ``decode_pos``
+    and attends over the whole cache, masked to positions <= decode_pos."""
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = _split_heads(compute.matmul(x, p["wq"], site=f"{site_prefix}.q"),
+                     hq, hd)
+    k = _split_heads(compute.matmul(x, p["wk"], site=f"{site_prefix}.k"),
+                     hkv, hd)
+    v = _split_heads(compute.matmul(x, p["wv"], site=f"{site_prefix}.v"),
+                     hkv, hd)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    base_offset = 0
+    if cache is not None:
+        S = k.shape[2]
+        start = 0 if decode_pos is None else decode_pos
+        cache["k"][:, :, start:start + S] = k
+        cache["v"][:, :, start:start + S] = v
+        if decode_pos is not None:
+            k, v = cache["k"], cache["v"]
+            base_offset = decode_pos
+
+    o = compute.flash_attention(q, k, v, site=f"{site_prefix}.core",
+                                causal=causal, base_offset=base_offset)
+    return compute.matmul(_merge_heads(o), p["wo"], site=f"{site_prefix}.o")
+
+
+def make_attn_cache(cfg: ModelConfig, batch: int, ctx: int, dtype, device):
+    shape = (batch, cfg.n_kv_heads, ctx, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

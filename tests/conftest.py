@@ -7,3 +7,9 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: launches the port's CUDA kernels; skips without a "
+        "CUDA card")

@@ -1,0 +1,161 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here launches a kernel and skips without a CUDA card: the
+kernels have no interpret mode.  The file imports neither JAX nor the JAX
+package, so it runs where only PyTorch is installed:
+
+  PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances are for bf16: K1 within 3e-2 relative of the f32 product (bf16
+output rounding over f32 accumulation, as ``tests/test_kernels.py``); K2
+within 2e-2 absolute of its plain version (bf16 output and bf16-rounded
+probabilities in both, |out| < ~1).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.extractor import extract_serve_sites
+from repro_torch.core.vectorizer import baseline_program, inject
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import matmul as kmm
+from repro_torch.kernels import ops
+from repro_torch.models.lm import build_model
+
+pytestmark = pytest.mark.gpu
+
+K1_REL_TOL = 3e-2
+K2_ABS_TOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _normal(seed, *shape, device):
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(x).to(device).bfloat16()
+
+
+def _rel_err(y, want):
+    return float((y.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("shape,tiles", [
+    ((2048, 4096, 4096), (128, 128, 512)),
+    ((4, 1024, 4096), (8, 256, 1024)),
+    ((513, 129, 257), (64, 512, 128)),
+    ((100, 300, 200), (256, 128, 4096)),
+    ((37, 520, 136), (16, 128, 128)),
+])
+def test_matmul_kernel_matches_f32_product(cuda, shape, tiles):
+    M, N, K = shape
+    x, w = _normal(1, M, K, device=cuda), _normal(2, K, N, device=cuda)
+    before = kmm.launches
+    y = ops.matmul(x, w, tiles=tiles)
+    torch.cuda.synchronize()
+    assert kmm.launches == before + 1
+    assert y.dtype == torch.bfloat16 and y.shape == (M, N)
+    assert _rel_err(y, x.float() @ w.float()) < K1_REL_TOL
+
+
+def test_matmul_reads_a_transposed_weight_in_place(cuda):
+    """lm_head passes head.T, a strided view."""
+    x = _normal(3, 4, 4096, device=cuda)
+    head = _normal(4, 1000, 4096, device=cuda)
+    y = ops.matmul(x, head.T, tiles=(8, 128, 512))
+    assert _rel_err(y, x.float() @ head.float().T) < K1_REL_TOL
+
+
+def test_every_legal_tile_gives_the_same_function(cuda):
+    """Within a CTA the K loop runs in the same order for every tile, so
+    the legal tiles agree bitwise."""
+    x, w = _normal(5, 200, 640, device=cuda), _normal(6, 640, 384,
+                                                      device=cuda)
+    y0 = ops.matmul(x, w, tiles=(128, 128, 512))
+    for t in [(8, 128, 128), (32, 256, 256), (64, 512, 1024),
+              (256, 128, 4096), (16, 512, 2048)]:
+        assert torch.equal(ops.matmul(x, w, tiles=t), y0), t
+
+
+def test_illegal_tiles_raise(cuda):
+    x = torch.zeros((2048, 512), dtype=torch.bfloat16, device=cuda)
+    before = kmm.launches
+    with pytest.raises(kmm.TileError):
+        ops.matmul(x, x.T, tiles=(256, 256, 128))
+    q = torch.zeros((1, 4, 512, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(kmm.TileError):
+        ops.flash_attention(q, q, q, causal=True, scale=0.1,
+                            tiles=(256, 512))
+    assert kmm.launches == before
+
+
+def test_kernels_refuse_float32(cuda):
+    x = torch.zeros((16, 128), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.matmul(x, x.T)
+
+
+@pytest.mark.parametrize("sq,skv,tiles,causal", [
+    (512, 512, (64, 128), True),
+    (512, 512, (128, 512), True),
+    (512, 512, (128, 256), False),
+    (256, 512, (128, 128), True),
+    (128, 512, (64, 512), True),
+])
+def test_flash_kernel_matches_plain(cuda, sq, skv, tiles, causal):
+    q = _normal(5, 2, 8, sq, 128, device=cuda)
+    k = _normal(6, 2, 2, skv, 128, device=cuda)
+    v = _normal(7, 2, 2, skv, 128, device=cuda)
+    before = kfa.launches
+    y = ops.flash_attention(q, k, v, causal=causal, scale=128 ** -0.5,
+                            tiles=tiles)
+    torch.cuda.synchronize()
+    assert kfa.launches == before + 1
+    yp = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                   scale=128 ** -0.5, bq=tiles[0],
+                                   bkv=tiles[1])
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+
+
+def test_flash_kernel_refuses_other_head_dims(cuda):
+    q = torch.zeros((1, 2, 64, 80), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q, q, q, causal=True, scale=0.1)
+
+
+def test_model_under_inject_matches_eager_on_the_card(cuda):
+    """A 2-layer bf16 qwen3_8b at head dim 128: every matmul and the
+    prefill attention go through the kernels, and the logits stay within
+    5e-2 of eager mode's, relative to their largest value (bf16
+    activations, two summation orders)."""
+    cfg = get_config("qwen3_8b").reduced(
+        n_layers=2, d_model=512, n_heads=4, n_kv_heads=2, head_dim=128,
+        d_ff=1024, vocab_size=1000, dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    tok = torch.randint(0, 1000, (2, 128),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    prog = baseline_program(extract_serve_sites(model, 2, 128, 1))
+    with torch.inference_mode():
+        le, _ = model.prefill(params, {"tokens": tok},
+                              model.make_cache(2, 129, device=cuda))
+        before = (kmm.launches, kfa.launches)
+        with inject(prog):
+            lk, _ = model.prefill(params, {"tokens": tok},
+                                  model.make_cache(2, 129, device=cuda))
+        torch.cuda.synchronize()
+    assert (kmm.launches - before[0], kfa.launches - before[1]) == (15, 2)
+    assert float((lk - le).abs().max() / le.abs().max()) < 5e-2
+
+
+def test_serve_refuses_the_reduced_f32_config_under_inject(cuda):
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="--full"):
+        serve.main(["--autotune", "ppo", "--autotune-steps", "64",
+                    "--inject"])

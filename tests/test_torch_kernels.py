@@ -1,0 +1,263 @@
+"""The port's kernel wrappers against the JAX package's Pallas kernels.
+
+On the CPU ``repro_torch.kernels.ops`` takes each kernel's plain PyTorch
+version; the JAX side runs the Pallas kernels in interpret mode, as
+``tests/test_kernels.py`` does.  Inputs are numpy arrays from a fixed seed,
+handed to both.  The shapes and tile sets are those of
+``tests/test_kernels.py``; so are the f32 tolerances (1e-5 relative for
+matmul, 2e-5 absolute for attention: both sides accumulate in f32 and differ
+only in summation order).
+
+The kernels themselves are tested on the card in ``test_torch_gpu.py``.
+"""
+import ctypes
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.neurovec import DEFAULT as NV
+from repro.kernels import ops as jops
+from repro.kernels.matmul import _ceil_mult
+from repro_torch.core import costmodel as tcm
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import matmul as kmm
+from repro_torch.kernels import ops, ref
+from repro_torch.models.compute import KernelSite
+
+MM_SHAPES = [(64, 128, 128), (128, 256, 512), (100, 300, 200), (8, 128, 64),
+             (513, 129, 257), (16, 384, 48)]
+MM_TILES = [(32, 128, 128), (64, 256, 128), (8, 128, 512)]
+MM_REL_TOL = 1e-5
+ATTN_ABS_TOL = 2e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Small CPU tensors: one intra-op thread, so that parallel test
+    workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape,
+                                                       dtype=np.float32)
+
+
+def _rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / (np.max(np.abs(b)) + 1e-9))
+
+
+def _both_matmul(x, w, tiles):
+    yj = np.asarray(jops.matmul(jnp.asarray(x), jnp.asarray(w), tiles=tiles,
+                                interpret=True))
+    yt = ops.matmul(torch.from_numpy(x), torch.from_numpy(w),
+                    tiles=tiles).numpy()
+    return yt, yj
+
+
+def _both_attention(q, k, v, causal, scale, tiles):
+    yj = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=scale, tiles=tiles, interpret=True))
+    yt = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=causal, scale=scale,
+                             tiles=tiles).numpy()
+    return yt, yj
+
+
+# ---------------------------------------------------------------------------
+# K1: tiled matmul
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", MM_SHAPES)
+def test_matmul_matches_pallas(shape):
+    M, N, K = shape
+    x, w = _normal(M, M, K), _normal(N + K, K, N)
+    yt, yj = _both_matmul(x, w, (64, 128, 128))
+    assert yt.shape == (M, N)
+    assert _rel_err(yt, yj) < MM_REL_TOL
+
+
+@pytest.mark.parametrize("tiles", MM_TILES)
+def test_matmul_tile_invariance_matches_pallas(tiles):
+    x, w = _normal(0, 96, 160), _normal(1, 160, 192)
+    yt, yj = _both_matmul(x, w, tiles)
+    y0 = ops.matmul(torch.from_numpy(x), torch.from_numpy(w),
+                    tiles=(96, 192, 160)).numpy()
+    assert _rel_err(yt, yj) < MM_REL_TOL
+    assert _rel_err(yt, y0) < MM_REL_TOL
+
+
+def _mm_sweep():
+    M, N, K = 48, 160, 136
+    return sorted({(min(bm, _ceil_mult(M, 8)), min(bn, _ceil_mult(N, 128)),
+                    min(bk, _ceil_mult(K, 128)))
+                   for bm, bn, bk in itertools.product(
+                       NV.bm_choices, NV.bn_choices, NV.bk_choices)})
+
+
+@pytest.mark.parametrize("tiles", _mm_sweep())
+def test_matmul_action_space_sweep_matches_pallas(tiles):
+    x, w = _normal(42, 48, 136), _normal(43, 136, 160)
+    yt, yj = _both_matmul(x, w, tiles)
+    assert _rel_err(yt, yj) < MM_REL_TOL
+
+
+def test_matmul_default_tiles_are_the_baseline():
+    x, w = _normal(5, 40, 72), _normal(6, 72, 24)
+    y_none = ops.matmul(torch.from_numpy(x), torch.from_numpy(w))
+    y_base = ops.matmul(torch.from_numpy(x), torch.from_numpy(w),
+                        tiles=tcm.baseline_matmul_tiles(40, 24, 72))
+    assert torch.equal(y_none, y_base)
+    assert _rel_err(y_none.numpy(), x @ w) < MM_REL_TOL
+
+
+def test_matmul_plain_keeps_input_dtype_and_strided_weight():
+    """bf16 in, bf16 out; a transposed weight view (lm_head's head.T)."""
+    x = torch.from_numpy(_normal(7, 4, 64)).bfloat16()
+    head = torch.from_numpy(_normal(8, 96, 64)).bfloat16()
+    y = ops.matmul(x, head.T)
+    assert y.dtype == torch.bfloat16 and y.shape == (4, 96)
+    want = x.float().numpy() @ head.float().numpy().T
+    assert _rel_err(y.float().numpy(), want) < 1e-2     # bf16 output
+
+
+# ---------------------------------------------------------------------------
+# K2: flash attention (forward)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("tiles", [(64, 128), (128, 128)])
+def test_flash_attention_matches_pallas(causal, hq, hkv, tiles):
+    q = _normal(0, 2, hq, 256, 64)
+    k = _normal(1, 2, hkv, 256, 64)
+    v = _normal(2, 2, hkv, 256, 64)
+    yt, yj = _both_attention(q, k, v, causal, 0.125, tiles)
+    assert float(np.max(np.abs(yt - yj))) < ATTN_ABS_TOL
+
+
+def _attn_sweep():
+    return sorted({(min(bq, 128), min(bkv, 256))
+                   for bq, bkv in itertools.product(NV.bq_choices,
+                                                    NV.bkv_choices)})
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("tiles", _attn_sweep())
+def test_attention_action_space_sweep_matches_pallas(tiles, causal):
+    """Sq = 128 < Skv = 256: bottom-right aligned causal mask.  Skv >= Sq,
+    as in tests/test_kernels.py (a fully masked row is NaN in the ref)."""
+    q = _normal(7, 1, 2, 128, 64)
+    k = _normal(8, 1, 2, 256, 64)
+    v = _normal(9, 1, 2, 256, 64)
+    yt, yj = _both_attention(q, k, v, causal, 64 ** -0.5, tiles)
+    assert float(np.max(np.abs(yt - yj))) < ATTN_ABS_TOL
+    yr = ref.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal=causal,
+                           scale=64 ** -0.5).numpy()
+    assert float(np.max(np.abs(yt - yr))) < ATTN_ABS_TOL
+
+
+@pytest.mark.parametrize("sq,bq,skv,bkv", [(96, 64, 128, 128),
+                                           (128, 128, 192, 128)])
+def test_attention_blocks_must_divide(sq, bq, skv, bkv):
+    """The reference asserts Sq % bq == 0 and Skv % bkv == 0 after the
+    min(block, S) clamp; the port raises the same error on every device."""
+    q = torch.zeros((1, 1, sq, 64))
+    k = torch.zeros((1, 1, skv, 64))
+    with pytest.raises(ValueError, match="divide"):
+        ops.flash_attention(q, k, k, causal=True, scale=0.125,
+                            tiles=(bq, bkv))
+
+
+def test_attention_default_tiles_are_the_baseline():
+    q, k = _normal(3, 1, 2, 128, 32), _normal(4, 1, 1, 128, 32)
+    qt, kt = torch.from_numpy(q), torch.from_numpy(k)
+    y_none = ops.flash_attention(qt, kt, kt, causal=True, scale=0.2)
+    y_base = ops.flash_attention(qt, kt, kt, causal=True, scale=0.2,
+                                 tiles=tcm.baseline_attn_tiles(128, 128))
+    assert torch.equal(y_none, y_base)
+
+
+# ---------------------------------------------------------------------------
+# the tile predicate and the device rule
+# ---------------------------------------------------------------------------
+
+def test_tile_ok_limits():
+    big = KernelSite("s", "matmul", m=2048, n=4096, k=4096)
+    assert ops.tile_ok(big, (128, 128, 512))
+    assert ops.tile_ok(big, (128, 256, 4096))     # bk never limits
+    assert ops.tile_ok(big, (64, 512, 128))
+    assert not ops.tile_ok(big, (256, 256, 128))  # 256x256 f32 accumulator
+    assert not ops.tile_ok(big, (512, 128, 128))  # more rows than 256
+    dec = KernelSite("s", "matmul", m=4, n=4096, k=4096)
+    assert ops.tile_ok(dec, (512, 256, 128))      # bm clamps to ceil8(4)
+    att = KernelSite("a", "attention", m=512, n=128, k=512, batch=128,
+                     causal=True)
+    assert ops.tile_ok(att, (128, 512, 1))
+    assert not ops.tile_ok(att, (256, 512, 1))    # bq * D > 128 * 128
+    att_dec = KernelSite("a", "attention", m=1, n=128, k=528, batch=128,
+                         causal=True)
+    assert ops.tile_ok(att_dec, (1024, 2048, 1))  # decode never launches K2
+
+
+def test_matmul_tile_plan_covers_every_legal_tile():
+    """Every legal clamped tile maps to a CTA tile the CUDA source
+    compiles (its REPRO_MM_CASE list)."""
+    compiled = {(16, 128), (16, 256), (16, 512), (32, 128), (32, 256),
+                (32, 512), (64, 128), (64, 256), (64, 512), (128, 128),
+                (128, 256), (256, 128)}
+    for M, N, K in [(2048, 4096, 4096), (4, 151936, 4096), (48, 160, 136),
+                    (4, 1024, 4096)]:
+        for t in itertools.product(NV.bm_choices, NV.bn_choices,
+                                   NV.bk_choices):
+            plan = ops.matmul_tile_plan(M, N, K, t)
+            assert (plan is None) == (not ops.matmul_tiles_legal(M, N, K,
+                                                                 *t))
+            if plan is not None:
+                bm, bn, bk, rows, cols = plan
+                assert (rows, cols) in compiled
+                assert bm <= rows and bn <= cols
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """No kernel launches on CPU tensors; the counters stay put."""
+    before = (kmm.launches, kfa.launches)
+    ops.matmul(torch.ones((8, 16)), torch.ones((16, 8)))
+    ops.flash_attention(torch.ones((1, 2, 8, 16)), torch.ones((1, 1, 8, 16)),
+                        torch.ones((1, 1, 8, 16)), causal=True, scale=0.25)
+    assert (kmm.launches, kfa.launches) == before
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    x = torch.ones((16, 16), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kmm.matmul_cuda(x, x, 16, 128, 128)
+    q = torch.ones((1, 1, 16, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        kfa.flash_attention_cuda(q, q, q, causal=True, scale=0.1, bq=16,
+                                 bkv=16)
+
+
+def test_argtypes_pass_pointers_as_64_bit():
+    """ctypes would cut an un-declared pointer to 32 bits."""
+    assert kmm._ARGTYPES[:3] == [ctypes.c_void_p] * 3
+    assert kmm._ARGTYPES[-1] is ctypes.c_void_p
+    assert kfa._ARGTYPES[:4] == [ctypes.c_void_p] * 4
+    assert kfa._ARGTYPES[-1] is ctypes.c_void_p
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(build.KernelBuildError, match="nvcc"):
+        build._nvcc()
