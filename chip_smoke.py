@@ -2,7 +2,6 @@
 """Drive the PyTorch port on one NVIDIA GPU and check it end to end.
 
   python3 chip_smoke.py                  # all phases (one card)
-  python3 chip_smoke.py --no-serve       # phases 1-3 only (kernel checks)
 
 Phases, each printed before the last line:
   1. device: nvidia-smi's name and power limit; TF32 switched off;
@@ -18,8 +17,10 @@ Phases, each printed before the last line:
   4. the main path: repro_torch.launch.serve.main at full width (qwen3_8b,
      36 layers, bf16, batch 4, prompt 512, 16 tokens, PPO-tuned tiles,
      --inject) with the launch counters zeroed just before and read just
-     after; then the same prompts in eager mode, held against it; then K1
-     at every matmul site of the path under the tile that site ran with;
+     after; serve times the median of several prefills and decode windows
+     after one untimed pass; then the same prompts in eager mode, held
+     against it; then K1 at every matmul site of the path under the tile
+     that site ran with;
   5. one JSON line describing each kernel of the path;
   6. the last line: {"ok": true, "device": {...}}.
 
@@ -29,7 +30,6 @@ result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import subprocess
@@ -233,6 +233,7 @@ def main_path():
     import torch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     argv = ["--arch", ARCH, "--full", "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--gen", str(GEN), "--autotune", "ppo",
@@ -253,9 +254,17 @@ def main_path():
                        "flash_attention": 0}}
     if res.launches != want:
         fail(f"launch counts {res.launches} != {want}")
-    if counts != {"matmul": per_pass * GEN,
-                  "flash_attention": cfg.n_layers}:
-        fail(f"total launch counts {counts}")
+    # one untimed pass, then the timed prefills and decode windows
+    n_pre = 1 + len(res.prefill_ms_runs)
+    n_dec = 1 + len(res.decode_tok_s_runs)
+    if counts != {k: want["prefill"][k] * n_pre + want["decode"][k] * n_dec
+                  for k in counts}:
+        fail(f"total launch counts {counts} over {n_pre} prefills and "
+             f"{n_dec} decode windows")
+    bad = [s.key() for s in res.sites if not ops.tile_ok(s, res.prog.tiles[
+        s.key()])]
+    if bad:
+        fail(f"the tuned program names tiles that cannot launch: {bad}")
     if any(c == 0 for c in counts.values()):
         fail("a kernel of the path was never launched")
     logits = res.prefill_logits
@@ -277,14 +286,18 @@ def main_path():
     if rel >= LOGIT_TOL:
         fail(f"prefill logits differ from eager: {rel:.3e}")
     n_tiles = len(res.prog.tiles)
-    print(f"[main] prefill {res.prefill_ms:.2f} ms, decode "
-          f"{res.decode_tok_s:.1f} tok/s (eager: prefill "
-          f"{eager.prefill_ms:.2f} ms, decode {eager.decode_tok_s:.1f} "
-          f"tok/s); {len(res.sites)} sites, {n_tiles} tiles, "
-          f"{len(res.replaced)} tuned tiles could not launch and ran at "
-          f"baseline ({', '.join(res.replaced) or 'none'}); "
+    def spread(r):
+        return (f"prefill ms median {r.prefill_ms:.2f} of "
+                f"{[round(t, 2) for t in r.prefill_ms_runs]}, decode tok/s "
+                f"median {r.decode_tok_s:.2f} of "
+                f"{[round(t, 2) for t in r.decode_tok_s_runs]}")
+    print(f"[main] kernels: {spread(res)}; eager: {spread(eager)}; "
+          f"{len(res.sites)} sites, {n_tiles} tiles, all launched as tuned; "
           f"TPU-v5e-modelled speedup {res.modelled_speedup:.3f}x "
           f"(cost model, not measured)", flush=True)
+    print(f"[main] tuned tiles: " + ", ".join(
+        f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
+        for s in res.sites), flush=True)
     return res, counts
 
 
@@ -296,11 +309,7 @@ def _device_info():
     return smi, torch.cuda.get_device_name(0), torch.cuda.device_count()
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--no-serve", action="store_true",
-                    help="stop after the kernel checks (phases 1-3)")
-    args = ap.parse_args(argv)
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -350,10 +359,6 @@ def main(argv=None) -> int:
     k1_sweep(sweep_site, gen)
     k2 = k2_checks(gen)
     torch.cuda.empty_cache()
-    if args.no_serve:
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind, "count": count}}))
-        return 0
 
     # ---- phase 4: main path ----
     res, counts = main_path()
@@ -375,10 +380,15 @@ def main(argv=None) -> int:
 
     # ---- phase 5: kernels line (one prefill + one decode step, tuned) ----
     def agg(recs, weights):
+        """Launch-weighted sums; the bound is the sum of each launch's own
+        bound, and ``bound_by`` the limit that holds for most of it."""
         tot = {k: sum(recs[s][k] * w for s, w in weights.items())
-               for k in ("ms", "plain_ms", "lib_ms", "flops", "bytes")}
-        b, by = bound_s(tot["flops"], tot["bytes"])
-        return tot, b, by
+               for k in ("ms", "plain_ms", "lib_ms")}
+        by_time = {"operations": 0.0, "bytes": 0.0}
+        for s, w in weights.items():
+            b, by = bound_s(recs[s]["flops"], recs[s]["bytes"])
+            by_time[by] += b * w
+        return tot, sum(by_time.values()), max(by_time, key=by_time.get)
     k1_tot, k1_b, k1_by = agg(k1_tuned, per_site_launches)
     k2_tot, k2_b, k2_by = agg(k2, {t_att: model.cfg.n_layers})
     line = {"kernels": [

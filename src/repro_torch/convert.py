@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.lm import build_model
 
 
@@ -43,7 +44,9 @@ def _map(ref, src, path, device):
     return t
 
 
-def params_from_jax(np_params, cfg: ModelConfig, device="cpu") -> dict:
-    """The port's parameter tree holding the reference's numbers."""
+def params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's parameter tree holding the reference's numbers, on the
+    card unless ``device="cpu"`` is asked for."""
+    dev = resolve_device(device)
     ref = build_model(cfg).init(device="meta")
-    return _map(ref, np_params, "params", torch.device(device))
+    return _map(ref, np_params, "params", dev)

@@ -169,15 +169,35 @@ class PPOAgent:
         return a, a.astype(np.float32), logp.cpu().numpy(), v.cpu().numpy()
 
     @torch.no_grad()
-    def act(self, sites, *, sample: bool = False, feats=None) -> np.ndarray:
-        """(n, 3) action indices; ``sample=False`` is greedy deployment."""
+    def act(self, sites, *, sample: bool = False, feats=None,
+            legal=None) -> np.ndarray:
+        """(n, 3) action indices; ``sample=False`` is greedy deployment.
+
+        ``legal`` ((n, A) bool over flat actions, laid out as
+        ``CostModelEnv.cost_grid``) restricts the greedy pick to the most
+        probable legal joint action; with every action legal that is the
+        per-head argmax."""
         if sample:
             return self.sample_actions(sites, feats=feats)[0]
         ctx, mask, vs = feats if feats is not None else self.feats(sites)
         logits, _ = policy_forward(self.params, self.head_sizes, ctx, mask,
                                    vs)
-        return torch.stack([lg.argmax(-1) for lg in logits],
-                           -1).cpu().numpy()
+        if legal is None:
+            return torch.stack([lg.argmax(-1) for lg in logits],
+                               -1).cpu().numpy()
+        legal = np.asarray(legal, bool)
+        lp = [torch.log_softmax(lg, -1).cpu().numpy() for lg in logits]
+        out = np.empty((len(sites), 3), np.int64)
+        for i, s in enumerate(sites):
+            s0, s1, s2 = self.space.valid_sizes(s.kind)
+            joint = (lp[0][i, :s0, None, None] + lp[1][i, None, :s1, None]
+                     + lp[2][i, None, None, :s2]).reshape(-1)
+            ok = legal[i, :joint.size]
+            if not ok.any():
+                raise ValueError(f"no legal action for site {s.key()}")
+            flat = int(np.argmax(np.where(ok, joint, -np.inf)))
+            out[i] = self.space.unflatten(s.kind, flat)
+        return out
 
     # -- PPO update ---------------------------------------------------------
     def _loss(self, ctx, mask, vs, actions, old_logp, rewards):

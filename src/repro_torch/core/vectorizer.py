@@ -41,11 +41,18 @@ class TileProgram:
             return cls({k: tuple(v) for k, v in json.load(f).items()})
 
 
-def tune(sites: List[KernelSite], agent, space: ActionSpace) -> TileProgram:
-    """Greedy (inference-mode) factor assignment for every site."""
+def tune(sites: List[KernelSite], agent, space: ActionSpace,
+         env=None) -> TileProgram:
+    """Greedy (inference-mode) factor assignment for every site.
+
+    With ``env``, the greedy pick is the agent's most probable action among
+    those ``env`` prices as legal (a finite cost), so that under
+    ``legality="h100"`` every tile of the program launches.  Without it the
+    pick is the reference's plain argmax."""
     if not sites:
         return TileProgram()
-    actions = np.asarray(agent.act(sites, sample=False))
+    legal = None if env is None else np.isfinite(env.cost_grid(sites))
+    actions = np.asarray(agent.act(sites, sample=False, legal=legal))
     return TileProgram({s.key(): tuple(int(t) for t in space.tiles(s.kind, a))
                         for s, a in zip(sites, actions)})
 

@@ -4,21 +4,25 @@ tile program a PPO agent tuned (the port of ``repro/launch/serve.py``).
 The paper's train-once, tune-and-deploy loop (§4.2): extract the kernel
 sites of the prefill and decode steps, fit the PPO agent against the
 analytic oracle (``legality="h100"``: tiles the Hopper kernels cannot
-launch are illegal), greedily tune the sites into a ``TileProgram``, and
-with ``--inject`` run every matmul and prefill-attention site through the
-hand-written kernels with those tiles.  Runs on the GPU unless
-``--device cpu`` is given::
+launch are illegal), greedily tune the sites into a ``TileProgram`` (the
+greedy pick taken over the legal tiles), and with ``--inject`` run every
+matmul and prefill-attention site through the hand-written kernels with
+exactly those tiles: a tile they cannot launch (from ``--tiles``) stops the
+run with ``TileError``.  Runs on the GPU unless ``--device cpu`` is given::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b --full \\
       --batch 4 --prompt-len 512 --gen 16 --autotune ppo --inject
 
-The printed speedup is the cost model's (TPU v5e constants), not an H100
-measurement.
+After one untimed pass, prefill ms is the median of ``PREFILL_REPS`` timed
+prefills and decode tokens/s the median of ``DECODE_REPS`` timed decode
+windows.  The printed speedup is the cost model's (TPU v5e constants), not
+an H100 measurement.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import statistics
 import sys
 import time
 from dataclasses import dataclass, field
@@ -28,7 +32,6 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.neurovec import DEFAULT
-from repro_torch.core.costmodel import baseline_tiles
 from repro_torch.core.env import CostModelEnv
 from repro_torch.core.extractor import extract_serve_sites
 from repro_torch.core.vectorizer import (TileProgram, inject,
@@ -36,9 +39,11 @@ from repro_torch.core.vectorizer import (TileProgram, inject,
 from repro_torch.device import resolve_device
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
-from repro_torch.kernels import ops
 from repro_torch.models.lm import build_model
 from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+PREFILL_REPS = 5        # timed prefills, after one untimed pass
+DECODE_REPS = 3         # timed decode windows of gen - 1 steps each
 
 
 @dataclass
@@ -49,13 +54,15 @@ class ServeResult:
     prompts: torch.Tensor
     seq: torch.Tensor                   # (B, gen) greedy tokens
     prefill_logits: torch.Tensor        # (B, V) f32
-    prefill_ms: float
-    decode_tok_s: float
+    prefill_ms: float                   # median of the timed prefills
+    decode_tok_s: float                 # median of the timed decode windows
     prog: Optional[TileProgram] = None
     sites: list = field(default_factory=list)
     modelled_speedup: Optional[float] = None
-    launches: dict = field(default_factory=dict)   # phase -> kernel -> n
-    replaced: list = field(default_factory=list)   # keys run at baseline
+    launches: dict = field(default_factory=dict)   # phase -> kernel -> n,
+                                                   # for one untimed pass
+    prefill_ms_runs: list = field(default_factory=list)
+    decode_tok_s_runs: list = field(default_factory=list)
 
 
 def parse_args(argv=None):
@@ -88,25 +95,6 @@ def parse_args(argv=None):
     return args
 
 
-def _launchable(prog: TileProgram, sites):
-    """``(program, replaced)``: every tile the kernels cannot launch
-    (``ops.tile_ok``) is replaced by the site's baseline tile, as a site
-    missing from the plan runs, and named on stderr.  An under-trained
-    agent's greedy action can be such a tile (the cost model prices it at
-    the -9 penalty); the kernel would raise on it."""
-    bad = [s for s in sites if s.key() in prog.tiles
-           and not ops.tile_ok(s, prog.tiles[s.key()])]
-    if not bad:
-        return prog, []
-    print(f"[serve] WARNING: {len(bad)} tuned tiles cannot launch and run at "
-          f"baseline tiles: " + ", ".join(
-              f"{s.key()} {tuple(prog.tiles[s.key()])}" for s in bad),
-          file=sys.stderr)
-    tiles = dict(prog.tiles)
-    tiles.update((s.key(), baseline_tiles(s)) for s in bad)
-    return TileProgram(tiles), [s.key() for s in bad]
-
-
 def _tile_plan(args, model, device):
     """Extract the serving sites and tune (or load) a TileProgram."""
     sites = extract_serve_sites(model, args.batch, args.prompt_len, args.gen)
@@ -121,15 +109,14 @@ def _tile_plan(args, model, device):
         from repro_torch.core.agents.ppo import PPOAgent
         agent = PPOAgent(DEFAULT, seed=0, device=str(device))
         agent.fit(sites, env, total_steps=args.autotune_steps)
-        prog = tune(sites, agent, env.space)
+        prog = tune(sites, agent, env.space, env)
         if args.save_tiles:
             prog.save(args.save_tiles)
-    prog, replaced = _launchable(prog, sites)
     sp = program_speedup(prog, sites, env)
     print(f"[serve] tile plan: {len(prog.tiles)} tiles over {len(sites)} "
           f"sites, TPU-v5e-modelled speedup {sp:.3f}x (cost model, not an "
           f"H100 measurement)")
-    return prog, sites, sp, replaced
+    return prog, sites, sp
 
 
 def _sync(device):
@@ -143,6 +130,16 @@ def _counts():
 
 def _diff(after, before):
     return {k: after[k] - before[k] for k in after}
+
+
+def _decode(serve, params, logits, cache, args):
+    """Greedy decode from the prefill's logits: ((B, gen) tokens, cache)."""
+    tok = logits.argmax(dim=-1)[:, None]
+    out = [tok]
+    for i in range(args.gen - 1):
+        tok, logits, cache = serve(params, tok, args.prompt_len + i, cache)
+        out.append(tok)
+    return torch.cat(out, dim=1), cache
 
 
 def run(args, params=None, prompts=None) -> ServeResult:
@@ -171,45 +168,53 @@ def run(args, params=None, prompts=None) -> ServeResult:
     prefill = make_prefill_step(model)
     serve = make_serve_step(model)
 
-    prog, sites, sp, replaced = None, [], None, []
+    prog, sites, sp = None, [], None
     if args.autotune or args.tiles:
-        prog, sites, sp, replaced = _tile_plan(args, model, device)
+        prog, sites, sp = _tile_plan(args, model, device)
     run_ctx = inject(prog) if (prog is not None and args.inject) \
         else contextlib.nullcontext()
 
-    launches = {}
     with torch.inference_mode(), run_ctx:
+        # one untimed pass first: it loads every kernel variant the tiles
+        # name and grows the allocator, so the timed passes see neither
         c0 = _counts()
-        _sync(device)
-        t0 = time.perf_counter()
         logits, cache = prefill(params, {"tokens": prompts}, cache)
-        _sync(device)
-        t1 = time.perf_counter()
         c1 = _counts()
-        prefill_logits = logits
-        tok = logits.argmax(dim=-1)[:, None]
-        out = [tok]
-        for i in range(args.gen - 1):
-            tok, logits, cache = serve(params, tok, args.prompt_len + i,
-                                       cache)
-            out.append(tok)
-        seq = torch.cat(out, dim=1)
-        _sync(device)
-        t2 = time.perf_counter()
+        seq, cache = _decode(serve, params, logits, cache, args)
         launches = {"prefill": _diff(c1, c0), "decode": _diff(_counts(), c1)}
-    prefill_ms = (t1 - t0) * 1e3
+        # each pass rewrites the same cache slots with the same values
+        prefill_s, decode_s = [], []
+        for _ in range(PREFILL_REPS):
+            _sync(device)
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, {"tokens": prompts}, cache)
+            _sync(device)
+            prefill_s.append(time.perf_counter() - t0)
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            seq, cache = _decode(serve, params, logits, cache, args)
+            _sync(device)
+            decode_s.append(time.perf_counter() - t0)
+    prefill_ms_runs = [t * 1e3 for t in prefill_s]
     n_dec = B * (args.gen - 1)
-    decode_tok_s = n_dec / (t2 - t1) if args.gen > 1 else 0.0
+    decode_tok_s_runs = [n_dec / t if args.gen > 1 else 0.0 for t in decode_s]
+    prefill_ms = statistics.median(prefill_ms_runs)
+    decode_tok_s = statistics.median(decode_tok_s_runs)
     print(f"[serve] {cfg.name} on {device}: {B} requests x {args.prompt_len} "
-          f"prompt tokens, prefill {prefill_ms:.2f} ms; {args.gen - 1} "
-          f"decode steps, {decode_tok_s:.1f} tok/s "
-          f"({'kernels' if prog is not None and args.inject else 'eager'})")
+          f"prompt tokens, prefill {prefill_ms:.2f} ms (median of "
+          f"{PREFILL_REPS}, {min(prefill_ms_runs):.2f}-"
+          f"{max(prefill_ms_runs):.2f}); {args.gen - 1} decode steps, "
+          f"{decode_tok_s:.1f} tok/s (median of {DECODE_REPS}, "
+          f"{min(decode_tok_s_runs):.1f}-{max(decode_tok_s_runs):.1f}) "
+          f"({'kernels' if prog is not None and args.inject else 'eager'}; "
+          f"after one untimed pass)")
     print("[serve] sample:", seq[0].tolist())
     return ServeResult(model=model, params=params, prompts=prompts, seq=seq,
-                       prefill_logits=prefill_logits, prefill_ms=prefill_ms,
+                       prefill_logits=logits, prefill_ms=prefill_ms,
                        decode_tok_s=decode_tok_s, prog=prog, sites=sites,
                        modelled_speedup=sp, launches=launches,
-                       replaced=replaced)
+                       prefill_ms_runs=prefill_ms_runs,
+                       decode_tok_s_runs=decode_tok_s_runs)
 
 
 def main(argv=None) -> ServeResult:

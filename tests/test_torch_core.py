@@ -269,6 +269,24 @@ def test_greedy_actions_match_a_loaded_jax_agent(jax_agent):
     assert tp.tiles == jp.tiles
 
 
+def test_greedy_over_legal_actions(jax_agent):
+    """With every action legal, the masked greedy pick is the plain
+    argmax; with the cost model's mask, ``tune`` picks only legal tiles."""
+    _, tsites = _corpus(300, 41)
+    nv = NeuroVecConfig(**NV_SMALL)
+    port = PPOAgent(nv, device="cpu").load_state(jax_agent.state_dict())
+    env = CostModelEnv(nv, legality="tpu_v5e")
+    grid = env.cost_grid(tsites)
+    assert np.array_equal(port.act(tsites, legal=np.ones(grid.shape, bool)),
+                          port.act(tsites))
+    tsites = [s for s, row in zip(tsites, grid) if np.isfinite(row).any()]
+    prog = tvec.tune(tsites, port, port.space, env)
+    assert all(tcm.site_cost(s, prog.tiles[s.key()], "tpu_v5e") is not None
+               for s in tsites)
+    with pytest.raises(ValueError, match="no legal action"):
+        port.act(tsites[:1], legal=np.zeros((1, grid.shape[1]), bool))
+
+
 def test_loaded_state_roundtrips(jax_agent):
     _, tsites = _corpus(50, 43)
     a = PPOAgent(NeuroVecConfig(**NV_SMALL), device="cpu")

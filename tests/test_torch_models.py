@@ -45,7 +45,7 @@ def _models(n_layers=2):
     tcfg = get_config("qwen3_8b").reduced(n_layers=n_layers)
     jm, tm = jbuild_model(jcfg), build_model(tcfg)
     jp = jm.init(jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jm, jp, tm, tp
 
 
@@ -82,7 +82,15 @@ def test_convert_rejects_a_tree_of_another_shape(models):
     bad = jax.tree.map(np.asarray, jp)
     bad["head"] = bad["head"][:, :8]
     with pytest.raises(ValueError, match="head"):
-        params_from_jax(bad, tm.cfg)
+        params_from_jax(bad, tm.cfg, device="cpu")
+
+
+def test_convert_without_cuda_needs_the_cpu_asked_for(models):
+    jm, jp, tm, tp = models
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg)
 
 
 def test_train_loss_matches_jax(models):

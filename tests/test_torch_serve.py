@@ -21,10 +21,7 @@ from repro.core import vectorizer as jvec
 from repro.models.lm import build_model as jbuild_model
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
-from repro_torch.core.costmodel import baseline_tiles
-from repro_torch.core.vectorizer import TileProgram
 from repro_torch.launch import serve
-from repro_torch.models.compute import KernelSite
 
 B, PROMPT, GEN = 2, 16, 4
 
@@ -54,7 +51,7 @@ def weights():
     jm = jbuild_model(jget_config("qwen3_8b").reduced())
     jp = jm.init(jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp),
-                         get_config("qwen3_8b").reduced())
+                         get_config("qwen3_8b").reduced(), device="cpu")
     return jm, jp, tp
 
 
@@ -118,19 +115,36 @@ def test_eager_serve_from_seeded_weights():
     assert res.prefill_logits.shape == (B, 256)
     assert torch.isfinite(res.prefill_logits).all()
     assert res.prog is None and res.prefill_ms > 0
+    assert len(res.prefill_ms_runs) == serve.PREFILL_REPS
+    assert len(res.decode_tok_s_runs) == serve.DECODE_REPS
+    assert min(res.prefill_ms_runs) <= res.prefill_ms <= max(
+        res.prefill_ms_runs)
 
 
-def test_unlaunchable_tiles_run_at_baseline(capsys):
-    ok = KernelSite("attn.k", "matmul", m=2048, n=1024, k=4096)
-    bad = KernelSite("attn.q", "matmul", m=2048, n=4096, k=4096)
-    prog = TileProgram({ok.key(): (64, 512, 1024),
-                        bad.key(): (256, 256, 128)})
-    fixed, replaced = serve._launchable(prog, [ok, bad])
-    assert replaced == [bad.key()]
-    assert fixed.tiles[bad.key()] == baseline_tiles(bad)
-    assert fixed.tiles[ok.key()] == (64, 512, 1024)
-    assert "cannot launch" in capsys.readouterr().err
-    assert serve._launchable(fixed, [ok, bad]) == (fixed, [])
+def test_tuned_tiles_all_launch_even_when_the_policy_favours_others():
+    """``tune`` with serve's h100 env takes the greedy pick over the legal
+    tiles only, so the program serve injects never names a tile the kernels
+    cannot launch; a legal greedy pick is kept as it was."""
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.agents.ppo import PPOAgent
+    from repro_torch.core.env import CostModelEnv
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.core.vectorizer import tune
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import build_model
+    sites = extract_serve_sites(build_model(get_config("qwen3_8b")), 4, 512,
+                                16)
+    agent = PPOAgent(DEFAULT, device="cpu")
+    # the bm head prefers 512, which no prefill matmul site can launch
+    agent.params["pi"][-1]["b"][DEFAULT.bm_choices.index(512)] = 1e3
+    env = CostModelEnv(DEFAULT, legality="h100")
+    plain = tune(sites, agent, env.space).tiles
+    prog = tune(sites, agent, env.space, env).tiles
+    assert sum(not ops.tile_ok(s, plain[s.key()]) for s in sites) >= 7
+    assert all(ops.tile_ok(s, prog[s.key()]) for s in sites)
+    for s in sites:
+        if ops.tile_ok(s, plain[s.key()]):
+            assert prog[s.key()] == plain[s.key()]
 
 
 @pytest.mark.parametrize("argv", [
