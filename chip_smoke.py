@@ -5,24 +5,41 @@
 
 Phases, each printed before the last line:
   1. device: nvidia-smi's name and power limit; TF32 switched off;
-  2. build: both CUDA sources compiled at once from csrc/ (seconds, ptxas);
+  2. build: the three CUDA sources compiled at once from csrc/ (seconds,
+     ptxas);
   3. kernels vs their plain PyTorch versions on the card, in bf16:
      K1 (tiled matmul) at every distinct qwen3_8b serve-site shape under the
      baseline tiles, and a tile-invariance sweep over every legal tile of
      one site; K2 (flash attention) at (B=4, H=32, Hkv=8, S=512, D=128),
-     causal, over every legal (bq, bkv).  Each shape prints the kernel's
-     median ms, the plain version's, one PyTorch call's (a yardstick only,
-     never called by the port) and the bound max(flops / 989e12,
-     bytes / 3.35e12) s;
-  4. the main path: repro_torch.launch.serve.main at full width (qwen3_8b,
-     36 layers, bf16, batch 4, prompt 512, 16 tokens, PPO-tuned tiles,
-     --inject) with the launch counters zeroed just before and read just
-     after; serve times the median of several prefills and decode windows
-     after one untimed pass; then the same prompts in eager mode, held
-     against it; then K1 at every matmul site of the path under the tile
-     that site ran with;
-  5. one JSON line describing each kernel of the path;
-  6. the last line: {"ok": true, "device": {...}}.
+     causal, over every legal (bq, bkv); K3 (SSD chunk scan) at the
+     xlstm_1_3b serve site as the measurement runner builds it (G=1,
+     S=8192, P=N=1024) for every chunk of the action space (the ones the
+     predicate refuses must raise TileError), and at a Mamba-2 head of
+     jamba_v0_1_52b's ssm.chunk_scan site (S=262144, P=64, N=16, Q=256).
+     Each shape prints the kernel's median ms, the plain version's, one
+     PyTorch call's where there is one (a yardstick only, never called by
+     the port) and the bound max(flops / 989e12, bytes / 3.35e12) s;
+  4. the modelled main path: repro_torch.launch.serve.main at full width
+     (qwen3_8b, 36 layers, bf16, batch 4, prompt 512, 16 tokens, PPO-tuned
+     tiles against the cost model, --inject) with the launch counters zeroed
+     just before and read just after; serve times the median of several
+     prefills and decode windows after one untimed pass; then the same
+     prompts in eager mode, held against it; then K1 at every matmul site
+     of the path under the tile that site ran with;
+  5. the measured main paths: serve --measured --inject at full width for
+     qwen3_8b (36 layers) and xlstm_1_3b (48 layers), batch 4, prompt 512,
+     16 tokens: PPO is rewarded with the timed kernels (paper eq. 2).  Each
+     is driven with the counters zeroed just before and read just after; it
+     fails on a failed timing, an open breaker, health other than "ok", a
+     tuned tile that does not launch as tuned, K3 never launched during the
+     xLSTM fit, or logits that disagree with eager mode.  xlstm_1_3b's
+     bf16 logits must also differ across the batch rows and lie near an
+     f32 eager prefill, and that f32 prefill must match the f32 decode
+     recurrence fed the prompt token by token; then K1 at each of its
+     shapes under the baseline and the tuned tile (every K1 check prints
+     how many outputs differ from torch.matmul at all);
+  6. one JSON line describing each kernel of the paths;
+  7. the last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -45,10 +62,25 @@ K1_TOL = 3e-2               # rel. error vs f32 matmul_ref: bf16 output
                             # tests/test_kernels.py
 K2_TOL = 2e-2               # abs. error vs the plain version: bf16 output
                             # and bf16-rounded P in both, |out| < ~1
+K3_TOL = 3e-2               # max error vs the plain version over its largest
+                            # |output|: scores, state and x*decay enter the
+                            # tensor cores in bf16 (2^-9 each), bf16 output
 LOGIT_TOL = 5e-2            # max |kernel - eager| prefill logit over
                             # max |eager logit|: bf16 activations through 36
                             # layers with two different f32 summation orders
+XL_F32_TOL = 0.5            # max |bf16 kernel - f32 eager| xlstm_1_3b prefill
+                            # logit over max |f32 logit|: at random weights
+                            # the 48 recurrent layers amplify bf16 rounding
+                            # (0.134 on an H100 at these seeds)
+RECUR_TOL = 1e-3            # f32 chunkwise prefill vs f32 token-by-token
+                            # decode of the same prompt, over max |logit|:
+                            # summation order only (4.2e-5 on an H100)
 ARCH, BATCH, PROMPT, GEN, STEPS = "qwen3_8b", 4, 512, 16, 2000
+XLSTM = "xlstm_1_3b"
+# jamba_v0_1_52b's ssm.chunk_scan site at batch 4, prompt 512 (d_model 4096,
+# expand 2, head dim 64 -> 128 heads; chunk 256): batch 4*128*2 = 1024
+# instances of 256 positions, P = 64, N = 16, as the runner builds it
+MAMBA = dict(G=1, S=1024 * 256, P=64, N=16, Q=256)
 
 
 def fail(msg: str) -> None:
@@ -114,15 +146,20 @@ def k1_check(shape, tiles, label, gen):
     if not torch.isfinite(y).all() or rel >= K1_TOL:
         fail(f"K1 {shape} tiles {tiles}: rel err {rel:.3e} >= {K1_TOL}")
     plain_err = float((y.float() - yr).abs().max())
+    # bf16 outputs that differ from cuBLAS's at all (0: both summed K in
+    # the same order into one f32 accumulator)
+    n_ne_lib = int((y != torch.matmul(x, w)).sum())
     ms = time_ms(lambda: ops.matmul(x, w, tiles=tiles))
     plain_ms = time_ms(lambda: kmm.matmul_plain(x, w))
     lib_ms = time_ms(lambda: torch.matmul(x, w))
     b, by = bound_s(2.0 * M * N * K, 2.0 * (M * K + K * N + M * N))
     print(f"[k1:{label}] M={M} N={N} K={K}{' wT' if transposed else ''} "
           f"tiles={tuple(tiles)} rel_err={rel:.2e} |k-plain|={plain_err:.3e} "
+          f"!=torch.matmul: {n_ne_lib} of {M * N} "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} torch.matmul_ms={lib_ms:.4f} "
           f"bound_ms={b * 1e3:.4f} ({by})", flush=True)
     return {"err": err, "rel": rel, "ms": ms, "plain_ms": plain_ms,
+            "n_ne_lib": n_ne_lib,
             "lib_ms": lib_ms, "bound_s": b, "flops": 2.0 * M * N * K,
             "bytes": 2.0 * (M * K + K * N + M * N)}
 
@@ -226,32 +263,297 @@ def k2_checks(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3: K3
+# ---------------------------------------------------------------------------
+
+def k3_inputs(G, S, P, N, gen):
+    """As the measurement runner builds them."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn((G, S, P), generator=gen, device="cuda").bfloat16()
+    Bm = (torch.randn((G, S, N), generator=gen, device="cuda") * 0.3
+          ).bfloat16()
+    Cm = (torch.randn((G, S, N), generator=gen, device="cuda") * 0.3
+          ).bfloat16()
+    la = (-F.softplus(torch.randn((G, S), generator=gen,
+                                  device="cuda"))).bfloat16()
+    return x, Bm, Cm, la
+
+
+def k3_work(S, P, N, Q):
+    """Operations and bytes (x, B, C and la read once, y written once) of
+    one call.  Per chunk the scan needs the causal half of the two Q x Q
+    products, C.B^T (Q(Q+1)/2 dot products of length N) and its product
+    with x (of length P), plus the two (Q, P, N) state products."""
+    flops = (Q * (Q + 1.0) * (N + P) + 4.0 * Q * P * N) * (S // Q)
+    return flops, 2.0 * (S * P + 2 * S * N + S + S * P)
+
+
+def k3_check(inputs, Q, label):
+    import torch
+    from repro_torch.kernels import chunk_scan as kcs
+    from repro_torch.kernels import ops
+    x, Bm, Cm, la = inputs
+    G, S, P = x.shape
+    N = Bm.shape[-1]
+    if not ops.chunk_tiles_legal(S, P, N, Q):
+        try:
+            ops.chunk_scan(x, Bm, Cm, la, chunk=Q)
+        except kcs.TileError:
+            print(f"[k3:{label}] Q={Q}: refused, raised TileError as it "
+                  f"must", flush=True)
+            return None
+        fail(f"K3 launched the refused chunk {Q}")
+    before = kcs.launches
+    y = ops.chunk_scan(x, Bm, Cm, la, chunk=Q)
+    torch.cuda.synchronize()
+    if kcs.launches != before + 1:
+        fail(f"K3 did not launch at Q={Q}")
+    yp = kcs.chunk_scan_plain(x, Bm, Cm, la, chunk=Q).float()
+    err = float((y.float() - yp).abs().max())
+    rel = err / float(yp.abs().max())
+    if not torch.isfinite(y).all() or rel >= K3_TOL:
+        fail(f"K3 {label} Q={Q}: rel err {rel:.3e} >= {K3_TOL}")
+    ms = time_ms(lambda: ops.chunk_scan(x, Bm, Cm, la, chunk=Q))
+    plain_ms = time_ms(lambda: kcs.chunk_scan_plain(x, Bm, Cm, la, chunk=Q),
+                       reps=3, warmup=1)
+    flops, nbytes = k3_work(S, P, N, Q)
+    b, by = bound_s(flops, nbytes)
+    passes = device_ms_by_kernel(lambda: ops.chunk_scan(x, Bm, Cm, la,
+                                                        chunk=Q))
+    print(f"[k3:{label}] G={G} S={S} P={P} N={N} Q={Q} rel_err={rel:.2e} "
+          f"|k-plain|={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms=none (no single PyTorch call) bound_ms={b * 1e3:.4f} "
+          f"({by}); device ms by kernel (profiler): {passes}", flush=True)
+    return {"err": err, "rel": rel, "ms": ms, "plain_ms": plain_ms,
+            "bound_s": b, "bound_by": by, "flops": flops, "bytes": nbytes}
+
+
+def device_ms_by_kernel(fn, reps: int = 3) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel, from a
+    ``torch.profiler`` trace of ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / reps
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def k3_checks(site, gen):
+    """Every chunk of the action space at the xLSTM site, two chunks past
+    it, and a Mamba-2 head; returns the xLSTM records by Q."""
+    import torch
+    from repro_torch.configs.neurovec import DEFAULT as NV
+    inputs = k3_inputs(1, site.batch * site.m, site.n, site.k, gen)
+    recs = {}
+    for q in NV.chunk_choices + (2048, 4096):
+        r = k3_check(inputs, q, "xlstm")
+        if r is not None:
+            recs[q] = r
+    del inputs
+    m = MAMBA
+    k3_check(k3_inputs(m["G"], m["S"], m["P"], m["N"], gen), m["Q"],
+             "mamba2")
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def main_path():
-    import torch
+def zero_counts():
+    from repro_torch.kernels import chunk_scan as kcs
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
+    kmm.launches = kfa.launches = kcs.launches = 0
+
+
+def read_counts():
+    from repro_torch.kernels import chunk_scan as kcs
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    return {"matmul": kmm.launches, "flash_attention": kfa.launches,
+            "chunk_scan": kcs.launches}
+
+
+def per_pass_launches(cfg):
+    """Kernel launches of one prefill and of one decode step under
+    --inject: K1 at every matmul of a block and the head, K2 at prefill
+    attention; the mLSTM scan and the einsums stay plain PyTorch."""
+    per = {"attn": (7, 1), "mlstm": (2, 0), "slstm": (3, 0)}
+    mm = 1 + cfg.n_periods * sum(per[b.kind][0] for b in cfg.period)
+    att = cfg.n_periods * sum(per[b.kind][1] for b in cfg.period)
+    return ({"matmul": mm, "flash_attention": att, "chunk_scan": 0},
+            {"matmul": mm * (GEN - 1), "flash_attention": 0,
+             "chunk_scan": 0})
+
+
+def measured_path(arch, params=None, prompts=None):
+    """serve --measured --inject at full width, counters zeroed just before
+    and read just after; checked against eager mode on the same prompts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    argv = ["--arch", arch, "--full", "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--autotune", "ppo",
+            "--autotune-steps", str(STEPS), "--measured", "--inject"]
+    print(f"[measured] serve.run({argv})", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = serve.run(serve.parse_args(argv), params=params, prompts=prompts)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    tun = res.tuning
+    st = tun["stats"]
+    cfg = res.model.cfg
+    n_timed = st["transport_timed_pairs_total"]
+    print(f"[measured:{arch}] launches in the run: {counts}; tuning "
+          f"{tun['launches']}; by pass {res.launches}; wall {wall:.1f} s; "
+          f"fit {tun['fit_s']:.1f} s for {n_timed} timed pairs "
+          f"({tun['fit_s'] / max(n_timed, 1) * 1e3:.1f} ms a pair, PPO "
+          f"updates included); {st['transport_failed_pairs_total']} failed, "
+          f"{st['transport_hits_total']} DB hits, "
+          f"{st['transport_coalesced_total']} coalesced; health "
+          f"{tun['health']}; {tun['backend_key']}", flush=True)
+    if st["transport_failed_pairs_total"] or tun["failures"]:
+        fail(f"{arch}: failed timings {tun['failures']}")
+    if tun["breaker_open"] or tun["health"] != "ok":
+        fail(f"{arch}: breaker open or health {tun['health']}")
+    if n_timed == 0:
+        fail(f"{arch}: the measured oracle timed nothing")
+    want_pre, want_dec = per_pass_launches(cfg)
+    if res.launches != {"prefill": want_pre, "decode": want_dec}:
+        fail(f"{arch}: launch counts by pass {res.launches}")
+    n_pre = 1 + len(res.prefill_ms_runs)
+    n_dec = 1 + len(res.decode_tok_s_runs)
+    total = {k: tun["launches"][k] + want_pre[k] * n_pre + want_dec[k] * n_dec
+             for k in counts}
+    if counts != total:
+        fail(f"{arch}: total launch counts {counts} != {total}")
+    kinds = {s.kind for s in res.sites}
+    need = {"matmul": "matmul", "attention": "flash_attention",
+            "chunk_scan": "chunk_scan"}
+    for kind in kinds:
+        if tun["launches"][need[kind]] == 0:
+            fail(f"{arch}: the {need[kind]} kernel never launched during "
+                 f"the measured fit")
+    if counts["matmul"] == 0 or ("attention" in kinds
+                                 and counts["flash_attention"] == 0):
+        fail(f"{arch}: a kernel of the path was never launched")
+    bad = [s.key() for s in res.sites
+           if not ops.tile_ok(s, res.prog.tiles[s.key()])]
+    if bad:
+        fail(f"{arch}: tuned tiles that cannot launch: {bad}")
+    logits = res.prefill_logits
+    if logits.shape != (BATCH, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or res.seq.shape != (BATCH, GEN):
+        fail(f"{arch}: logits {tuple(logits.shape)} / tokens "
+             f"{tuple(res.seq.shape)}")
+    eager = serve.run(serve.parse_args(argv[:argv.index("--autotune")]),
+                      params=res.params, prompts=res.prompts)
+    rel = float((logits - eager.prefill_logits).abs().max()
+                / eager.prefill_logits.abs().max())
+    agree = float((res.seq == eager.seq).float().mean())
+    print(f"[measured:{arch}] kernel vs eager prefill logits: relative "
+          f"{rel:.4e} (tol {LOGIT_TOL}); greedy tokens agree "
+          f"{agree * 100:.1f}%; kernels: prefill ms {res.prefill_ms:.2f} of "
+          f"{[round(t, 2) for t in res.prefill_ms_runs]}, decode tok/s "
+          f"{res.decode_tok_s:.2f} of "
+          f"{[round(t, 2) for t in res.decode_tok_s_runs]}; eager: prefill "
+          f"ms {eager.prefill_ms:.2f} of "
+          f"{[round(t, 2) for t in eager.prefill_ms_runs]}, decode tok/s "
+          f"{eager.decode_tok_s:.2f} of "
+          f"{[round(t, 2) for t in eager.decode_tok_s_runs]}; measured "
+          f"H100 speedup of the tuned program {res.modelled_speedup:.3f}x",
+          flush=True)
+    if rel >= LOGIT_TOL:
+        fail(f"{arch}: prefill logits differ from eager: {rel:.3e}")
+    print(f"[measured:{arch}] tuned tiles: " + ", ".join(
+        f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
+        for s in res.sites), flush=True)
+    return res, counts
+
+
+def _f32(tree):
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_f32(v) for v in tree)
+    return tree.float()
+
+
+def xlstm_model_checks(res):
+    """The full-width xlstm_1_3b model, beyond kernel-vs-eager (K1 is
+    bitwise cuBLAS there, so that check alone cannot see a model fault):
+    its bf16 prefill logits differ across the batch rows and lie within
+    XL_F32_TOL of an f32 eager prefill of the same weights, and that f32
+    prefill (the chunkwise mLSTM) matches feeding the prompt one token at a
+    time through the f32 decode recurrence within RECUR_TOL."""
+    import torch
+    model, prompts, logits = res.model, res.prompts, res.prefill_logits
+    spread = [float((logits[i] - logits[0]).abs().max())
+              for i in range(1, BATCH)]
+    if min(spread) == 0.0:
+        fail(f"{XLSTM}: prefill logits equal across batch rows {spread}")
+    p32 = _f32(res.params)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref, _ = model.prefill(p32, {"tokens": prompts},
+                               model.make_cache(BATCH, PROMPT, device="cuda"))
+        cache = model.make_cache(BATCH, PROMPT, device="cuda")
+        for t in range(PROMPT):
+            rec, cache = model.decode_step(p32, prompts[:, t:t + 1], t, cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del p32, cache
+    top = float(ref.abs().max())
+    rel_f32 = float((logits - ref).abs().max()) / top
+    l2_f32 = float((logits - ref).norm() / ref.norm())
+    rel_rec = float((rec - ref).abs().max()) / top
+    print(f"[measured:{XLSTM}] bf16 prefill logits: rows differ from row 0 "
+          f"by max {[round(v, 3) for v in spread]}; argmax by row "
+          f"{logits.argmax(-1).tolist()} (f32 {ref.argmax(-1).tolist()}; "
+          f"last prompt tokens {prompts[:, -1].tolist()}); vs f32 eager: "
+          f"max {rel_f32:.4e} of the largest logit (tol {XL_F32_TOL}), l2 "
+          f"{l2_f32:.4e}; f32 chunkwise prefill vs f32 token-by-token decode "
+          f"over {PROMPT} tokens: {rel_rec:.4e} (tol {RECUR_TOL}); "
+          f"{wall:.1f} s", flush=True)
+    if not torch.isfinite(ref).all() or rel_f32 >= XL_F32_TOL:
+        fail(f"{XLSTM}: bf16 prefill logits {rel_f32:.3e} off f32")
+    if not torch.isfinite(rec).all() or rel_rec >= RECUR_TOL:
+        fail(f"{XLSTM}: chunkwise prefill {rel_rec:.3e} off the recurrence")
+
+
+def main_path():
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     argv = ["--arch", ARCH, "--full", "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--gen", str(GEN), "--autotune", "ppo",
             "--autotune-steps", str(STEPS), "--inject"]
     print(f"[main] serve.main({argv}) (full depth: 36 layers)", flush=True)
-    kmm.launches = 0
-    kfa.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = serve.main(argv)
     wall = time.perf_counter() - t0
-    counts = {"matmul": kmm.launches, "flash_attention": kfa.launches}
+    counts = read_counts()
     print(f"[main] launches in the run: {counts}; by phase: {res.launches}; "
           f"wall {wall:.1f} s (tuning included)", flush=True)
     cfg = res.model.cfg
     per_pass = cfg.n_layers * 7 + 1
-    want = {"prefill": {"matmul": per_pass, "flash_attention": cfg.n_layers},
+    want = {"prefill": {"matmul": per_pass, "flash_attention": cfg.n_layers,
+                        "chunk_scan": 0},
             "decode": {"matmul": per_pass * (GEN - 1),
-                       "flash_attention": 0}}
+                       "flash_attention": 0, "chunk_scan": 0}}
     if res.launches != want:
         fail(f"launch counts {res.launches} != {want}")
     # one untimed pass, then the timed prefills and decode windows
@@ -265,7 +567,7 @@ def main_path():
         s.key()])]
     if bad:
         fail(f"the tuned program names tiles that cannot launch: {bad}")
-    if any(c == 0 for c in counts.values()):
+    if counts["matmul"] == 0 or counts["flash_attention"] == 0:
         fail("a kernel of the path was never launched")
     logits = res.prefill_logits
     if logits.shape != (BATCH, cfg.vocab_size) or \
@@ -323,8 +625,6 @@ def main() -> int:
     from repro_torch.core.costmodel import baseline_tiles
     from repro_torch.core.extractor import extract_serve_sites
     from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import matmul as kmm
     from repro_torch.models.lm import build_model
 
     # ---- phase 1: device ----
@@ -359,8 +659,12 @@ def main() -> int:
     k1_sweep(sweep_site, gen)
     k2 = k2_checks(gen)
     torch.cuda.empty_cache()
+    xl_sites = extract_serve_sites(build_model(get_config(XLSTM)), BATCH,
+                                   PROMPT, GEN)
+    xl_scan = next(s for s in xl_sites if s.kind == "chunk_scan")
+    k3 = k3_checks(xl_scan, gen)
 
-    # ---- phase 4: main path ----
+    # ---- phase 4: the modelled main path ----
     res, counts = main_path()
     prog = res.prog.tiles
     k1_tuned, per_site_launches = {}, {}
@@ -377,8 +681,49 @@ def main() -> int:
                                              (PROMPT, PROMPT)))
     if t_att not in k2:
         fail(f"tuned attention tile {t_att} was not checked")
+    n_layers = model.cfg.n_layers
+    params, prompts = res.params, res.prompts
+    del res, model
+    torch.cuda.empty_cache()
 
-    # ---- phase 5: kernels line (one prefill + one decode step, tuned) ----
+    # ---- phase 5: the measured main paths ----
+    by_path = {"qwen3_8b modelled": counts}
+    q_res, by_path["qwen3_8b measured"] = measured_path(ARCH, params,
+                                                        prompts)
+    del q_res, params, prompts
+    torch.cuda.empty_cache()
+    x_res, by_path["xlstm_1_3b measured"] = measured_path(XLSTM)
+    xlstm_model_checks(x_res)
+    # K1 at each xLSTM shape it runs (the mLSTM q/k/v einsums never reach
+    # it), under the baseline and the tuned tile
+    seen = set()
+    for s in x_res.sites:
+        if s.kind != "matmul" or s.site in ("mlstm.q", "mlstm.k", "mlstm.v"):
+            continue
+        shape = (s.m, s.n, s.k, s.site == "lm_head")
+        for tiles, how in ((baseline_tiles(s), "baseline"),
+                           (x_res.prog.tiles[s.key()], "tuned")):
+            if (shape, tuple(tiles)) not in seen:
+                seen.add((shape, tuple(tiles)))
+                k1_check(shape, tiles, f"xlstm {how}:{s.site}", gen)
+    q_tuned = x_res.prog.tiles[xl_scan.key()][0]
+    q_base = baseline_tiles(xl_scan)[0]
+    if q_tuned not in k3 or q_base not in k3:
+        fail(f"K3 at the tuned chunk {q_tuned} or the baseline "
+             f"{q_base} was not checked")
+    pick = x_res.tuning["picks"][xl_scan.key()]
+    print(f"[measured:{XLSTM}] K3 site: tuned chunk {q_tuned} (timed "
+          f"{pick['pick_s'] * 1e3:.4f} ms by the runner), fastest timed "
+          f"{pick['best']} ({(pick['best_s'] or 0) * 1e3:.4f} ms), baseline "
+          f"{q_base}", flush=True)
+    del x_res
+    total = {k: sum(c[k] for c in by_path.values())
+             for k in ("matmul", "flash_attention", "chunk_scan")}
+
+    def path_counts(k):
+        return {p: c[k] for p, c in by_path.items()}
+
+    # ---- phase 6: kernels line ----
     def agg(recs, weights):
         """Launch-weighted sums; the bound is the sum of each launch's own
         bound, and ``bound_by`` the limit that holds for most of it."""
@@ -390,31 +735,50 @@ def main() -> int:
             by_time[by] += b * w
         return tot, sum(by_time.values()), max(by_time, key=by_time.get)
     k1_tot, k1_b, k1_by = agg(k1_tuned, per_site_launches)
-    k2_tot, k2_b, k2_by = agg(k2, {t_att: model.cfg.n_layers})
+    k2_tot, k2_b, k2_by = agg(k2, {t_att: n_layers})
+    r3 = k3[q_tuned]
     line = {"kernels": [
         {"name": "tiled_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:32",
-         "launches": counts["matmul"],
+         "launches": total["matmul"],
+         "launches_by_path": path_counts("matmul"),
          "max_abs_err": max(r["err"] for r in k1_tuned.values()),
          "max_rel_err": max(r["rel"] for r in k1_tuned.values()),
          "tolerance": f"rel {K1_TOL} vs f32 matmul",
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
          "bound_ms": k1_b * 1e3, "bound_by": k1_by,
          "library_ms": k1_tot["lib_ms"],
-         "work": "one prefill + one decode step of the main path, tuned "
-                 "tiles"},
+         "work": "one prefill + one decode step of the qwen3_8b modelled "
+                 "path, tuned tiles"},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
-         "launches": counts["flash_attention"],
+         "launches": total["flash_attention"],
+         "launches_by_path": path_counts("flash_attention"),
          "max_abs_err": max(r["err"] for r in k2.values()),
          "tolerance": f"abs {K2_TOL} vs plain version",
          "ms": k2_tot["ms"], "plain_ms": k2_tot["plain_ms"],
          "bound_ms": k2_b * 1e3, "bound_by": k2_by,
          "library_ms": k2_tot["lib_ms"],
-         "work": f"one prefill of the main path ({model.cfg.n_layers} "
-                 f"launches at tiles {t_att})"}]}
+         "work": f"one prefill of the qwen3_8b modelled path ({n_layers} "
+                 f"launches at tiles {t_att})"},
+        {"name": "ssd_chunk_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/chunk_scan.cu",
+         "replaces": "src/repro/kernels/chunk_scan.py:56",
+         "launches": total["chunk_scan"],
+         "launches_by_path": path_counts("chunk_scan"),
+         "max_abs_err": max(r["err"] for r in k3.values()),
+         "max_rel_err": max(r["rel"] for r in k3.values()),
+         "tolerance": f"{K3_TOL} of the largest |output| vs plain version",
+         "ms": r3["ms"], "plain_ms": r3["plain_ms"],
+         "bound_ms": r3["bound_s"] * 1e3, "bound_by": r3["bound_by"],
+         "library_ms": None,
+         "ms_by_chunk": {q: r["ms"] for q, r in k3.items()},
+         "work": f"one call at the xlstm_1_3b mlstm.chunk_scan site as the "
+                 f"runner builds it (G=1, S={xl_scan.batch * xl_scan.m}, "
+                 f"P=N={xl_scan.n}) at the tuned chunk Q={q_tuned}; no single "
+                 f"PyTorch call computes the scan"}]}
     print(json.dumps(line))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Carry weights across from the JAX package.
 
-``params_from_jax(np_params, cfg)`` maps the reference's parameter tree,
+``params_from_jax(np_params, cfg)`` maps the reference's parameter tree
+(the dense decoder's or the xLSTM stack's),
 with its leaves as numpy arrays, onto the port's.  The two trees have the
 same structure: each period slot's leaves stacked along a leading layer
 axis (``repro/models/lm.py:44-58``), every matmul weight ``w(K, N)`` with

@@ -12,8 +12,8 @@ TPU-v5e-modelled and says nothing about the H100.
 * ``"tpu_v5e"`` — VMEM overflow, exactly as the reference (parity);
 * ``"h100"`` — the Hopper kernel cannot launch the tile
   (``repro_torch.kernels.ops.tile_ok``), so "fails to compile" means the
-  same to the oracle and to the kernel.  Chunk-scan sites have no Hopper
-  kernel yet (K3 is not ported) and keep the VMEM rule.
+  same to the oracle and to the kernel, for all three kernels (K1, K2,
+  K3).
 
 Also provides the heuristic baseline tile pickers, verbatim.
 """
@@ -69,7 +69,7 @@ def _mxu_util(bm: int, bn: int, bk: int) -> float:
 
 
 def _legal(site: KernelSite, tiles, vmem: int, legality: str) -> bool:
-    if check_legality(legality) == "tpu_v5e" or site.kind == "chunk_scan":
+    if check_legality(legality) == "tpu_v5e":
         return vmem <= VMEM_BYTES
     return ops.tile_ok(site, tiles)
 

@@ -79,11 +79,14 @@ def attention_cost_vec(Sq, Skv, D, BH, causal, s, peak, bq, bkv,
     return np.where(legal, cost, ILLEGAL)
 
 
-def chunk_scan_cost_vec(m, P, N, batch, s, peak, Q) -> np.ndarray:
-    """No Hopper kernel yet (K3): the VMEM rule under either legality."""
+def chunk_scan_cost_vec(m, P, N, batch, s, peak, Q,
+                        legality: str = DEFAULT_LEGALITY) -> np.ndarray:
     tokens = batch * m
-    vmem = 2 * Q * (P + 2 * N) * s + P * N * 4 + Q * Q * 4
-    legal = vmem <= cm.VMEM_BYTES
+    if cm.check_legality(legality) == "tpu_v5e":
+        vmem = 2 * Q * (P + 2 * N) * s + P * N * 4 + Q * Q * 4
+        legal = vmem <= cm.VMEM_BYTES
+    else:
+        legal = ops.chunk_tiles_legal(tokens, P, N, Q)
     chunks_total = _ceil(tokens, Q)
     per_chunk = 2.0 * Q * Q * N + 2.0 * Q * Q * P + 4.0 * Q * P * N
     flops = per_chunk * chunks_total
@@ -137,7 +140,7 @@ def _cost_kind(kind: str, c: Dict[str, np.ndarray], tiles: np.ndarray,
                                   legality)
     if kind == "chunk_scan":
         return chunk_scan_cost_vec(c["m"], c["n"], c["k"], c["batch"],
-                                   c["s"], c["peak"], t0)
+                                   c["s"], c["peak"], t0, legality)
     raise ValueError(kind)
 
 
@@ -217,6 +220,17 @@ def costs_for_actions(space, sites, actions,
         tiles = _tiles_for_actions_kind(space, kind, acts[idx], idx)
         c = _site_cols([sites[i] for i in idx], grid=False)
         out[idx] = _cost_kind(kind, c, tiles, grid=False, legality=legality)
+    return out
+
+
+def tiles_for_actions(space, sites, actions) -> np.ndarray:
+    """(n, 3) tile values for per-site action indices (unused dims = 1):
+    the batched ``ActionSpace.tiles``, for oracles that price tiles rather
+    than action indices (``MeasuredEnv``)."""
+    acts = np.asarray(actions, np.int64).reshape(len(sites), -1)
+    out = np.ones((len(sites), 3), np.int64)
+    for kind, idx in group_by_kind(sites).items():
+        out[idx] = _tiles_for_actions_kind(space, kind, acts[idx], idx)
     return out
 
 

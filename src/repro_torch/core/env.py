@@ -1,13 +1,14 @@
 """The contextual-bandit environment (paper §3.3–3.4), the port of
-``repro/core/env.py`` (``ActionSpace`` and ``CostModelEnv``; the measured
-oracle waits).
+``repro/core/env.py`` (``ActionSpace``, ``CostModelEnv`` and the measured
+oracle ``MeasuredEnv``).
 
 State  = kernel site; Action = joint discrete factor indices
 (i_bm, i_bn, i_bk) for matmul, (i_bq, i_bkv, ·) for attention, (i_chunk,
 ·, ·) for chunk scans; Reward = (t_baseline − t_action) / t_baseline
 (eq. 2) with the −9 penalty for an illegal tile.  ``legality`` picks what
-is illegal (see :mod:`repro_torch.core.costmodel`); the time formula is the
-reference's TPU v5e model either way.
+is illegal (see :mod:`repro_torch.core.costmodel`); the time formula of
+``CostModelEnv`` is the reference's TPU v5e model either way, and
+``MeasuredEnv`` replaces it with timings of the kernels themselves.
 """
 from __future__ import annotations
 
@@ -177,3 +178,189 @@ class CostModelEnv:
         if not len(sites):
             return np.zeros((0,), np.float64)
         return costmodel_vec.costs_for_tiles(sites, tiles, self.legality)
+
+
+class MeasuredEnv(CostModelEnv):
+    """Hardware-measurement oracle: eq. 2 priced by wall-clock timings,
+    behind the same batched surface as :class:`CostModelEnv`.
+
+    ``measure_fn(sites, tiles) -> (n,) seconds`` is called at most once per
+    oracle entry point with every cache-missing, legal ``(site, tile)``
+    pair of that batch (``tiles`` an ``(n, 3)`` int array; unused dims are
+    1).  Non-finite or non-positive returns mark failed runs and count as
+    illegal (a failed *baseline* fails the site closed to the penalty).
+    Results, failures included, are cached per ``(site.key(), tiles)`` and
+    deduplicated within a batch.
+
+    Tiles illegal under ``legality`` are never sent to the hook: under
+    ``"h100"`` a tile the kernels cannot launch is not timed, under
+    ``"tpu_v5e"`` the reference's VMEM rule filters, as in the reference.
+    With ``measure_fn=None`` every query is priced by the cost model.
+
+    Circuit breaker: when the hook raises, or ``BREAKER_THRESHOLD``
+    consecutive batches come back with every pair failed, the breaker
+    opens and the oracle prices with the cost model instead of feeding
+    all-penalty rewards into training; ``health()`` is ``"degraded"``
+    while it is open, and cached failures from the collapse are purged.
+    It stays open until :meth:`reset_breaker`.  (The reference's surrogate
+    grid pruning is not ported yet.)
+    """
+
+    #: a down transport degrades this oracle rather than stopping tuning
+    can_degrade = True
+    #: consecutive all-failed batches that open the breaker (the
+    #: reference's default)
+    BREAKER_THRESHOLD = 2
+
+    def __init__(self, nv_cfg: NeuroVecConfig, measure_fn=None,
+                 seed: int = 0,
+                 legality: str = costmodel.DEFAULT_LEGALITY):
+        super().__init__(nv_cfg, seed=seed, legality=legality)
+        self.measure_fn = measure_fn
+        self.breaker_open = False
+        self.degraded_reason: Optional[str] = None
+        self._consec_failed_batches = 0
+        self._result_cache: Dict[Tuple[str, Tuple[int, int, int]],
+                                 float] = {}
+        self.measure_calls = 0          # hook invocations
+        self.measured_pairs = 0         # (site, tile) pairs sent to the hook
+
+    def clear_result_cache(self) -> None:
+        self._result_cache.clear()
+
+    def health(self) -> str:
+        return "degraded" if self.breaker_open else "ok"
+
+    def _trip_breaker(self, reason: str) -> None:
+        self.breaker_open = True
+        self.degraded_reason = reason
+        # failures cached during the collapse are artifacts of the dead
+        # measurement path: purge them so queries re-price with the model
+        for k in [k for k, v in self._result_cache.items()
+                  if not math.isfinite(v)]:
+            del self._result_cache[k]
+
+    def reset_breaker(self) -> None:
+        """Re-arm measurement after the backend recovers."""
+        self.breaker_open = False
+        self.degraded_reason = None
+        self._consec_failed_batches = 0
+
+    def timed_tiles(self, site: KernelSite) -> Dict[Tuple[int, ...], float]:
+        """Every tile of ``site`` this oracle holds a finite price for
+        (measured, or modelled while degraded), with its seconds."""
+        key = site.key()
+        return {t: v for (k, t), v in self._result_cache.items()
+                if k == key and math.isfinite(v)}
+
+    # -- the measured cost of explicit tiles --------------------------------
+    def _measured_costs(self, sites, tiles) -> np.ndarray:
+        """(n,) seconds per (site, tile) pair; ``inf`` = illegal/failed.
+        One batched hook call covering all cache misses."""
+        tiles = np.asarray(tiles, np.int64)
+        keys = [(s.key(), (int(t[0]), int(t[1]), int(t[2])))
+                for s, t in zip(sites, tiles)]
+        # first occurrence of each uncached key: duplicates in one batch
+        # (training samples sites with replacement) are measured once
+        first = {}
+        for i, k in enumerate(keys):
+            if k not in self._result_cache and k not in first:
+                first[k] = i
+        miss = list(first.values())
+        if miss:
+            m_sites = [sites[i] for i in miss]
+            m_tiles = tiles[miss]
+            vals = costmodel_vec.costs_for_tiles(m_sites, m_tiles,
+                                                 self.legality)
+            if self.measure_fn is not None and not self.breaker_open:
+                legal = np.flatnonzero(np.isfinite(vals))
+                if len(legal):
+                    try:
+                        raw = self.measure_fn(
+                            [m_sites[j] for j in legal], m_tiles[legal])
+                    except Exception as e:
+                        # a raising hook is a collapsed measurement path:
+                        # open the breaker, keep the model's prices
+                        self._trip_breaker(
+                            f"measure_fn raised {type(e).__name__}: {e}")
+                        raw = None
+                    if raw is not None:
+                        t = np.asarray(raw, np.float64).reshape(-1)
+                        if t.shape != (len(legal),):
+                            raise ValueError(
+                                f"measure_fn returned shape {t.shape}, "
+                                f"expected ({len(legal)},)")
+                        measured = np.where(np.isfinite(t) & (t > 0),
+                                            t, np.inf)
+                        self.measure_calls += 1
+                        self.measured_pairs += len(legal)
+                        if np.isfinite(measured).any():
+                            self._consec_failed_batches = 0
+                            vals[legal] = measured
+                        else:
+                            # one all-failed batch is data; a streak is a
+                            # dead backend: degrade
+                            self._consec_failed_batches += 1
+                            if self._consec_failed_batches \
+                                    >= self.BREAKER_THRESHOLD:
+                                self._trip_breaker(
+                                    f"{self._consec_failed_batches} "
+                                    f"consecutive all-failed "
+                                    f"measurement batches")
+                            else:
+                                vals[legal] = measured
+            for i, v in zip(miss, vals):
+                self._result_cache[keys[i]] = float(v)
+        gone = [i for i, k in enumerate(keys)
+                if k not in self._result_cache]
+        if gone:
+            # a mid-batch breaker trip purged these keys' cached failures:
+            # re-price them with the model
+            fresh = costmodel_vec.costs_for_tiles(
+                [sites[i] for i in gone], tiles[gone], self.legality)
+            for i, v in zip(gone, fresh):
+                self._result_cache[keys[i]] = float(v)
+        return np.array([self._result_cache[k] for k in keys], np.float64)
+
+    # -- Oracle surface (measured) ------------------------------------------
+    def costs_batch(self, sites, actions) -> np.ndarray:
+        if not len(sites):
+            return np.zeros((0,), np.float64)
+        tiles = costmodel_vec.tiles_for_actions(self.space, sites, actions)
+        return self._measured_costs(sites, tiles)
+
+    def baseline_costs(self, sites) -> np.ndarray:
+        if not len(sites):
+            return np.zeros((0,), np.float64)
+        return self._measured_costs(
+            sites, costmodel_vec.baseline_tiles_batch(sites))
+
+    def baseline_cost(self, site: KernelSite) -> float:
+        return float(self.baseline_costs([site])[0])
+
+    def cost(self, site: KernelSite, action: Sequence[int]) -> Optional[float]:
+        c = float(self.costs_batch([site], np.asarray([action]))[0])
+        return None if math.isinf(c) else c
+
+    def tiles_costs(self, sites, tiles) -> np.ndarray:
+        if not len(sites):
+            return np.zeros((0,), np.float64)
+        t = np.asarray(tiles, np.int64)
+        if t.ndim != 2 or t.shape[0] != len(sites):
+            raise ValueError(f"tiles must be (n_sites, k), got {t.shape}")
+        if t.shape[1] < 3:
+            t = np.concatenate(
+                [t, np.ones((len(t), 3 - t.shape[1]), np.int64)], 1)
+        return self._measured_costs(sites, t)
+
+    def cost_grid(self, sites) -> np.ndarray:
+        groups = costmodel_vec.group_by_kind(sites)
+        a_max = max((self.space.n_actions(k) for k in groups), default=0)
+        out = np.full((len(sites), a_max), np.inf, np.float64)
+        for kind, idx in groups.items():
+            tg = costmodel_vec.action_tiles_grid(self.space, kind)
+            rep_sites = [sites[i] for i in idx for _ in range(len(tg))]
+            rep_tiles = np.tile(tg, (len(idx), 1))
+            out[idx, :len(tg)] = self._measured_costs(
+                rep_sites, rep_tiles).reshape(len(idx), len(tg))
+        return out

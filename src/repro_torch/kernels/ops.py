@@ -17,6 +17,15 @@ lives in registers, and that is the limit:
 * attention: ``bq * D <= 128 * 128`` (16 rows a warp, at most 8 warps),
   and the blocks must divide the sequence (``Sq % bq == Skv % bkv == 0``).
   A decode site (Sq == 1) never launches K2, so any positive tile is fine.
+* chunk scan: the chunk ``Q`` is clamped to the sequence (``min(Q, S)``)
+  and must be at most 1024 (its cumsum lives in shared memory); the state
+  width N must be a multiple of 8 and at most 1024 (the CTA's slice of the
+  state, 16 rows by N, is 16 register tiles a warp).  P never limits (it
+  is split across CTAs), nor does the Q x Q score block (it goes through
+  a scratch in device memory).  The measurement runner snaps S up to a
+  multiple of the clamped chunk, as the reference's does, so at a site
+  divisibility never limits either; a direct call whose chunk does not
+  divide S raises ``ValueError`` on every device.
 
 ``CostModelEnv(legality="h100")`` prices exactly these tiles as illegal.
 """
@@ -27,6 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import chunk_scan as kcs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 
@@ -66,15 +76,28 @@ def attention_tiles_legal(Sq, Skv, D, bq, bkv):
     return pos & ((np.asarray(Sq) == 1) | launched)
 
 
+def chunk_tiles_legal(S, P, N, Q):
+    """Elementwise (numpy-broadcast) K3 launch predicate; ``S`` is the
+    number of scanned positions of a group.  ``P`` never limits."""
+    Q, N = np.asarray(Q, np.int64), np.asarray(N, np.int64)
+    q_e = np.minimum(Q, S)
+    return ((Q > 0) & (q_e <= kcs.Q_MAX) & (N >= 8) & (N % 8 == 0)
+            & (N <= kcs.N_MAX))
+
+
 def tile_ok(site, tiles) -> bool:
     """True when the Hopper kernel for ``site`` launches with ``tiles``.
-    Sites of a kind without a Hopper kernel (``chunk_scan``) are False."""
+    A chunk-scan site scans ``batch * m`` positions (one group, as the
+    measurement runner materialises it)."""
     if site.kind == "matmul":
         return bool(matmul_tiles_legal(site.m, site.n, site.k, *tiles[:3]))
     if site.kind == "attention":
         return bool(attention_tiles_legal(site.m, site.k, site.n,
                                           *tiles[:2]))
-    return False
+    if site.kind == "chunk_scan":
+        return bool(chunk_tiles_legal(site.batch * site.m, site.n, site.k,
+                                      tiles[0]))
+    raise ValueError(site.kind)
 
 
 def matmul_tile_plan(M: int, N: int, K: int, tiles):
@@ -132,3 +155,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         bq=bq, bkv=bkv)
     return kfa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      bq=bq, bkv=bkv)
+
+
+def chunk_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+               la: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """The SSD chunk scan through K3 (CUDA) or its plain version (CPU).
+    x (G,S,P); Bm/Cm (G,S,N); la (G,S) log-decay; ``chunk`` the tuned Q."""
+    if _route(x) == "cuda":
+        return kcs.chunk_scan_cuda(x, Bm, Cm, la, chunk=chunk)
+    return kcs.chunk_scan_plain(x, Bm, Cm, la, chunk=chunk)

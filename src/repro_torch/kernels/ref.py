@@ -20,3 +20,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def chunk_scan_ref(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   la: torch.Tensor) -> torch.Tensor:
+    """Sequential oracle for the SSD scan, in f32.  x (G,S,P); Bm/Cm
+    (G,S,N); la (G,S) log-decay.  -> y (G,S,P) in ``x.dtype``."""
+    G, S, P = x.shape
+    N = Bm.shape[-1]
+    xf, bf, cf, lf = (t.float() for t in (x, Bm, Cm, la))
+    state = torch.zeros((G, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        state = (state * torch.exp(lf[:, t])[:, None, None]
+                 + xf[:, t, :, None] * bf[:, t, None, :])
+        ys.append(torch.einsum("gpn,gn->gp", state, cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype)

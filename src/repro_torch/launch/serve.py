@@ -1,22 +1,31 @@
-"""Serving driver: batched prefill + greedy decode with a KV cache, under a
-tile program a PPO agent tuned (the port of ``repro/launch/serve.py``).
+"""Serving driver: batched prefill + greedy decode with a KV/state cache,
+under a tile program a PPO agent tuned (the port of
+``repro/launch/serve.py``).
 
 The paper's train-once, tune-and-deploy loop (§4.2): extract the kernel
-sites of the prefill and decode steps, fit the PPO agent against the
-analytic oracle (``legality="h100"``: tiles the Hopper kernels cannot
-launch are illegal), greedily tune the sites into a ``TileProgram`` (the
-greedy pick taken over the legal tiles), and with ``--inject`` run every
-matmul and prefill-attention site through the hand-written kernels with
-exactly those tiles: a tile they cannot launch (from ``--tiles``) stops the
-run with ``TileError``.  Runs on the GPU unless ``--device cpu`` is given::
+sites of the prefill and decode steps, fit the PPO agent against a reward
+oracle with ``legality="h100"`` (tiles the Hopper kernels cannot launch are
+illegal), greedily tune the sites into a ``TileProgram`` (the greedy pick
+taken over the legal tiles), and with ``--inject`` run every matmul and
+prefill-attention site through the hand-written kernels with exactly those
+tiles: a tile they cannot launch (from ``--tiles``) stops the run with
+``TileError``.  Runs on the GPU unless ``--device cpu`` is given::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b --full \\
-      --batch 4 --prompt-len 512 --gen 16 --autotune ppo --inject
+      --batch 4 --prompt-len 512 --gen 16 --autotune ppo --measured --inject
 
-After one untimed pass, prefill ms is the median of ``PREFILL_REPS`` timed
-prefills and decode tokens/s the median of ``DECODE_REPS`` timed decode
-windows.  The printed speedup is the cost model's (TPU v5e constants), not
-an H100 measurement.
+The oracle is the analytic cost model (TPU v5e constants: its speedup is
+not an H100 number) unless ``--measured`` is given: then the reward is
+the measured time of the kernels themselves at each site's shapes (paper
+eq. 2; ``repro_torch.measure``), on the card, or of their plain versions
+at capped shapes with ``--device cpu``.  ``--measure-db PATH`` keeps the
+timings, so a repeat run times nothing; ``--measure-reps`` sets the timing
+repetitions per pair.
+
+After one untimed pass, prefill ms is the median of ``PREFILL_REPS``
+timed prefills and decode tokens/s the median of ``DECODE_REPS`` timed
+decode windows; every prefill starts from a fresh cache and every decode
+window from the cache the prefill left (the xLSTM state is recurrent).
 """
 from __future__ import annotations
 
@@ -33,10 +42,12 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.neurovec import DEFAULT
 from repro_torch.core.env import CostModelEnv
+from repro_torch.core.protocols import resolve_health
 from repro_torch.core.extractor import extract_serve_sites
 from repro_torch.core.vectorizer import (TileProgram, inject,
                                          program_speedup, tune)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import chunk_scan as kcs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 from repro_torch.models.lm import build_model
@@ -63,6 +74,7 @@ class ServeResult:
                                                    # for one untimed pass
     prefill_ms_runs: list = field(default_factory=list)
     decode_tok_s_runs: list = field(default_factory=list)
+    tuning: dict = field(default_factory=dict)     # see _tile_plan
 
 
 def parse_args(argv=None):
@@ -81,6 +93,14 @@ def parse_args(argv=None):
     ap.add_argument("--tiles", default=None,
                     help="load a saved TileProgram instead of tuning")
     ap.add_argument("--save-tiles", default=None)
+    ap.add_argument("--measured", action="store_true",
+                    help="tune against the measured times of the kernels "
+                         "(repro_torch.measure) instead of the cost model")
+    ap.add_argument("--measure-db", default=None,
+                    help="persistent measurement-DB path (repeat runs "
+                         "against the same path time nothing)")
+    ap.add_argument("--measure-reps", type=int, default=3,
+                    help="timing repetitions per (site, tile) pair")
     ap.add_argument("--inject", action="store_true",
                     help="run the model through the kernels with the tiles")
     ap.add_argument("--device", default="cuda",
@@ -92,13 +112,24 @@ def parse_args(argv=None):
         ap.error("pass --autotune or --tiles, not both")
     if args.gen < 1 or args.batch < 1 or args.prompt_len < 1:
         ap.error("--batch, --prompt-len and --gen must be >= 1")
+    if args.measured and (args.tiles or not args.autotune):
+        ap.error("--measured requires --autotune and no --tiles (it "
+                 "changes the tuning oracle; --tiles loads a finished plan)")
+    if args.measure_reps < 1:
+        ap.error(f"--measure-reps must be >= 1, got {args.measure_reps}")
+    if args.measure_db and not args.measured:
+        ap.error("--measure-db applies only to --measured tuning")
     return args
 
 
-def _tile_plan(args, model, device):
-    """Extract the serving sites and tune (or load) a TileProgram."""
-    sites = extract_serve_sites(model, args.batch, args.prompt_len, args.gen)
-    env = CostModelEnv(DEFAULT, legality="h100")
+def _tile_plan(args, sites, device):
+    """Tune (or load) a TileProgram for the serving sites.
+
+    Returns ``(prog, speedup, tuning)``: ``tuning`` holds what the
+    measured oracle did (``measured``, ``fit_s``, ``stats``, ``health``,
+    ``backend_key``, ``failures``, ``breaker_open``, ``picks``)."""
+    legal_env = CostModelEnv(DEFAULT, legality="h100")
+    env, tuning = legal_env, {"measured": bool(args.measured)}
     if args.tiles:
         prog = TileProgram.load(args.tiles)
         missing = sorted({s.site for s in sites if s.key() not in prog.tiles})
@@ -107,16 +138,68 @@ def _tile_plan(args, model, device):
                   f"baseline tiles: {', '.join(missing)}", file=sys.stderr)
     else:
         from repro_torch.core.agents.ppo import PPOAgent
+        if args.measured:
+            from repro_torch.measure import make_measured_env
+            env = make_measured_env(DEFAULT, db_path=args.measure_db,
+                                    reps=args.measure_reps,
+                                    device=str(device), legality="h100")
+            print(f"[serve] measured oracle: transport=inproc "
+                  f"reps={args.measure_reps} db={args.measure_db or '-'} "
+                  f"({env.measure_fn.transport.backend_key})")
         agent = PPOAgent(DEFAULT, seed=0, device=str(device))
+        t0 = time.perf_counter()
         agent.fit(sites, env, total_steps=args.autotune_steps)
-        prog = tune(sites, agent, env.space, env)
+        tuning["fit_s"] = time.perf_counter() - t0
+        # the legal mask comes from the cost model under the same legality:
+        # the measured env would time the whole grid for it
+        prog = tune(sites, agent, env.space, legal_env)
         if args.save_tiles:
             prog.save(args.save_tiles)
     sp = program_speedup(prog, sites, env)
+    if args.measured:
+        _report_measured(env, prog, sites, sp, tuning)
+        env.measure_fn.transport.close()        # the DB's file handle
+    else:
+        print(f"[serve] tile plan: {len(prog.tiles)} tiles over "
+              f"{len(sites)} sites, TPU-v5e-modelled speedup {sp:.3f}x "
+              f"(cost model, not an H100 measurement)")
+    return prog, sp, tuning
+
+
+def _report_measured(env, prog, sites, sp, tuning):
+    """Print and keep what the measured oracle did: the measured speedup,
+    the transport's counters, health, every failure, and per site the
+    agent's pick beside the fastest tile it timed."""
+    t = env.measure_fn.transport
+    st = t.stats()
+    runner = t.runner
+    where = (torch.cuda.get_device_name(runner.device)
+             if runner.device.type == "cuda" else "CPU plain-version")
+    tuning.update(stats=st, health=resolve_health(env, t),
+                  backend_key=t.backend_key, failures=list(runner.failures),
+                  breaker_open=env.breaker_open, picks={})
     print(f"[serve] tile plan: {len(prog.tiles)} tiles over {len(sites)} "
-          f"sites, TPU-v5e-modelled speedup {sp:.3f}x (cost model, not an "
-          f"H100 measurement)")
-    return prog, sites, sp
+          f"sites, measured {where} time speedup {sp:.3f}x over the "
+          f"baseline tiles (fit {tuning.get('fit_s', 0.0):.1f} s)")
+    print(f"[serve] measurements: {st['transport_timed_pairs_total']} timed, "
+          f"{st['transport_failed_pairs_total']} failed, "
+          f"{st['transport_hits_total']} DB hits, "
+          f"{st['transport_coalesced_total']} coalesced "
+          f"({t.backend_key}); health: {tuning['health']}"
+          + (f" ({env.degraded_reason})" if env.breaker_open else ""))
+    for key, tiles, err in runner.failures:
+        print(f"[serve] failed pair {key} {tiles}: {err}")
+    for s in sites:
+        pick = tuple(prog.tiles[s.key()])
+        timed = env.timed_tiles(s)
+        t_pick = float(env.tiles_costs([s], [pick[:3]])[0])
+        best = min(timed, key=timed.get) if timed else None
+        tuning["picks"][s.key()] = {
+            "pick": pick, "pick_s": t_pick, "best": best,
+            "best_s": timed[best] if best else None, "n_timed": len(timed)}
+        print(f"[serve] {s.site}@m{s.m}: pick {pick} {t_pick * 1e3:.4f} ms; "
+              f"fastest of {len(timed)} timed "
+              f"{best} {timed[best] * 1e3 if best else float('nan'):.4f} ms")
 
 
 def _sync(device):
@@ -125,7 +208,8 @@ def _sync(device):
 
 
 def _counts():
-    return {"matmul": kmm.launches, "flash_attention": kfa.launches}
+    return {"matmul": kmm.launches, "flash_attention": kfa.launches,
+            "chunk_scan": kcs.launches}
 
 
 def _diff(after, before):
@@ -142,6 +226,41 @@ def _decode(serve, params, logits, cache, args):
     return torch.cat(out, dim=1), cache
 
 
+def _check_kernel_sites(cfg, sites) -> None:
+    """The CUDA kernels take bfloat16 at every kernel site and head dim
+    128 at prefill attention (Sq > 1)."""
+    bad = sorted({s.dtype for s in sites if s.dtype != "bfloat16"})
+    dims = sorted({s.n for s in sites if s.kind == "attention" and s.m > 1
+                   and s.n != kfa.HEAD_DIM})
+    if bad or dims:
+        raise ValueError(
+            f"{cfg.name}: the CUDA kernels take bfloat16 at every kernel "
+            f"site and head dim {kfa.HEAD_DIM} at prefill attention; the "
+            f"sites have dtypes {bad or ['bfloat16']} and attention head "
+            f"dims {dims or [kfa.HEAD_DIM]} (the reduced test config?); "
+            f"pass --full")
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a cache tree into another of the same structure, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (tuple, list)):
+        for d, s_ in zip(dst, src):
+            _copy_into(d, s_)
+    else:
+        dst.copy_(src)
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_clone(v) for v in tree)
+    return tree.clone()
+
+
 def run(args, params=None, prompts=None) -> ServeResult:
     """Serve one batch.  ``params`` (a parameter tree on ``args.device``)
     and ``prompts`` ((B, prompt_len) ints) replace the seeded ones."""
@@ -149,13 +268,13 @@ def run(args, params=None, prompts=None) -> ServeResult:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    if args.inject and device.type == "cuda" and (
-            cfg.dtype != "bfloat16" or cfg.head_dim != kfa.HEAD_DIM):
-        raise ValueError(
-            f"{cfg.name}: the CUDA kernels take bfloat16 and head dim "
-            f"{kfa.HEAD_DIM}, the config has {cfg.dtype} and "
-            f"{cfg.head_dim} (the reduced test config); pass --full")
     model = build_model(cfg)
+    sites = []
+    if args.autotune or args.tiles:
+        sites = extract_serve_sites(model, args.batch, args.prompt_len,
+                                    args.gen)
+        if args.inject and device.type == "cuda":
+            _check_kernel_sites(cfg, sites)
     if params is None:
         params = model.init(seed=0, device=device)
     B = args.batch
@@ -164,13 +283,16 @@ def run(args, params=None, prompts=None) -> ServeResult:
         prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                                 generator=gen)
     prompts = torch.as_tensor(prompts, dtype=torch.long).to(device)
-    cache = model.make_cache(B, args.prompt_len + args.gen, device=device)
+    fresh = model.make_cache(B, args.prompt_len + args.gen, device=device)
+    cache = _clone(fresh)
     prefill = make_prefill_step(model)
     serve = make_serve_step(model)
 
-    prog, sites, sp = None, [], None
-    if args.autotune or args.tiles:
-        prog, sites, sp = _tile_plan(args, model, device)
+    prog, sp, tuning = None, None, {}
+    c_tune = _counts()
+    if sites:
+        prog, sp, tuning = _tile_plan(args, sites, device)
+    tuning["launches"] = _diff(_counts(), c_tune)
     run_ctx = inject(prog) if (prog is not None and args.inject) \
         else contextlib.nullcontext()
 
@@ -182,15 +304,20 @@ def run(args, params=None, prompts=None) -> ServeResult:
         c1 = _counts()
         seq, cache = _decode(serve, params, logits, cache, args)
         launches = {"prefill": _diff(c1, c0), "decode": _diff(_counts(), c1)}
-        # each pass rewrites the same cache slots with the same values
+        # every prefill starts from a fresh cache, every decode window from
+        # the cache the last prefill left (the copies are not timed)
         prefill_s, decode_s = [], []
         for _ in range(PREFILL_REPS):
+            _copy_into(cache, fresh)
             _sync(device)
             t0 = time.perf_counter()
             logits, cache = prefill(params, {"tokens": prompts}, cache)
             _sync(device)
             prefill_s.append(time.perf_counter() - t0)
+        after_prefill = _clone(cache)
         for _ in range(DECODE_REPS):
+            _copy_into(cache, after_prefill)
+            _sync(device)
             t0 = time.perf_counter()
             seq, cache = _decode(serve, params, logits, cache, args)
             _sync(device)
@@ -212,7 +339,7 @@ def run(args, params=None, prompts=None) -> ServeResult:
     return ServeResult(model=model, params=params, prompts=prompts, seq=seq,
                        prefill_logits=logits, prefill_ms=prefill_ms,
                        decode_tok_s=decode_tok_s, prog=prog, sites=sites,
-                       modelled_speedup=sp, launches=launches,
+                       modelled_speedup=sp, launches=launches, tuning=tuning,
                        prefill_ms_runs=prefill_ms_runs,
                        decode_tok_s_runs=decode_tok_s_runs)
 

@@ -52,8 +52,9 @@ def apply_attn(cfg: ModelConfig, p, x, *, positions, causal: bool,
     if cfg.qk_norm:
         q = rms_head_norm(q, p["q_norm"])
         k = rms_head_norm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope != "none":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     base_offset = 0
     if cache is not None:

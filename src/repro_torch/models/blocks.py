@@ -1,32 +1,63 @@
-"""Per-BlockDesc init/apply: one period slot = mixer + MLP (the port of
-``repro/models/blocks.py``; only the dense attention block, which
-``lm.build_model`` checks for)."""
+"""Per-BlockDesc init/apply: one period slot = mixer + optional MLP (the
+port of ``repro/models/blocks.py`` for the block kinds ``lm.build_model``
+admits: attention with a dense MLP, and the xLSTM ``mlstm``/``slstm``
+blocks without one)."""
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.configs.base import BlockDesc, ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, xlstm
 from repro_torch.models.common import apply_mlp, apply_norm, mlp_init, norm_init
 
 
 def block_init(cfg: ModelConfig, b: BlockDesc, gen, dtype, device):
-    return {"norm1": norm_init(cfg.d_model, dtype, device),
-            "mixer": attention.attn_init(cfg, gen, dtype, device),
-            "norm2": norm_init(cfg.d_model, dtype, device),
-            "mlp": mlp_init(cfg, gen, dtype, device)}
+    ln = cfg.norm == "layernorm"
+    p = {"norm1": norm_init(cfg.d_model, dtype, device, bias=ln)}
+    if b.kind == "attn":
+        p["mixer"] = attention.attn_init(cfg, gen, dtype, device)
+    elif b.kind == "mlstm":
+        p["mixer"] = xlstm.mlstm_init(cfg, gen, dtype, device)
+    elif b.kind == "slstm":
+        p["mixer"] = xlstm.slstm_init(cfg, gen, dtype, device)
+    else:
+        raise ValueError(b.kind)
+    if b.mlp != "none":
+        p["norm2"] = norm_init(cfg.d_model, dtype, device, bias=ln)
+        p["mlp"] = mlp_init(cfg, gen, dtype, device)
+    return p
 
 
 def block_cache(cfg: ModelConfig, b: BlockDesc, batch: int, ctx: int, dtype,
                 device):
-    return attention.make_attn_cache(cfg, batch, ctx, dtype, device)
+    if b.kind == "attn":
+        return attention.make_attn_cache(cfg, batch, ctx, dtype, device)
+    if b.kind == "mlstm":
+        return xlstm.make_mlstm_cache(cfg, batch, device)
+    if b.kind == "slstm":
+        return xlstm.make_slstm_cache(cfg, batch, device)
+    raise ValueError(b.kind)
 
 
 def block_apply(cfg: ModelConfig, b: BlockDesc, p, x, *, positions,
                 causal: bool = True, cache: Optional[dict] = None,
                 decode_pos: Optional[int] = None):
+    """The block's output; ``cache`` (views into the stacked cache) is
+    updated in place."""
     h = apply_norm(p["norm1"], x)
-    x = x + attention.apply_attn(cfg, p["mixer"], h, positions=positions,
+    if b.kind == "attn":
+        y = attention.apply_attn(cfg, p["mixer"], h, positions=positions,
                                  causal=causal, cache=cache,
                                  decode_pos=decode_pos)
-    return x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x))
+    elif b.kind == "mlstm":
+        y = xlstm.apply_mlstm(cfg, p["mixer"], h, cache=cache,
+                              decode_pos=decode_pos, chunk=cfg.ssm_chunk)
+    elif b.kind == "slstm":
+        y = xlstm.apply_slstm(cfg, p["mixer"], h, cache=cache,
+                              decode_pos=decode_pos)
+    else:
+        raise ValueError(b.kind)
+    x = x + y
+    if b.mlp != "none":
+        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x))
+    return x

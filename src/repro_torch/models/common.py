@@ -1,6 +1,6 @@
-"""Shared layers: RMSNorm, RoPE, the gated SiLU MLP and init helpers (the
-port of ``repro/models/common.py`` for the dense path ``lm.build_model``
-admits).  Parameters are plain dicts of tensors."""
+"""Shared layers: RMSNorm and LayerNorm, RoPE, the gated SiLU MLP, GELU
+and init helpers (the port of ``repro/models/common.py`` for the paths
+``lm.build_model`` admits).  Parameters are plain dicts of tensors."""
 from __future__ import annotations
 
 import math
@@ -29,15 +29,36 @@ def dense_init(gen: Optional[torch.Generator], shape, dtype, device,
     return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
 
 
-def norm_init(d: int, dtype, device):
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def norm_init(d: int, dtype, device, bias: bool = False):
+    """RMSNorm's scale, plus LayerNorm's bias when ``bias``
+    (``cfg.norm == "layernorm"``)."""
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if bias:
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 def apply_norm(p, x):
-    """RMSNorm in f32, cast back, as the reference does."""
+    """In f32, cast back, as the reference does: LayerNorm (eps 1e-5) when
+    the parameters carry a bias, else RMSNorm (eps 1e-6)."""
     xf = x.float()
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5)
+        return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
     var = (xf ** 2).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + 1e-6) * p["scale"].float()).to(x.dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def log_sigmoid(x):
+    """``-softplus(-x)``, as the reference writes it."""
+    return -F.softplus(-x)
 
 
 def rms_head_norm(x, scale):

@@ -2,6 +2,7 @@
 technique (the port of ``repro/models/compute.py``).
 
 Every tunable hot op goes through :func:`matmul` / :func:`flash_attention`
+(or :func:`einsum`, which records a matmul site and never runs a kernel)
 with a *site* label.  Modes:
 
 * ``eager``  — plain PyTorch ops (the default; the reference's ``xla``).
@@ -114,6 +115,34 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, site: str,
         y = ops.matmul(x.reshape(M, K), w, tiles=_tiles_for(st, ksite))
         return y.reshape(*lead, N)
     return torch.matmul(x, w)
+
+
+def einsum(spec: str, *args: torch.Tensor, site: str) -> torch.Tensor:
+    """Non-canonical contractions (per-head block-diagonal projections).
+    Recorded as a matmul site with flattened dims, as the reference does;
+    always run by ``torch.einsum``: the kernels only take the canonical
+    (M,K) x (K,N) shape, and the reference's ``einsum`` runs XLA too."""
+    out = torch.einsum(spec, *args)
+    st = _STATE
+    if st.recorder is not None:
+        n = int(out.shape[-1])
+        m = int(math.prod(out.shape[:-1])) if out.dim() > 1 else 1
+        # contraction length from the (last) weight operand
+        k = int(args[-1].shape[-2]) if args[-1].dim() >= 2 else 1
+        st.recorder.record(KernelSite(site=site, kind="matmul", m=m, n=n,
+                                      k=k, dtype=dtype_name(args[0].dtype)))
+    return out
+
+
+def record_chunk_scan(site: str, *, chunk: int, P: int, N: int,
+                      batch: int, dtype: torch.dtype) -> None:
+    """Record a chunk-scan site when a recorder is installed (the scan
+    itself stays plain PyTorch, as the reference keeps it in XLA)."""
+    st = _STATE
+    if st.recorder is not None:
+        st.recorder.record(KernelSite(site=site, kind="chunk_scan", m=chunk,
+                                      n=P, k=N, batch=batch,
+                                      dtype=dtype_name(dtype)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,5 +1,5 @@
-"""Decoder-only model builder (the port of ``repro/models/lm.py``, dense
-path).  ``build_model(cfg)`` returns a :class:`Model` of plain functions:
+"""Decoder-only model builder (the port of ``repro/models/lm.py``: the
+dense decoder and the xLSTM stack).  ``build_model(cfg)`` returns a :class:`Model` of plain functions:
 
 * ``init(seed, device)``                          -> params
 * ``train_loss(params, batch)``                   -> (loss, metrics), forward
@@ -36,16 +36,23 @@ class Model:
     make_cache: Callable
 
 
+_PORTED_BLOCKS = (BlockDesc("attn", "dense"), BlockDesc("mlstm", "none"),
+                  BlockDesc("slstm", "none"))
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    """The port runs Qwen3's dense decoder path: attention + gated-SiLU MLP
-    blocks, RMSNorm, 1-D RoPE, an untied head."""
-    if (cfg.enc_dec or cfg.frontend != "none" or cfg.tie_embeddings
-            or cfg.mla or cfg.norm != "rmsnorm" or cfg.act != "silu"
-            or cfg.rope != "1d"
-            or any(b != BlockDesc("attn", "dense") for b in cfg.period)):
+    """The port runs decoder stacks of attention + gated-SiLU MLP blocks
+    (1-D RoPE or none) and of mLSTM/sLSTM blocks, with RMSNorm or
+    LayerNorm and a tied or untied head."""
+    has_attn = any(b.kind == "attn" for b in cfg.period)
+    if (cfg.enc_dec or cfg.frontend != "none" or cfg.mla
+            or cfg.norm not in ("rmsnorm", "layernorm")
+            or any(b not in _PORTED_BLOCKS for b in cfg.period)
+            or (has_attn and (cfg.act != "silu"
+                              or cfg.rope not in ("1d", "none")))):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense decoder path (attention + gated "
-            f"SiLU MLP, RMSNorm, 1-D RoPE, untied head) is ported")
+            f"{cfg.name}: not ported yet; the port runs attention + gated "
+            f"SiLU MLP blocks (1-D RoPE or none) and mLSTM/sLSTM blocks")
 
 
 def _stacked(n: int, make):
@@ -82,9 +89,11 @@ def model_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
         gen.manual_seed(seed)
     p = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
                              device, scale=cfg.d_model ** -0.5),
-         "final_norm": norm_init(cfg.d_model, dtype, device),
-         "head": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
-                            device)}
+         "final_norm": norm_init(cfg.d_model, dtype, device,
+                                 bias=cfg.norm == "layernorm")}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+                               device)
     p["blocks"] = tuple(
         _stacked(cfg.n_periods,
                  lambda b=b: blocks.block_init(cfg, b, gen, dtype, device))
@@ -103,8 +112,10 @@ def _embed(cfg, params, tokens):
 
 
 def _logits(cfg, params, x):
-    # head.T is a strided view: K1 reads it in place, no copy per step
-    return compute.matmul(x, params["head"].T, site="lm_head").float()
+    # head.T (or the tied embed.T) is a strided view: K1 reads it in
+    # place, no copy per step
+    head = params["embed"] if cfg.tie_embeddings else params["head"]
+    return compute.matmul(x, head.T, site="lm_head").float()
 
 
 def decoder_forward(cfg, params, tokens, caches=None, decode_pos=None):
@@ -116,7 +127,7 @@ def decoder_forward(cfg, params, tokens, caches=None, decode_pos=None):
         for slot, b in enumerate(cfg.period):
             cache = None
             if caches is not None:
-                cache = {"k": caches[slot]["k"][i], "v": caches[slot]["v"][i]}
+                cache = {k: v[i] for k, v in caches[slot].items()}
             x = blocks.block_apply(cfg, b, _layer(params["blocks"][slot], i),
                                    x, positions=positions, causal=True,
                                    cache=cache, decode_pos=decode_pos)
@@ -143,9 +154,10 @@ def make_cache(cfg: ModelConfig, batch: int, ctx: int, dtype=None,
     caches = []
     for b in cfg.period:
         one = blocks.block_cache(cfg, b, batch, ctx, dtype, device)
-        caches.append({k: torch.zeros((cfg.n_periods,) + tuple(v.shape),
-                                      dtype=v.dtype, device=v.device)
-                       for k, v in one.items()})
+        # one copy a layer of the slot's initial cache (xLSTM's stabiliser
+        # starts at -1e30, not 0)
+        caches.append({k: v[None].expand((cfg.n_periods,) + tuple(v.shape))
+                       .clone() for k, v in one.items()})
     return {"caches": tuple(caches)}
 
 

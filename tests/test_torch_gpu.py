@@ -9,7 +9,9 @@ package, so it runs where only PyTorch is installed:
 Tolerances are for bf16: K1 within 3e-2 relative of the f32 product (bf16
 output rounding over f32 accumulation, as ``tests/test_kernels.py``); K2
 within 2e-2 absolute of its plain version (bf16 output and bf16-rounded
-probabilities in both, |out| < ~1).
+probabilities in both, |out| < ~1); K3 within 3e-2 of its plain version
+relative to the largest output (the scores, the state and x·decay enter
+the tensor cores rounded to bf16, 2^-9 each, and the output is bf16).
 """
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.extractor import extract_serve_sites
 from repro_torch.core.vectorizer import baseline_program, inject
+from repro_torch.kernels import chunk_scan as kcs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels import ops
@@ -27,6 +30,7 @@ pytestmark = pytest.mark.gpu
 
 K1_REL_TOL = 3e-2
 K2_ABS_TOL = 2e-2
+K3_REL_TOL = 3e-2
 
 
 @pytest.fixture
@@ -159,3 +163,54 @@ def test_serve_refuses_the_reduced_f32_config_under_inject(cuda):
     with pytest.raises(ValueError, match="--full"):
         serve.main(["--autotune", "ppo", "--autotune-steps", "64",
                     "--inject"])
+
+
+def _scan_inputs(G, S, P, N, device, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: rng.standard_normal(sh, dtype=np.float32)
+    x = torch.from_numpy(f(G, S, P)).to(device).bfloat16()
+    Bm = torch.from_numpy(f(G, S, N) * 0.3).to(device).bfloat16()
+    Cm = torch.from_numpy(f(G, S, N) * 0.3).to(device).bfloat16()
+    la = -torch.nn.functional.softplus(torch.from_numpy(f(G, S))).to(device)
+    return x, Bm, Cm, la.bfloat16()
+
+
+@pytest.mark.parametrize("G,S,P,N,Q", [
+    (1, 8192, 1024, 1024, 256),      # the xLSTM serve site at the runner
+    (1, 2048, 1024, 1024, 1024),     # the largest chunk
+    (1, 4096, 64, 16, 256),          # a Mamba-2 head
+    (3, 384, 40, 24, 128),           # ragged P, N not a multiple of 16
+    (2, 200, 32, 16, 40),            # a chunk that is no multiple of 16
+])
+def test_chunk_scan_kernel_matches_plain(cuda, G, S, P, N, Q):
+    x, Bm, Cm, la = _scan_inputs(G, S, P, N, cuda)
+    before = kcs.launches
+    y = ops.chunk_scan(x, Bm, Cm, la, chunk=Q)
+    torch.cuda.synchronize()
+    assert kcs.launches == before + 1
+    want = kcs.chunk_scan_plain(x, Bm, Cm, la, chunk=Q).float()
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+    assert _rel_err(y, want) < K3_REL_TOL
+
+
+def test_chunk_scan_kernel_matches_the_sequential_oracle(cuda):
+    from repro_torch.kernels import ref
+    x, Bm, Cm, la = _scan_inputs(2, 256, 48, 32, cuda, seed=1)
+    want = ref.chunk_scan_ref(x.float(), Bm.float(), Cm.float(), la.float())
+    for Q in (64, 128, 256):
+        y = ops.chunk_scan(x, Bm, Cm, la, chunk=Q)
+        assert _rel_err(y, want) < K3_REL_TOL
+
+
+def test_chunk_scan_refuses(cuda):
+    x, Bm, Cm, la = _scan_inputs(1, 4096, 32, 16, cuda)
+    with pytest.raises(kmm.TileError):
+        ops.chunk_scan(x, Bm, Cm, la, chunk=2048)
+    with pytest.raises(ValueError, match="divide"):
+        ops.chunk_scan(x, Bm, Cm, la, chunk=384)
+    with pytest.raises(TypeError):
+        ops.chunk_scan(x.float(), Bm, Cm, la, chunk=256)
+    for n in (12, 2048):
+        x2, b2, c2, l2 = _scan_inputs(1, 512, 32, n, cuda)
+        with pytest.raises(kmm.TileError):
+            ops.chunk_scan(x2, b2, c2, l2, chunk=256)

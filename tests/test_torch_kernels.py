@@ -261,3 +261,37 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(build.KernelBuildError, match="nvcc"):
         build._nvcc()
+
+
+def test_the_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """Every module of ``repro_torch`` and ``chip_smoke.py`` import in a
+    fresh interpreter that refuses ``jax``, ``repro`` and ``triton``
+    (Triton is imported only inside a launching function, never at
+    import time)."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parents[1]
+    code = f"""
+import importlib, importlib.util, pkgutil, sys
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro", "triton"):
+            raise ImportError("refused: " + name)
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, {str(root / 'src')!r})
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location(
+    "chip_smoke", {str(root / 'chip_smoke.py')!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
+assert not bad, bad
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=240, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

@@ -18,7 +18,7 @@ from repro.models import common as jcommon
 from repro.models import compute as jcompute
 from repro.models.lm import build_model as jbuild_model
 from repro.train import steps as jsteps
-from repro_torch.configs import get_config
+from repro_torch.configs import BlockDesc, get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import extractor
 from repro_torch.core.vectorizer import TileProgram, baseline_program, inject
@@ -232,13 +232,14 @@ def test_unknown_mode_and_arch_raise():
         get_config("stablelm_3b")
 
 
-@pytest.mark.parametrize("change", [dict(norm="layernorm"), dict(act="gelu"),
+@pytest.mark.parametrize("change", [dict(mla=True), dict(act="gelu"),
                                     dict(rope="2d"),
-                                    dict(tie_embeddings=True)])
+                                    dict(period=(BlockDesc("mamba",
+                                                           "dense"),))])
 def test_unported_model_paths_are_refused(change):
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen3_8b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="dense decoder"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(cfg)
 
 
