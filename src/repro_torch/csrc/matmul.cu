@@ -2,23 +2,43 @@
 // bf16 out.  Replaces the TPU kernel src/repro/kernels/matmul.py
 // (matmul_pallas / _matmul_kernel).
 //
-// Tile semantics.  A CTA owns one (bm, bn) output tile and walks K in
-// steps of bk; each bk step is streamed through shared memory in fixed
-// sub-slabs of KS = 32, so any bk fits (bk = 512 as a whole slab would need
-// 256 KB).  The CTA's row tile is BM = bm rounded up to a power of two and
-// at least 16 (the mma row minimum), its column tile BN = bn rounded up to
-// a power of two >= 128; rows beyond the tuned bm (and beyond M) and
-// columns beyond bn (and N) are masked, never padded in memory.  The f32
-// accumulator lives in registers: BM * BN <= 128 * 256 (128 floats a
-// thread at 256 threads), the limit kernels/ops.py:tile_ok enforces.
+// Bound: at prefill (M = 2048) the products are bound by the tensor-core
+// rate; at decode (M = 4) by reading w once from device memory.  Three
+// variants share one tile contract: a CTA owns the (bm, bn) output tile
+// the agent chose, on the reference's (M/bm, N/bn) grid.
 //
-// w is read through its strides: row-major weights (stride_n == 1) and the
-// transposed lm_head view (stride_k == 1) both go without a copy.
-//
-// Bound: at prefill (M = 2048) the products are compute-bound on the
-// tensor cores; at decode (M = 4) they are bound by reading w once.  This
-// first version uses mma.sync with single-buffered shared-memory staging;
-// wgmma, TMA and a multi-stage pipeline are later work.
+// A. tma_wgmma (a large output grid: prefill, lm_head).  One producer
+//    thread keeps TMA loads of 64-deep K slabs of x and w (128-byte
+//    swizzle) in flight through a ring of STAGES buffers in dynamic shared
+//    memory, each with a full and an empty mbarrier.  A stage holds KCH
+//    slabs: two for the 64 x 128 CTA tile, whose 64-deep stages are too
+//    little work to cover each stage's barrier round trip, one otherwise
+//    (on an H100 two slabs made that tile about a fifth faster; three or
+//    four, or two at larger tiles, did not help: PERF.md).  Two consumer
+//    warpgroups issue wgmma m64nNk16 (bf16 -> f32) with both operands in
+//    shared memory: A K-major; B MN-major with the transpose bit for
+//    row-major w, K-major for the lm_head view head.T, both read in place.
+//    The CTA tile is bm rounded up to a power of two, padded to 64 rows
+//    for wgmma (the rows beyond bm are computed and masked), by bn rounded
+//    up to a power of two >= 128; each consumer holds at most 128 f32
+//    accumulators.  CTAs run grouped along M (group_m row blocks, chosen
+//    so the band of x stays in L2 while w's column blocks stream once).
+//    bk only bounds the ragged K edge: K is walked in order in 16-deep
+//    wgmma steps, so every tile sums K in the same order.
+// B. split_k (an output grid smaller than the SM count: decode, M = 4).
+//    The same kernel, with K split across CTAs: bk is the unit of the
+//    split (the reference's sequential k grid axis, made parallel).  CTA z
+//    walks [z * k_run, (z + 1) * k_run) of K, where k_run, a whole number
+//    of bk blocks and of stages, comes from the caller
+//    (kernels/ops.py:matmul_launch_plan), so no stage reads into the next
+//    CTA's run.  Each CTA writes its f32 partial tile to a workspace; the
+//    last CTA of a tile (an atomic counter that resets itself) sums the
+//    partials in order of k and writes bf16.  One launch a call.
+// C. unaligned (an operand TMA cannot take: a row pitch or pointer not a
+//    multiple of 16 bytes).  The first version's loop: 32-wide K sub-slabs
+//    staged through static shared memory, mma.sync m16n8k16.  No model
+//    path takes it.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,17 +47,22 @@
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// C. unaligned operands
+// ---------------------------------------------------------------------------
+
 constexpr int KS = 32;         // K sub-slab staged per shared-memory pass
 constexpr int KPAD = KS + 8;   // row pitch in shared memory (bank spread)
-constexpr int THREADS = 256;
+constexpr int THREADS_C = 256;
 
 template <int BM, int BN, bool B_COL>
-__global__ void __launch_bounds__(THREADS, 1)
-matmul_kernel(const __nv_bfloat16* __restrict__ x,
-              const __nv_bfloat16* __restrict__ w,
-              __nv_bfloat16* __restrict__ y, int M, int N, int K,
-              long long lda, long long swk, long long swn, int bm_step,
-              int bn_step, int bk_step, int vec_a, int vec_b) {
+__global__ void __launch_bounds__(THREADS_C, 1)
+matmul_unaligned_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        __nv_bfloat16* __restrict__ y, int M, int N, int K,
+                        long long lda, long long swk, long long swn,
+                        int bm_step, int bn_step, int bk_step, int vec_a,
+                        int vec_b) {
   constexpr int WARPS_M = BM >= 32 ? 2 : 1;
   constexpr int WARPS_N = 8 / WARPS_M;
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
@@ -67,7 +92,7 @@ matmul_kernel(const __nv_bfloat16* __restrict__ x,
     const int kend = min(K, kb + bk_step);
     for (int k0 = kb; k0 < kend; k0 += KS) {
       // ---- stage A: BM x KS ----
-      for (int v = tid; v < BM * (KS / 8); v += THREADS) {
+      for (int v = tid; v < BM * (KS / 8); v += THREADS_C) {
         const int r = v / (KS / 8), kc = (v % (KS / 8)) * 8;
         const int gm = m0 + r, gk = k0 + kc;
         __nv_bfloat16* dst = &As[r][kc];
@@ -83,7 +108,7 @@ matmul_kernel(const __nv_bfloat16* __restrict__ x,
       }
       // ---- stage B transposed: Bt[n][k] for BN x KS ----
       if (B_COL) {   // w[k][n] at k + n*swn: contiguous along k
-        for (int v = tid; v < BN * (KS / 8); v += THREADS) {
+        for (int v = tid; v < BN * (KS / 8); v += THREADS_C) {
           const int n = v / (KS / 8), kc = (v % (KS / 8)) * 8;
           const int gn = n0 + n, gk = k0 + kc;
           __nv_bfloat16* dst = &Bt[n][kc];
@@ -99,7 +124,7 @@ matmul_kernel(const __nv_bfloat16* __restrict__ x,
           }
         }
       } else {       // w[k][n] at k*swk + n: contiguous along n
-        for (int v = tid; v < KS * (BN / 8); v += THREADS) {
+        for (int v = tid; v < KS * (BN / 8); v += THREADS_C) {
           const int k = v / (BN / 8), nc = (v % (BN / 8)) * 8;
           const int gk = k0 + k, gn = n0 + nc;
           __nv_bfloat16 vals[8];
@@ -165,40 +190,540 @@ matmul_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 template <int BM, int BN>
-cudaError_t launch(bool b_col, const __nv_bfloat16* x, const __nv_bfloat16* w,
-                   __nv_bfloat16* y, int M, int N, int K, long long lda,
-                   long long swk, long long swn, int bm, int bn, int bk,
-                   int vec_a, int vec_b, cudaStream_t stream) {
+cudaError_t launch_unaligned(bool b_col, const __nv_bfloat16* x,
+                             const __nv_bfloat16* w, __nv_bfloat16* y, int M,
+                             int N, int K, long long lda, long long swk,
+                             long long swn, int bm, int bn, int bk, int vec_a,
+                             int vec_b, cudaStream_t stream) {
   dim3 grid((N + bn - 1) / bn, (M + bm - 1) / bm);
   if (b_col)
-    matmul_kernel<BM, BN, true><<<grid, THREADS, 0, stream>>>(
+    matmul_unaligned_kernel<BM, BN, true><<<grid, THREADS_C, 0, stream>>>(
         x, w, y, M, N, K, lda, swk, swn, bm, bn, bk, vec_a, vec_b);
   else
-    matmul_kernel<BM, BN, false><<<grid, THREADS, 0, stream>>>(
+    matmul_unaligned_kernel<BM, BN, false><<<grid, THREADS_C, 0, stream>>>(
         x, w, y, M, N, K, lda, swk, swn, bm, bn, bk, vec_a, vec_b);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// A and B. TMA + wgmma pipeline, optionally split over K
+// ---------------------------------------------------------------------------
+
+constexpr int BK = 64;                 // K depth of one slab (128 bytes)
+constexpr int THREADS_TMA = 384;       // 2 consumer warpgroups + producer
+constexpr int CONSUMER_THREADS = 256;
+constexpr int SMEM_LIMIT = 232448;     // bytes a block may use on sm_90
+constexpr int MAX_STAGES = 8;
+
+template <int ROWS_P, int COLS, bool B_KMAJOR>
+struct TmaCfg {
+  // ROWS_P == 64: the two warpgroups split the columns; otherwise the rows
+  static constexpr int MT = ROWS_P == 256 ? 2 : 1;      // m64 tiles a WG
+  static constexpr int WN = ROWS_P == 64 ? COLS / 2 : COLS;
+  static constexpr int KCH = ROWS_P * COLS < 128 * 128 ? 2 : 1;  // slabs
+  static constexpr int KS = KCH * BK;                   // K a stage holds
+  static constexpr int A_SLAB = ROWS_P * BK * 2;
+  static constexpr int B_SLAB = COLS * BK * 2;
+  static constexpr int A_BYTES = KCH * A_SLAB;          // x, then w
+  static constexpr int B_BYTES = KCH * B_SLAB;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 512) / STAGE;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int SMEM = STAGES * STAGE + 1024;    // + 1 KB alignment
+  static_assert(STAGES >= 2, "a stage does not fit twice");
+  static_assert(MT * WN / 2 <= 128, "more than 128 accumulators a thread");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+// A pipeline fault traps (a launch error) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    if (spins == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B from shared
+// memory, A K-major, B transposed (MN-major) when TB = 1.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %34;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(TB), "r"(1));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %66;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(TB), "r"(1));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %131, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %130;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "n"(TB), "r"(1));
+}
+
+template <int WN, int TB>
+__device__ __forceinline__ void wgmma_tile(float (&d)[WN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (WN == 64) wgmma_m64n64<TB>(d, da, db);
+  if constexpr (WN == 128) wgmma_m64n128<TB>(d, da, db);
+  if constexpr (WN == 256) wgmma_m64n256<TB>(d, da, db);
+}
+
+// Tile `tile` of the grid, grouped along M: group_m row blocks at a time,
+// row blocks fastest.
+__device__ __forceinline__ void tile_coords(int tile, int grid_m, int grid_n,
+                                            int group_m, int& mb, int& nb) {
+  const int group = group_m * grid_n;
+  const int first = (tile / group) * group_m;
+  const int gm = min(grid_m - first, group_m);
+  const int local = tile % group;
+  mb = first + local % gm;
+  nb = local / gm;
+}
+
+template <int ROWS_P, int COLS, bool B_KMAJOR>
+__global__ void __launch_bounds__(THREADS_TMA, 1)
+matmul_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                  const __grid_constant__ CUtensorMap map_w,
+                  __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                  int* __restrict__ counters, int M, int N, int K,
+                  int bm_step, int bn_step, int k_run, int grid_m,
+                  int grid_n, int group_m, int splits, int a_rows) {
+  using C = TmaCfg<ROWS_P, COLS, B_KMAJOR>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[C::STAGES];
+  __shared__ __align__(8) uint64_t empty[C::STAGES];
+  __shared__ int is_last;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  int mb, nb;
+  tile_coords(tile, grid_m, grid_n, group_m, mb, nb);
+  const int m0 = mb * bm_step, n0 = nb * bn_step;
+  // this CTA's run of K (all of it when splits == 1)
+  const int z = blockIdx.y;
+  const int k_lo = z * k_run;
+  const int k_hi = min(K, k_lo + k_run);
+  const int nk = k_hi > k_lo ? (k_hi - k_lo + C::KS - 1) / C::KS : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMER_THREADS / 32);   // one arrive a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (a_rows < ROWS_P) {   // rows TMA never writes: zero them once
+    for (int s = 0; s < C::STAGES * C::KCH; ++s) {
+      uint4* a = reinterpret_cast<uint4*>(smem + (s / C::KCH) * C::STAGE +
+                                          (s % C::KCH) * C::A_SLAB);
+      for (int v = a_rows * 8 + tid; v < ROWS_P * 8; v += THREADS_TMA)
+        a[v] = make_uint4(0, 0, 0, 0);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = tid / 128;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 256) {
+      const int tx = C::KCH * (a_rows * BK * 2 + C::B_SLAB);
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % C::STAGES;
+        if (i >= C::STAGES) mbar_wait(&empty[s], ((i / C::STAGES) - 1) & 1);
+        mbar_expect_tx(&full[s], tx);
+#pragma unroll
+        for (int c = 0; c < C::KCH; ++c) {
+          uint8_t* a = smem + s * C::STAGE + c * C::A_SLAB;
+          uint8_t* b = smem + s * C::STAGE + C::A_BYTES + c * C::B_SLAB;
+          const int k = k_lo + i * C::KS + c * BK;
+          tma_load_2d(a, &map_x, k, m0, &full[s]);
+          if constexpr (B_KMAJOR) {
+            constexpr int BOXN = COLS < 256 ? COLS : 256;  // TMA's box limit
+#pragma unroll
+            for (int j = 0; j < COLS / BOXN; ++j)
+              tma_load_2d(b + j * BOXN * 128, &map_w, k, n0 + j * BOXN,
+                          &full[s]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < COLS / 64; ++j)
+              tma_load_2d(b + j * 8192, &map_w, n0 + j * 64, k, &full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: two warpgroups of wgmma ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr int MT = C::MT, WN = C::WN;
+    const int rbase = ROWS_P == 64 ? 0 : wg * (ROWS_P / 2);
+    const int cbase = ROWS_P == 64 ? wg * WN : 0;
+    const uint32_t a_off = rbase * 128;
+    const uint32_t b_off = B_KMAJOR ? cbase * 128 : (cbase / 64) * 8192;
+    float acc[MT][WN / 2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) acc[i][e] = 0.f;
+
+    const int lane = tid & 31;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % C::STAGES;
+      mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const uint32_t a_addr = smem_u32(smem + s * C::STAGE) + a_off;
+      const uint32_t b_addr = smem_u32(smem + s * C::STAGE + C::A_BYTES) +
+                              b_off;
+      wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < C::KS / 16; ++q) {
+        const int c = q / (BK / 16), kk = q % (BK / 16);   // slab, k16 step
+        const uint32_t ac = a_addr + c * C::A_SLAB;
+        const uint32_t bc = b_addr + c * C::B_SLAB;
+        const uint64_t db =
+            B_KMAJOR ? make_desc(bc + kk * 32, 16, 1024)
+                     : make_desc(bc + kk * 2048, 8192, 1024);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          wgmma_tile<WN, B_KMAJOR ? 0 : 1>(
+              acc[mt], make_desc(ac + mt * 8192 + kk * 32, 16, 1024), db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();     // the previous stage's products are done
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int e = 0; e < WN / 2; ++e) fence_operand(acc[i][e]);
+
+    // ---- epilogue: the wgmma accumulator layout, masked to the tile ----
+    const int row_end = min(M, m0 + bm_step), col_end = min(N, n0 + bn_step);
+    const int wr = ((tid & 127) >> 5) * 16 + (lane >> 2);
+    const int wc = 2 * (lane & 3);
+    const bool pair = (N % 2) == 0;
+    float* part = ws + (size_t)z * M * N;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + rbase + mt * 64 + wr + 8 * h;
+          const int c = n0 + cbase + j * 8 + wc;
+          if (r >= row_end) continue;
+          const float v0 = acc[mt][4 * j + 2 * h];
+          const float v1 = acc[mt][4 * j + 2 * h + 1];
+          const size_t o = (size_t)r * N + c;
+          if (splits == 1) {
+            if (pair && c + 1 < col_end) {
+              *reinterpret_cast<__nv_bfloat162*>(y + o) =
+                  __floats2bfloat162_rn(v0, v1);
+            } else {
+              if (c < col_end) y[o] = __float2bfloat16(v0);
+              if (c + 1 < col_end) y[o + 1] = __float2bfloat16(v1);
+            }
+          } else {
+            if (pair && c + 1 < col_end) {
+              *reinterpret_cast<float2*>(part + o) = make_float2(v0, v1);
+            } else {
+              if (c < col_end) part[o] = v0;
+              if (c + 1 < col_end) part[o + 1] = v1;
+            }
+          }
+        }
+      }
+    }
+
+    if (splits > 1) {
+      // the last CTA of this tile sums the partials in order of k
+      __threadfence();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_THREADS) : "memory");
+      if (tid == 0) is_last = atomicAdd(&counters[tile], 1) == splits - 1;
+      asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_THREADS) : "memory");
+      if (is_last) {
+        __threadfence();
+        const int rows_v = row_end - m0, cols_v = col_end - n0;
+        for (int e = tid; e < rows_v * cols_v; e += CONSUMER_THREADS) {
+          const size_t o = (size_t)(m0 + e / cols_v) * N + n0 + e % cols_v;
+          float sum = 0.f;
+          for (int q = 0; q < splits; ++q)
+            sum += __ldcg(ws + (size_t)q * M * N + o);
+          y[o] = __float2bfloat16(sum);
+        }
+        if (tid == 0) counters[tile] = 0;     // ready for the next call
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
+// library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 map: `inner` contiguous elements a row, `outer` rows `ld`
+// elements apart, boxes of box_inner x box_outer, 128-byte swizzle;
+// out-of-bounds elements read as zero.
+bool make_map(CUtensorMap* map, const void* ptr, long long inner,
+              long long outer, long long ld, int box_inner, int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int ROWS_P, int COLS, bool B_KMAJOR>
+cudaError_t launch_tma(const CUtensorMap& mx, const CUtensorMap& mw,
+                       __nv_bfloat16* y, float* ws, int* counters, int M,
+                       int N, int K, int bm, int bn, int k_run, int grid_m,
+                       int grid_n, int group_m, int splits, int a_rows,
+                       cudaStream_t stream) {
+  using C = TmaCfg<ROWS_P, COLS, B_KMAJOR>;
+  if (splits > 1 && k_run % C::KS != 0) return cudaErrorInvalidValue;
+  auto kernel = matmul_tma_kernel<ROWS_P, COLS, B_KMAJOR>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  dim3 grid(grid_m * grid_n, splits);
+  kernel<<<grid, THREADS_TMA, C::SMEM, stream>>>(
+      mx, mw, y, ws, counters, M, N, K, bm, bn, k_run, grid_m, grid_n,
+      group_m, splits, a_rows);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point.  (bm, bn, bk) are the effective (clamped) tiles and the
-// CTA strides; (bm_k, bn_k) the compiled CTA tile that covers them.
+// C entry point of variants A and B.  (bm, bn) are the effective
+// (clamped) tiles and the CTA strides; k_run the K each of the `splits`
+// CTAs of a tile walks; (rows, cols) the power-of-two CTA tile covering
+// them; ld_w the stride of w's non-unit dimension (its rows when w_kmajor
+// is 0, its columns when 1); ws a (splits, M, N) f32 workspace and
+// counters grid_m * grid_n ints at zero when splits > 1.  Returns
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a CTA
+// tile that is not compiled or a split whose runs are not whole stages
+// (64 or 128 deep) that cover K, or cudaErrorNotSupported when the tensor
+// maps cannot be made.
+extern "C" int repro_matmul_tma_bf16(const void* x, const void* w, void* y,
+                                     void* ws, void* counters, int M, int N,
+                                     int K, long long lda, long long ld_w,
+                                     int w_kmajor, int bm, int bn, int k_run,
+                                     int rows, int cols, int grid_m,
+                                     int grid_n, int group_m, int splits,
+                                     void* stream) {
+  if (splits < 1 || (long long)splits * k_run < K ||
+      (splits > 1 && (splits - 1) * k_run >= K))
+    return (int)cudaErrorInvalidValue;
+  const int rows_p = rows < 64 ? 64 : rows;
+  const int boxn = cols < 256 ? cols : 256;
+  CUtensorMap mx, mw;
+  if (!make_map(&mx, x, K, M, lda, BK, rows)) return (int)cudaErrorNotSupported;
+  const bool ok = w_kmajor ? make_map(&mw, w, K, N, ld_w, BK, boxn)
+                           : make_map(&mw, w, N, K, ld_w, 64, BK);
+  if (!ok) return (int)cudaErrorNotSupported;
+  auto ys = static_cast<__nv_bfloat16*>(y);
+  auto wss = static_cast<float*>(ws);
+  auto cs = static_cast<int*>(counters);
+  auto st = static_cast<cudaStream_t>(stream);
+#define REPRO_TMA_CASE(R_, C_)                                              \
+  if (rows_p == R_ && cols == C_)                                           \
+    return (int)(w_kmajor                                                   \
+                     ? launch_tma<R_, C_, true>(mx, mw, ys, wss, cs, M, N,  \
+                                                K, bm, bn, k_run, grid_m,   \
+                                                grid_n, group_m, splits,    \
+                                                rows, st)                   \
+                     : launch_tma<R_, C_, false>(mx, mw, ys, wss, cs, M, N, \
+                                                 K, bm, bn, k_run, grid_m,  \
+                                                 grid_n, group_m, splits,   \
+                                                 rows, st));
+  REPRO_TMA_CASE(64, 128)
+  REPRO_TMA_CASE(64, 256)
+  REPRO_TMA_CASE(64, 512)
+  REPRO_TMA_CASE(128, 128)
+  REPRO_TMA_CASE(128, 256)
+  REPRO_TMA_CASE(256, 128)
+#undef REPRO_TMA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry point of variant C.  (bm, bn, bk) are the effective (clamped)
+// tiles and the CTA strides; (bm_k, bn_k) the compiled CTA tile that covers
+// them (bm_k at least 16, the mma.sync row minimum).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a compiled tile that does not exist.
-extern "C" int repro_matmul_bf16(const void* x, const void* w, void* y, int M,
-                                 int N, int K, long long lda, long long swk,
-                                 long long swn, int bm, int bn, int bk,
-                                 int bm_k, int bn_k, int vec_a, int vec_b,
-                                 void* stream) {
+extern "C" int repro_matmul_unaligned_bf16(const void* x, const void* w,
+                                           void* y, int M, int N, int K,
+                                           long long lda, long long swk,
+                                           long long swn, int bm, int bn,
+                                           int bk, int bm_k, int bn_k,
+                                           int vec_a, int vec_b,
+                                           void* stream) {
   const bool b_col = (swk == 1 && swn != 1);
   auto xs = static_cast<const __nv_bfloat16*>(x);
   auto ws = static_cast<const __nv_bfloat16*>(w);
   auto ys = static_cast<__nv_bfloat16*>(y);
   auto st = static_cast<cudaStream_t>(stream);
-#define REPRO_MM_CASE(BM_, BN_)                                             \
-  if (bm_k == BM_ && bn_k == BN_)                                           \
-    return (int)launch<BM_, BN_>(b_col, xs, ws, ys, M, N, K, lda, swk, swn, \
-                                 bm, bn, bk, vec_a, vec_b, st);
+#define REPRO_MM_CASE(BM_, BN_)                                            \
+  if (bm_k == BM_ && bn_k == BN_)                                          \
+    return (int)launch_unaligned<BM_, BN_>(b_col, xs, ws, ys, M, N, K, lda, \
+                                           swk, swn, bm, bn, bk, vec_a,     \
+                                           vec_b, st);
   REPRO_MM_CASE(16, 128)
   REPRO_MM_CASE(16, 256)
   REPRO_MM_CASE(16, 512)

@@ -13,7 +13,10 @@ lives in registers, and that is the limit:
 * matmul: the CTA tile is ``bm`` rounded up to a power of two of at least
   16 rows by ``bn`` rounded up to a power of two of at least 128 columns;
   it launches when ``rows * cols <= 128 * 256`` (128 f32 a thread at 256
-  threads).  ``bk`` is streamed through shared memory and never limits.
+  threads).  ``bk`` never limits.  The wgmma variants pad the rows to 64
+  (two consumer warpgroups, still at most 128 accumulators a thread), so
+  this rule is unchanged from the first kernel; :func:`matmul_launch_plan`
+  picks the variant and, for a small output grid, the split over ``bk``.
 * attention: ``bq * D <= 128 * 128`` (16 rows a warp, at most 8 warps),
   and the blocks must divide the sequence (``Sq % bq == Skv % bkv == 0``).
   A decode site (Sq == 1) never launches K2, so any positive tile is fine.
@@ -31,7 +34,8 @@ lives in registers, and that is the limit:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +47,8 @@ from repro_torch.kernels import matmul as kmm
 MM_ACC_LIMIT = 128 * 256        # f32 accumulator elements of a K1 CTA
 ATTN_ACC_LIMIT = 128 * 128      # f32 accumulator elements of a K2 CTA
 MM_MAX_ROWS, MM_MAX_COLS = 256, 512
+L2_BAND_BYTES = 8 << 20         # the band of x a group of CTAs keeps in L2
+MM_K_STAGE = 128                # the deepest stage of K1's TMA ring
 
 
 def _ceil_mult(x, m):
@@ -111,6 +117,60 @@ def matmul_tile_plan(M: int, N: int, K: int, tiles):
     bk_e = min(bk, _ceil_mult(K, 128))
     return (bm_e, bn_e, bk_e, int(_pow2_at_least(bm_e, 16)),
             int(_pow2_at_least(bn_e, 128)))
+
+
+class MatmulLaunch(NamedTuple):
+    """How K1 runs one call: the variant, the clamped tiles (the CTA
+    strides), the compiled CTA tile, the output grid, the split of K and
+    the grouping of row blocks (``csrc/matmul.cu``)."""
+    variant: str        # "tma_wgmma", "split_k" or "unaligned"
+    bm: int
+    bn: int
+    bk: int
+    rows: int           # CTA rows (a power of two >= 16)
+    cols: int           # CTA columns (a power of two >= 128)
+    grid_m: int
+    grid_n: int
+    splits: int         # CTAs along K
+    k_run: int          # K a CTA walks: CTA z takes [z, z + 1) * k_run
+    group_m: int        # row blocks that run together
+
+
+def matmul_launch_plan(M: int, N: int, K: int, tiles, sms: int,
+                       aligned: bool = True) -> Optional[MatmulLaunch]:
+    """The launch of K1 for a legal tile (``None`` if illegal).  Operands
+    TMA cannot take (``aligned`` false) run the unaligned variant.  An
+    output grid smaller than ``sms`` splits K into at most ``sms // tiles``
+    runs of ``k_run``, a whole number of ``bk`` blocks (``split_k``), when
+    ``bk`` is a multiple of the kernel's deepest stage, so that no stage of
+    a run reads into the next; otherwise one CTA walks all of K
+    (``tma_wgmma``).  The kernel takes ``k_run`` as it is.  Memoised: the
+    wrapper asks once a call."""
+    bm, bn, bk = (int(t) for t in tiles[:3])
+    return _launch_plan(int(M), int(N), int(K), bm, bn, bk, int(sms),
+                        bool(aligned))
+
+
+@functools.lru_cache(maxsize=4096)
+def _launch_plan(M, N, K, bm, bn, bk, sms, aligned):
+    plan = matmul_tile_plan(M, N, K, (bm, bn, bk))
+    if plan is None:
+        return None
+    bm, bn, bk, rows, cols = plan
+    grid_m, grid_n = -(-M // bm), -(-N // bn)
+    n_tiles = grid_m * grid_n
+    nkb = -(-K // bk)
+    splits, k_run = 1, K
+    if aligned and n_tiles < sms and bk % MM_K_STAGE == 0:
+        most = min(nkb, sms // n_tiles)
+        if most > 1:
+            k_run = -(-nkb // most) * bk
+            splits = -(-K // k_run)
+    variant = ("unaligned" if not aligned
+               else "split_k" if splits > 1 else "tma_wgmma")
+    band = max(1, L2_BAND_BYTES // max(1, bm * K * 2))
+    return MatmulLaunch(variant, bm, bn, bk, rows, cols, grid_m, grid_n,
+                        splits, k_run, min(grid_m, band))
 
 
 def _default_matmul_tiles(M: int, N: int, K: int) -> Tuple[int, int, int]:

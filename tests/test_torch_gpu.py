@@ -77,14 +77,113 @@ def test_matmul_reads_a_transposed_weight_in_place(cuda):
 
 
 def test_every_legal_tile_gives_the_same_function(cuda):
-    """Within a CTA the K loop runs in the same order for every tile, so
-    the legal tiles agree bitwise."""
-    x, w = _normal(5, 200, 640, device=cuda), _normal(6, 640, 384,
-                                                      device=cuda)
-    y0 = ops.matmul(x, w, tiles=(128, 128, 512))
+    """Every legal tile computes the f32 product rounded once to bf16.
+    Tiles that run without a split walk K in the same order into one f32
+    accumulator, so they agree bitwise; a split over bk sums the runs of K
+    in another order (the partials are added in order of k, but where K is
+    cut depends on bk and the grid), so across variants the tiles agree
+    within K1_REL_TOL of the baseline tile."""
+    x, w = _normal(5, 2048, 640, device=cuda), _normal(6, 640, 1024,
+                                                       device=cuda)
+    y0 = ops.matmul(x, w, tiles=(128, 128, 512)).float()
+    unsplit = []
     for t in [(8, 128, 128), (32, 256, 256), (64, 512, 1024),
-              (256, 128, 4096), (16, 512, 2048)]:
-        assert torch.equal(ops.matmul(x, w, tiles=t), y0), t
+              (256, 128, 4096), (16, 512, 2048), (64, 512, 128)]:
+        before = dict(kmm.launches_by_variant)
+        y = ops.matmul(x, w, tiles=t)
+        assert _rel_err(y, y0) < K1_REL_TOL, t
+        if kmm.launches_by_variant["tma_wgmma"] == before["tma_wgmma"] + 1:
+            unsplit.append((t, y))
+    assert 3 <= len(unsplit) < 6       # (64, 512, 128) splits K in two
+    for t, y in unsplit[1:]:
+        assert torch.equal(y, unsplit[0][1]), t
+
+
+_W_ROW, _W_T = "w(K,N)", "head.T"
+
+
+@pytest.mark.parametrize("shape,tiles,layout,variant", [
+    ((2048, 4096, 4096), (128, 128, 512), _W_ROW, "tma_wgmma"),
+    ((2048, 4096, 4096), (32, 128, 1024), _W_ROW, "tma_wgmma"),
+    ((4, 4096, 12288), (16, 512, 1024), _W_ROW, "split_k"),
+    ((4, 4096, 12288), (8, 128, 512), _W_ROW, "split_k"),
+    ((4, 4096, 12288), (16, 256, 4096), _W_ROW, "split_k"),
+    ((4, 4096, 12288), (8, 512, 128), _W_ROW, "split_k"),
+    ((4, 4096, 4096), (8, 128, 96), _W_ROW, "tma_wgmma"),
+    ((4, 4096, 4096), (8, 128, 192), _W_ROW, "tma_wgmma"),
+    ((4, 4096, 4096), (8, 128, 384), _W_ROW, "split_k"),
+    ((4, 151936, 4096), (8, 128, 512), _W_T, "tma_wgmma"),
+    ((4, 1000, 4096), (8, 256, 1024), _W_T, "split_k"),
+    ((513, 1032, 200), (16, 128, 128), _W_ROW, "tma_wgmma"),
+    ((1990, 1024, 640), (128, 128, 512), _W_ROW, "tma_wgmma"),
+    ((1500, 1024, 4096), (32, 128, 512), _W_ROW, "tma_wgmma"),
+    ((513, 136, 200), (64, 128, 128), _W_ROW, "split_k"),
+    ((513, 129, 257), (64, 512, 128), _W_ROW, "unaligned"),
+])
+def test_matmul_variant_matches_f32_product(cuda, shape, tiles, layout,
+                                            variant):
+    """Each variant at the shapes that pick it: aligned prefill, the split
+    over bk at decode with several bk (a bk that is no multiple of the
+    128-deep stage does not split), lm_head's transposed view, a K that is
+    no multiple of 64, a ragged M, a grid whose last group of row blocks
+    is short (47 row blocks in groups of 32), and a ragged shape whose row
+    pitch TMA cannot take."""
+    M, N, K = shape
+    x = _normal(7, M, K, device=cuda)
+    if layout == _W_T:
+        head = _normal(8, N, K, device=cuda)
+        w, want = head.T, x.float() @ head.float().T
+    else:
+        w = _normal(8, K, N, device=cuda)
+        want = x.float() @ w.float()
+    before = dict(kmm.launches_by_variant)
+    y = ops.matmul(x, w, tiles=tiles)
+    torch.cuda.synchronize()
+    ran = {v: kmm.launches_by_variant[v] - before[v] for v in kmm.VARIANTS}
+    assert ran == {v: int(v == variant) for v in kmm.VARIANTS}
+    assert y.shape == (M, N) and torch.isfinite(y.float()).all()
+    assert _rel_err(y, want) < K1_REL_TOL
+
+
+def test_matmul_unaligned_x_view_takes_the_unaligned_variant(cuda):
+    """x that starts 2 bytes into its storage: TMA needs 16-byte aligned
+    operands, so the in-kernel path without TMA runs it."""
+    base = _normal(9, 64, 1025, device=cuda)
+    x = base[:, 1:]
+    w = _normal(10, 1024, 384, device=cuda)
+    before = dict(kmm.launches_by_variant)
+    y = ops.matmul(x, w, tiles=(32, 128, 256))
+    torch.cuda.synchronize()
+    assert kmm.launches_by_variant["unaligned"] == before["unaligned"] + 1
+    assert _rel_err(y, x.float() @ w.float()) < K1_REL_TOL
+
+
+def test_matmul_split_counters_reset_between_calls(cuda):
+    """The split variant's per-tile counters put themselves back to zero:
+    repeated calls give the same bits."""
+    x, w = _normal(11, 4, 4096, device=cuda), _normal(12, 4096, 4096,
+                                                      device=cuda)
+    ys = [ops.matmul(x, w, tiles=(8, 128, 512)) for _ in range(3)]
+    assert all(torch.equal(y, ys[0]) for y in ys[1:])
+    assert _rel_err(ys[0], x.float() @ w.float()) < K1_REL_TOL
+
+
+def test_matmul_split_calls_on_two_streams_at_once(cuda):
+    """Each stream has its own split counters: split calls queued on two
+    streams without a sync between them give the same bits as calls on
+    one stream."""
+    x, w = _normal(13, 4, 4096, device=cuda), _normal(14, 4096, 4096,
+                                                      device=cuda)
+    want = ops.matmul(x, w, tiles=(8, 128, 512))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    ys = []
+    for _ in range(8):
+        for st in streams:
+            with torch.cuda.stream(st):
+                ys.append(ops.matmul(x, w, tiles=(8, 128, 512)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, want) for y in ys)
 
 
 def test_illegal_tiles_raise(cuda):

@@ -211,8 +211,11 @@ def test_tile_ok_limits():
 
 
 def test_matmul_tile_plan_covers_every_legal_tile():
-    """Every legal clamped tile maps to a CTA tile the CUDA source
-    compiles (its REPRO_MM_CASE list)."""
+    """Every legal clamped tile maps to CTA tiles the CUDA source compiles:
+    a wgmma tile (its REPRO_TMA_CASE list, rows padded to 64) and an
+    unaligned-variant tile (its REPRO_MM_CASE list)."""
+    compiled_tma = {(64, 128), (64, 256), (64, 512), (128, 128), (128, 256),
+                    (256, 128)}
     compiled = {(16, 128), (16, 256), (16, 512), (32, 128), (32, 256),
                 (32, 512), (64, 128), (64, 256), (64, 512), (128, 128),
                 (128, 256), (256, 128)}
@@ -226,7 +229,128 @@ def test_matmul_tile_plan_covers_every_legal_tile():
             if plan is not None:
                 bm, bn, bk, rows, cols = plan
                 assert (rows, cols) in compiled
+                assert (max(64, rows), cols) in compiled_tma   # wgmma: 64
                 assert bm <= rows and bn <= cols
+
+
+def _first_kernel_legal(M, N, K, bm, bn, bk):
+    """The K1 launch rule of the first (mma.sync) kernel, written out as
+    the oracle: bm clamped to ceil8(M) and bn to ceil128(N), each rounded
+    up to a power of two (at least 16 rows, 128 columns); at most 256 rows,
+    512 columns and 128 * 256 f32 accumulators; bk never limits."""
+    if min(bm, bn, bk) <= 0:
+        return False
+
+    def pow2(v, lo):
+        p = 1
+        while p < v:
+            p *= 2
+        return max(lo, p)
+    rows = pow2(min(bm, -(-M // 8) * 8), 16)
+    cols = pow2(min(bn, -(-N // 128) * 128), 128)
+    return rows <= 256 and cols <= 512 and rows * cols <= 128 * 256
+
+
+def _site_shapes():
+    from repro_torch.configs import get_config
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.models.lm import build_model
+    shapes = set()
+    for arch in ("qwen3_8b", "xlstm_1_3b"):
+        sites = extract_serve_sites(build_model(get_config(arch)), 4, 512,
+                                    16)
+        shapes |= {(s.m, s.n, s.k) for s in sites if s.kind == "matmul"}
+    # the ragged shapes of tests/test_torch_gpu.py
+    return sorted(shapes | {(513, 129, 257), (100, 300, 200), (37, 520, 136),
+                            (513, 1032, 200), (513, 136, 200),
+                            (4, 1000, 4096), (200, 640, 384),
+                            (2048, 1024, 640), (64, 384, 1024)})
+
+
+def test_matmul_legal_set_is_unchanged():
+    """The Hopper redesign keeps the launch rule: over every tile of the
+    action grid at every matmul site shape of qwen3_8b and xlstm_1_3b (and
+    the GPU tests' ragged shapes), matmul_tiles_legal and tile_ok agree
+    with the first kernel's rule, written out above."""
+    grid = list(itertools.product(NV.bm_choices, NV.bn_choices,
+                                  NV.bk_choices))
+    n_legal = 0
+    for M, N, K in _site_shapes():
+        site = KernelSite("s", "matmul", m=M, n=N, k=K)
+        for t in grid:
+            want = _first_kernel_legal(M, N, K, *t)
+            assert bool(ops.matmul_tiles_legal(M, N, K, *t)) == want, (M, t)
+            assert ops.tile_ok(site, t) == want, (M, N, K, t)
+            n_legal += want
+    assert 0 < n_legal < len(grid) * len(_site_shapes())
+
+
+def _split_runs(K, p):
+    """``[k_lo, k_hi)`` of each CTA along K under plan ``p``: CTA z walks
+    ``[z * k_run, (z + 1) * k_run)`` of K in stages up to 128 deep."""
+    return [(z * p.k_run, min(K, (z + 1) * p.k_run)) for z in range(p.splits)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_matmul_splits_only_a_small_grid_into_whole_bk_blocks(sms):
+    """The split over K happens only when the output grid has fewer CTAs
+    than the card has SMs and bk is a multiple of the deepest stage; its
+    runs are whole bk blocks, at most one CTA a block, and together they
+    cover K exactly once."""
+    n_split = 0
+    for M, N, K in _site_shapes():
+        for t in itertools.product(NV.bm_choices, NV.bn_choices,
+                                   NV.bk_choices):
+            p = ops.matmul_launch_plan(M, N, K, t, sms)
+            if p is None:
+                continue
+            n_tiles = p.grid_m * p.grid_n
+            assert (p.variant == "split_k") == (p.splits > 1)
+            if n_tiles >= sms or p.bk % ops.MM_K_STAGE:
+                assert p.splits == 1
+            assert p.splits <= max(1, sms // n_tiles)
+            assert p.splits <= -(-K // p.bk)
+            runs = _split_runs(K, p)
+            assert runs[0][0] == 0 and runs[-1][1] == K
+            for (lo, hi), (lo2, _) in zip(runs, runs[1:]):
+                assert hi == lo2
+            for lo, hi in runs:
+                assert lo % p.bk == 0 and lo < hi
+                assert hi == K or hi % p.bk == 0
+            n_split += p.splits > 1
+            unaligned = ops.matmul_launch_plan(M, N, K, t, sms,
+                                               aligned=False)
+            assert unaligned.variant == "unaligned"
+            assert unaligned.splits == 1
+    assert n_split > 0
+
+
+@pytest.mark.parametrize("shape,tiles,splits", [
+    ((4, 4096, 4096), (8, 128, 96), 1),       # bk not a multiple of 64
+    ((4, 4096, 4096), (8, 128, 192), 1),      # 64 | bk, 128 does not
+    ((4, 4096, 4096), (8, 128, 384), 4),      # 128 | bk, bk not 2^n
+    ((4, 1024, 4096), (8, 128, 640), 7),
+    ((4, 4096, 12288), (16, 512, 1024), 12),
+    ((4, 4096, 4096), (8, 128, 512), 4),
+    ((2048, 1024, 640), (64, 512, 128), 2),
+    ((513, 136, 200), (64, 128, 128), 2),
+])
+def test_matmul_split_runs_are_whole_stages(shape, tiles, splits):
+    """The kernel walks each CTA's run of K from its start in stages of 64
+    or 128 (its tile's stage depth): every stage but the last of K lies
+    inside its own run, so no part of K is summed by two CTAs."""
+    M, N, K = shape
+    p = ops.matmul_launch_plan(M, N, K, tiles, 132)
+    assert p.splits == splits
+    assert p.variant == ("split_k" if splits > 1 else "tma_wgmma")
+    covered = np.zeros(K, np.int64)
+    for lo, hi in _split_runs(K, p):
+        for depth in (64, ops.MM_K_STAGE):
+            stages = range(lo, hi, depth)
+            assert all(k + depth <= hi for k in stages[:-1])
+            assert stages[-1] + depth <= hi or hi == K
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -252,6 +376,8 @@ def test_argtypes_pass_pointers_as_64_bit():
     """ctypes would cut an un-declared pointer to 32 bits."""
     assert kmm._ARGTYPES[:3] == [ctypes.c_void_p] * 3
     assert kmm._ARGTYPES[-1] is ctypes.c_void_p
+    assert kmm._TMA_ARGTYPES[:5] == [ctypes.c_void_p] * 5
+    assert kmm._TMA_ARGTYPES[-1] is ctypes.c_void_p
     assert kfa._ARGTYPES[:4] == [ctypes.c_void_p] * 4
     assert kfa._ARGTYPES[-1] is ctypes.c_void_p
 
