@@ -6,14 +6,18 @@
 Phases, each printed before the last line:
   1. device: nvidia-smi's name and power limit; TF32 switched off;
   2. build: the three CUDA sources compiled at once from csrc/ (seconds,
-     ptxas); K1's library must hold HGMMA and UTMALDG instructions
-     (cuobjdump -sass);
+     ptxas); K1's and K2's libraries must hold HGMMA and UTMALDG
+     instructions (cuobjdump -sass), and K2's build no spill;
   3. kernels vs their plain PyTorch versions on the card, in bf16:
      K1 (tiled matmul) at every distinct qwen3_8b serve-site shape under the
      baseline tiles, and a tile-invariance sweep over every legal tile of
      one site, each tile timed beside the rate at which its operands reach
      the SMs; K2 (flash attention) at (B=4, H=32, Hkv=8, S=512, D=128),
-     causal, over every legal (bq, bkv); K3 (SSD chunk scan) at the
+     causal, v in the served layout (the transposed view of its
+     projection), over every legal (bq, bkv), each line with the variant,
+     device ms, share of the bound and ratio to SDPA (stream and device
+     ms), and once at the
+     runner's shape (B=1, H=Hkv=128, contiguous); K3 (SSD chunk scan) at the
      xlstm_1_3b serve site as the measurement runner builds it (G=1,
      S=8192, P=N=1024) for every chunk of the action space (the ones the
      predicate refuses must raise TileError), and at a Mamba-2 head of
@@ -34,22 +38,22 @@ Phases, each printed before the last line:
      prefills and decode windows after one untimed pass; then the same
      prompts in eager mode, held against it; then K1 at every matmul site
      of the path under the tile that site ran with; a model path that
-     launched K1's unaligned variant fails;
+     launched K1's or K2's unaligned variant fails;
   5. the measured main paths: serve --measured --inject at full width for
      qwen3_8b (36 layers) and xlstm_1_3b (48 layers), batch 4, prompt 512,
      16 tokens: PPO is rewarded with the timed kernels (paper eq. 2).  Each
      is driven with the counters zeroed just before and read just after; it
      fails on a failed timing, an open breaker, health other than "ok", a
      tuned tile that does not launch as tuned, K3 never launched during the
-     xLSTM fit, K1's unaligned variant, or logits that disagree with
+     xLSTM fit, K1's or K2's unaligned variant, or logits that disagree with
      eager mode.  xlstm_1_3b's bf16 logits must also differ across the
      batch rows and lie near an f32 eager prefill, no farther than 1.5x
      the bf16 eager path's logits lie from it, and that f32 prefill must
      match the f32 decode recurrence fed the prompt token by token; then
      K1 at each of its shapes under the baseline and the tuned tile (every
      K1 check prints how many outputs differ from torch.matmul at all);
-  6. one JSON line describing each kernel of the paths (K1 with its
-     launches by variant);
+  6. one JSON line describing each kernel of the paths (K1 and K2 with
+     their launches by variant);
   7. the last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
@@ -297,63 +301,123 @@ def k1_sweep(site, gen):
 # phase 3: K2
 # ---------------------------------------------------------------------------
 
-def k2_checks(gen):
+def k2_call(q, k, v, tiles):
+    """One causal K2 call through ops.flash_attention; returns the output
+    and the variant that ran."""
+    import torch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    before = dict(kfa.launches_by_variant)
+    y = ops.flash_attention(q, k, v, causal=True,
+                            scale=q.shape[-1] ** -0.5, tiles=tiles)
+    torch.cuda.synchronize()
+    ran = [x for x in kfa.VARIANTS
+           if kfa.launches_by_variant[x] != before[x]]
+    if len(ran) != 1 or sum(kfa.launches_by_variant.values()) != \
+            sum(before.values()) + 1:
+        fail(f"K2 did not launch once at tiles {tiles}: {ran}")
+    return y, ran[0]
+
+
+def k2_work(B, H, Hkv, Sq, Skv, D, causal=True):
+    """Operations and bytes of one call: the causal half of the two
+    products (Sq = Skv), q, k, v read once and out written once.  The
+    bound is bytes at the Qwen3-8B prefill: 42 MB at 3.35 TB/s (0.0125 ms)
+    against 8.6 GFLOP at 989 TFLOP/s (0.0087 ms)."""
+    pairs = Sq * (Sq + 1) / 2 if causal else Sq * Skv
+    return 4.0 * B * H * D * pairs, 2.0 * (2 * B * H * Sq * D
+                                           + 2 * B * Hkv * Skv * D)
+
+
+def k2_line(label, q, k, v, t, ref_out=None):
+    """K2 at tiles ``t`` against its plain version, with its ms (events,
+    20 calls back to back), device ms (profiler), share of the bound and
+    ratio to scaled_dot_product_attention on the same inputs."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.configs.neurovec import DEFAULT as NV
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    scale = D ** -0.5
+    y, variant = k2_call(q, k, v, t)
+    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=scale,
+                                   bq=t[0], bkv=t[1])
+    err = float((y.float() - yp.float()).abs().max())
+    if not torch.isfinite(y).all() or err >= K2_TOL:
+        fail(f"K2 {label} tiles {t}: abs err {err:.3e} >= {K2_TOL}")
+    err_ref = ""
+    if ref_out is not None:
+        err_ref = f"|k-ref_f32|={float((y.float() - ref_out).abs().max()):.3e} "
+    del y, yp
+    ms = time_ms_over(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=scale, tiles=t), [()])
+    dev = sum(device_ms_by_kernel(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=scale, tiles=t)).values()) or None
+    plain_ms = time_ms_over(lambda: kfa.flash_attention_plain(
+        q, k, v, causal=True, scale=scale, bq=t[0], bkv=t[1]), [()],
+        reps=5, calls=1)
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=H != Hkv)
+    lib_ms = time_ms_over(sdpa, [()])
+    lib_dev = sum(device_ms_by_kernel(sdpa).values()) or None
+    flops, nbytes = k2_work(B, H, Hkv, S, k.shape[2], D)
+    b, by = bound_s(flops, nbytes)
+    share_ms = dev if dev is not None else ms
+    dev_ratio = (f"{dev / lib_dev:.2f}x" if dev and lib_dev
+                 else "not measured")
+    print(f"[k2:{label}] B={B} H={H} Hkv={Hkv} S={S} D={D} causal "
+          f"tiles={t} variant={variant} |k-plain|={err:.3e} {err_ref}"
+          f"ms={ms:.4f} device_ms="
+          f"{'not measured' if dev is None else f'{dev:.4f}'} "
+          f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} sdpa_device_ms="
+          f"{'not measured' if lib_dev is None else f'{lib_dev:.4f}'} "
+          f"bound_ms={b * 1e3:.4f} ({by}) share_of_bound="
+          f"{b * 1e3 / share_ms:.3f} "
+          f"({'device' if dev is not None else 'stream'} ms) "
+          f"vs_sdpa={ms / lib_ms:.2f}x (device {dev_ratio})", flush=True)
+    return {"err": err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+            "lib_ms": lib_ms, "lib_device_ms": lib_dev, "bound_s": b,
+            "flops": flops, "bytes": nbytes, "variant": variant}
+
+
+def k2_checks(gen):
+    """K2 at the Qwen3-8B prefill in the served layout (q and k contiguous,
+    v the transposed view of its projection) over every (bq, bkv) of the
+    action space (the illegal ones must raise), then once at the
+    measurement runner's shape (B=1, H=Hkv=128, contiguous)."""
+    import torch
+    from repro_torch.configs.neurovec import DEFAULT as NV
     from repro_torch.kernels import ops, ref
     B, H, Hkv, S, D = 4, 32, 8, 512, 128
     q = torch.randn((B, H, S, D), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
-    scale = D ** -0.5
+    v = torch.randn((B, S, Hkv, D), generator=gen,
+                    device="cuda").bfloat16().transpose(1, 2)
     rep = H // Hkv
     yr = ref.attention_ref(q.float(), k.float().repeat_interleave(rep, 1),
                            v.float().repeat_interleave(rep, 1), causal=True,
-                           scale=scale)
-    flops = 4.0 * B * H * D * S * (S + 1) / 2       # causal pairs only
-    nbytes = 2.0 * (2 * B * H * S * D + 2 * B * Hkv * S * D)
-    b, by = bound_s(flops, nbytes)
-    lib_ms = time_ms_over(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, scale=scale, enable_gqa=True), [()])
+                           scale=D ** -0.5)
     recs = {}
     tiles = sorted({(min(bq, S), min(bkv, S))
                     for bq in NV.bq_choices for bkv in NV.bkv_choices})
     for t in tiles:
-        site_ok = bool(ops.attention_tiles_legal(S, S, D, *t))
-        if not site_ok:
+        if not ops.attention_tiles_legal(S, S, D, *t):
             try:
-                ops.flash_attention(q, k, v, causal=True, scale=scale,
+                ops.flash_attention(q, k, v, causal=True, scale=D ** -0.5,
                                     tiles=t)
             except ValueError:
                 print(f"[k2] tiles={t}: illegal, raised as it must",
                       flush=True)
                 continue
             fail(f"K2 launched the illegal tile {t}")
-        before = kfa.launches
-        y = ops.flash_attention(q, k, v, causal=True, scale=scale, tiles=t)
-        torch.cuda.synchronize()
-        if kfa.launches != before + 1:
-            fail(f"K2 did not launch at tiles {t}")
-        yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=scale,
-                                       bq=t[0], bkv=t[1])
-        err = float((y.float() - yp.float()).abs().max())
-        err_ref = float((y.float() - yr).abs().max())
-        if not torch.isfinite(y).all() or err >= K2_TOL:
-            fail(f"K2 tiles {t}: abs err {err:.3e} >= {K2_TOL}")
-        ms = time_ms_over(lambda: ops.flash_attention(
-            q, k, v, causal=True, scale=scale, tiles=t), [()])
-        plain_ms = time_ms_over(lambda: kfa.flash_attention_plain(
-            q, k, v, causal=True, scale=scale, bq=t[0], bkv=t[1]), [()],
-            reps=5, calls=1)
-        print(f"[k2] B={B} H={H} Hkv={Hkv} S={S} D={D} causal tiles={t} "
-              f"|k-plain|={err:.3e} |k-ref_f32|={err_ref:.3e} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-              f"bound_ms={b * 1e3:.4f} ({by})", flush=True)
-        recs[t] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                   "lib_ms": lib_ms, "bound_s": b, "flops": flops,
-                   "bytes": nbytes}
+        recs[t] = k2_line("qwen3 prefill", q, k, v, t, ref_out=yr)
+    del q, k, v, yr
+    H = 128
+    q, k, v = (torch.randn((1, H, S, D), generator=gen,
+                           device="cuda").bfloat16() for _ in range(3))
+    k2_line("runner", q, k, v, (128, 512))
     return recs
 
 
@@ -483,19 +547,22 @@ def zero_counts():
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
     kmm.reset_counts()
-    kfa.launches = kcs.launches = 0
+    kfa.reset_counts()
+    kcs.launches = 0
 
 
-def k1_variants(path: str) -> dict:
-    """K1 launches by variant since zero_counts(); a model path must never
-    take the unaligned variant."""
+def path_variants(path: str, counts: dict) -> None:
+    """K1's and K2's launches by variant since zero_counts(), into
+    ``counts``; a model path must never take an unaligned variant."""
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
-    by = dict(kmm.launches_by_variant)
-    if by["unaligned"]:
-        fail(f"{path}: {by['unaligned']} K1 launches took the unaligned "
-             f"variant")
-    print(f"[{path}] K1 launches by variant: {by}", flush=True)
-    return by
+    for name, mod in (("matmul", kmm), ("flash_attention", kfa)):
+        by = dict(mod.launches_by_variant)
+        if by["unaligned"]:
+            fail(f"{path}: {by['unaligned']} {name} launches took the "
+                 f"unaligned variant")
+        print(f"[{path}] {name} launches by variant: {by}", flush=True)
+        counts[f"{name}_by_variant"] = by
 
 
 def read_counts():
@@ -533,7 +600,6 @@ def measured_path(arch, params=None, prompts=None):
     res = serve.run(serve.parse_args(argv), params=params, prompts=prompts)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    by_variant = k1_variants(f"measured:{arch}")
     tun = res.tuning
     st = tun["stats"]
     cfg = res.model.cfg
@@ -561,6 +627,7 @@ def measured_path(arch, params=None, prompts=None):
              for k in counts}
     if counts != total:
         fail(f"{arch}: total launch counts {counts} != {total}")
+    path_variants(f"measured:{arch}", counts)
     kinds = {s.kind for s in res.sites}
     need = {"matmul": "matmul", "attention": "flash_attention",
             "chunk_scan": "chunk_scan"}
@@ -602,7 +669,6 @@ def measured_path(arch, params=None, prompts=None):
     print(f"[measured:{arch}] tuned tiles: " + ", ".join(
         f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
         for s in res.sites), flush=True)
-    counts["matmul_by_variant"] = by_variant
     return res, counts, eager.prefill_logits
 
 
@@ -677,7 +743,6 @@ def main_path():
     res = serve.main(argv)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    counts["matmul_by_variant"] = k1_variants("main")
     print(f"[main] launches in the run: {counts}; by phase: {res.launches}; "
           f"wall {wall:.1f} s (tuning included)", flush=True)
     cfg = res.model.cfg
@@ -695,6 +760,7 @@ def main_path():
            for k in want["prefill"]):
         fail(f"total launch counts {counts} over {n_pre} prefills and "
              f"{n_dec} decode windows")
+    path_variants("main", counts)
     bad = [s.key() for s in res.sites if not ops.tile_ok(s, res.prog.tiles[
         s.key()])]
     if bad:
@@ -736,21 +802,27 @@ def main_path():
 
 
 def sass_check() -> None:
-    """K1's library must hold Hopper's wgmma (HGMMA) and TMA load
-    (UTMALDG) instructions."""
+    """K1's and K2's libraries must hold Hopper's wgmma (HGMMA) and TMA
+    load (UTMALDG) instructions, and K2's build no spilled register."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
         "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build._lib_path("matmul"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    n_hgmma, n_tma = sass.count("HGMMA"), sass.count("UTMALDG")
-    print(f"[build:matmul] SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG "
-          f"instructions", flush=True)
-    if n_hgmma == 0 or n_tma == 0:
-        fail("libmatmul holds no HGMMA or no UTMALDG instruction")
+    for name in ("matmul", "flash_attention"):
+        sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        n_hgmma, n_tma = sass.count("HGMMA"), sass.count("UTMALDG")
+        print(f"[build:{name}] SASS: {n_hgmma} HGMMA, {n_tma} UTMALDG "
+              f"instructions", flush=True)
+        if n_hgmma == 0 or n_tma == 0:
+            fail(f"lib{name} holds no HGMMA or no UTMALDG instruction")
+    spills = [ln for ln in build.build_log("flash_attention").splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+              "loads" not in ln]
+    if spills:
+        fail(f"ptxas spilled registers in flash_attention.cu: {spills}")
 
 
 def _device_info():
@@ -891,10 +963,12 @@ def main() -> int:
     if all(k1_tuned[s]["device_ms"] for s in per_site_launches):
         k1_dev = sum(k1_tuned[s]["device_ms"] * w
                      for s, w in per_site_launches.items())
-    k1_by_variant = {v: sum(c["matmul_by_variant"][v]
-                            for c in by_path.values())
-                     for v in ("tma_wgmma", "split_k", "unaligned")}
+    def by_variant(name):
+        return {v: sum(c[f"{name}_by_variant"][v] for c in by_path.values())
+                for v in by_path["qwen3_8b modelled"][f"{name}_by_variant"]}
     k2_tot, k2_b, k2_by = agg(k2, {t_att: n_layers})
+    k2_dev, k2_lib_dev = ((k2[t_att][f] * n_layers if k2[t_att][f] else None)
+                          for f in ("device_ms", "lib_device_ms"))
     r3 = k3[q_tuned]
     line = {"kernels": [
         {"name": "tiled_matmul", "route": "cuda",
@@ -902,7 +976,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/matmul.py:32",
          "launches": total["matmul"],
          "launches_by_path": path_counts("matmul"),
-         "launches_by_variant": k1_by_variant,
+         "launches_by_variant": by_variant("matmul"),
          "launches_by_variant_by_path": path_counts("matmul_by_variant"),
          "max_abs_err": max(r["err"] for r in k1_tuned.values()),
          "max_rel_err": max(r["rel"] for r in k1_tuned.values()),
@@ -919,13 +993,17 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:64",
          "launches": total["flash_attention"],
          "launches_by_path": path_counts("flash_attention"),
+         "launches_by_variant": by_variant("flash_attention"),
+         "launches_by_variant_by_path": path_counts(
+             "flash_attention_by_variant"),
          "max_abs_err": max(r["err"] for r in k2.values()),
          "tolerance": f"abs {K2_TOL} vs plain version",
          "ms": k2_tot["ms"], "plain_ms": k2_tot["plain_ms"],
          "bound_ms": k2_b * 1e3, "bound_by": k2_by,
          "library_ms": k2_tot["lib_ms"],
+         "device_ms": k2_dev, "library_device_ms": k2_lib_dev,
          "work": f"one prefill of the qwen3_8b modelled path ({n_layers} "
-                 f"launches at tiles {t_att})"},
+                 f"launches at tiles {t_att}, v in the served layout)"},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/chunk_scan.cu",
          "replaces": "src/repro/kernels/chunk_scan.py:56",

@@ -2,22 +2,34 @@
 
 Replaces the TPU kernel ``src/repro/kernels/flash_attention.py``
 (``flash_attention_pallas`` and ``_flash_kernel``).  The CUDA source is
-``csrc/flash_attention.cu``: a CTA owns ``bq`` query rows of one (batch,
-head) and steps over the keys in blocks of ``bkv``, each streamed through
-shared memory in 64-key sub-slabs with the online-softmax rescale applied
-per sub-slab.  Each warp keeps its 16 rows' f32 accumulator in registers.
-GQA is read in place (KV head ``h // (Hq // Hkv)``), never materialised.
-The causal mask is bottom-right aligned with the finite ``NEG_INF`` and
-the output is ``acc / max(l, 1e-30)``, as on the TPU.
+``csrc/flash_attention.cu``; a CTA owns ``bq`` query rows of one (batch,
+head).  GQA is read in place (KV head ``h // (Hq // Hkv)``), never
+materialised.  The causal mask is bottom-right aligned with the finite
+``NEG_INF`` and the output is ``acc / max(l, 1e-30)``, as on the TPU.  Two
+variants (``ops.attention_launch_plan`` picks one):
 
-What bounds it on the H100: at prefill (Sq = Skv = 512, D = 128) the
-tensor-core rate; the scores never reach device memory.  This first
-version stages single-buffered through shared memory with a transposed V
-tile; wgmma, TMA and pipelining are later work.  Head dim 128 only.
+* ``tma_wgmma``: one producer thread streams K and V tiles of up to 128
+  keys through a TMA ring in shared memory (4-D tensor maps over the
+  tensors' own strides, so the model's transposed ``v`` is read in place);
+  one or two consumer warpgroups of 64 query rows compute ``Q.K^T`` and
+  ``P.V`` with ``wgmma`` and the online softmax in registers (P in bf16 as
+  the register operand of ``P.V``).  A ``bkv`` above 128 is walked in
+  128-key stages with the rescale per stage, the same function up to
+  rounding.
+* ``unaligned``: operands TMA cannot take (a base or a stride that is not
+  a multiple of 16 bytes, or D not contiguous) go through the first
+  kernel's loop (``mma.sync``, 16 query rows a warp).
+
+What bounds it on the H100: at the Qwen3-8B prefill (B=4, H=32, Hkv=8,
+S=512, causal) the bytes, 42 MB of q, k, v and out (0.0125 ms) against
+0.0087 ms of the causal half's products; the scores never reach device
+memory and each K/V tile is loaded once a CTA for both warpgroups.  Head
+dim 128 only.
 
 On a CPU tensor :func:`repro_torch.kernels.ops.flash_attention` takes
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel or
-raises.  ``launches`` counts kernel launches and nothing else.
+raises.  ``launches`` counts kernel launches and nothing else;
+``launches_by_variant`` splits the same count by variant.
 """
 from __future__ import annotations
 
@@ -31,11 +43,25 @@ from repro_torch.kernels.matmul import TileError
 NEG_INF = -1e30
 HEAD_DIM = 128          # the only head dim the CUDA kernel is built for
 
+VARIANTS = ("tma_wgmma", "unaligned")
 launches = 0
+launches_by_variant = {v: 0 for v in VARIANTS}
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
+_TMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_void_p])
+_CALLS: dict = {}       # call signature -> (variant, C function, arguments)
+
+
+def reset_counts() -> None:
+    """Zero ``launches`` and ``launches_by_variant``."""
+    global launches
+    launches = 0
+    for v in VARIANTS:
+        launches_by_variant[v] = 0
 
 
 def effective_blocks(Sq: int, Skv: int, bq: int, bkv: int):
@@ -79,20 +105,28 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float, bq: int,
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    fn = lib.repro_flash_fwd_bf16
+def _fn(name, argtypes):
+    fn = getattr(build.load("flash_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool, scale: float, bq: int,
-                         bkv: int) -> torch.Tensor:
-    """Launch K2 on CUDA tensors with the tuned blocks ``(bq, bkv)``."""
-    from repro_torch.kernels.ops import attention_tiles_legal
-    global launches
+def _tma_strides(t: torch.Tensor):
+    """``t``'s strides, with the contiguous one for a dimension of one
+    element (TMA never steps along it, and PyTorch may give it any)."""
+    out, run = [], 1
+    for n, st in zip(reversed(t.shape), reversed(t.stride())):
+        out.append(st if n > 1 else run)
+        run *= n
+    return tuple(reversed(out))
+
+
+def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
+    """Check a call and plan it: the variant, the C function, and its
+    arguments between the four pointers and the scale."""
+    from repro_torch.kernels.ops import attention_launch_plan
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
@@ -104,22 +138,49 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float, bq: int,
     if k.shape != v.shape or k.shape[0] != B or Hq % Hkv:
         raise ValueError(f"bad attention shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if not all(t.is_cuda and t.device == q.device for t in (k, v)):
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("K2 needs q, k and v on one CUDA device")
-    bq_e, bkv_e = effective_blocks(Sq, Skv, bq, bkv)
-    if not attention_tiles_legal(Sq, Skv, D, bq, bkv):
+    effective_blocks(Sq, Skv, bq, bkv)
+    strides = tuple(_tma_strides(t) for t in (q, k, v))
+    plan = attention_launch_plan(
+        Sq, Skv, D, bq, bkv, strides,
+        aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+    if plan is None:
         raise TileError(f"attention tile {(bq, bkv)} cannot launch at "
                         f"Sq={Sq} Skv={Skv} D={D} (ops.tile_ok)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(3) != 1 or t.data_ptr() % 16
-                or any(s % 8 for s in t.stride()[:3])):
-            raise ValueError(f"K2 needs 16-byte aligned rows of {name}, "
-                             f"strides {t.stride()}")
-    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
-    rc = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, Hq, Hkv, Sq, Skv, *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], bq_e, bkv_e, int(causal), float(scale),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(rc, "flash-attention kernel")
+    if plan.variant == "tma_wgmma":
+        return plan.variant, _fn("repro_flash_fwd_tma_bf16", _TMA_ARGTYPES), (
+            B, Hq, Hkv, Sq, Skv, *strides[0][:3], *strides[1][:3],
+            *strides[2][:3], plan.bq, plan.warpgroups, plan.stage_keys,
+            plan.n_stages, plan.ring, int(causal))
+    # 16-byte loads where a tensor's rows are contiguous and aligned
+    vec = [int(t.stride(3) == 1 and t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3]))
+           for t in (q, k, v)]
+    return plan.variant, _fn("repro_flash_fwd_unaligned_bf16", _ARGTYPES), (
+        B, Hq, Hkv, Sq, Skv, *q.stride(), *k.stride(), *v.stride(), plan.bq,
+        plan.bkv, int(causal), *vec)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool, scale: float, bq: int,
+                         bkv: int) -> torch.Tensor:
+    """Launch K2 on CUDA tensors with the tuned blocks ``(bq, bkv)``.  A
+    call is checked and planned once for its shapes, strides, types,
+    devices, pointer alignment and tile; the plan is kept for the next
+    call like it (the host's cost is on every call of a layer)."""
+    global launches
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    key = (q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+           q.dtype, k.dtype, v.dtype, q.device, k.device, v.device,
+           tuple(p % 16 for p in ptrs), bool(causal), bq, bkv)
+    hit = _CALLS.get(key)
+    if hit is None:
+        hit = _CALLS[key] = _prepare(q, k, v, bool(causal), bq, bkv)
+    variant, fn, args = hit
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    rc = fn(*ptrs, out.data_ptr(), *args, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(rc, f"flash-attention kernel ({variant})")
     launches += 1
+    launches_by_variant[variant] += 1
     return out

@@ -17,9 +17,12 @@ lives in registers, and that is the limit:
   (two consumer warpgroups, still at most 128 accumulators a thread), so
   this rule is unchanged from the first kernel; :func:`matmul_launch_plan`
   picks the variant and, for a small output grid, the split over ``bk``.
-* attention: ``bq * D <= 128 * 128`` (16 rows a warp, at most 8 warps),
-  and the blocks must divide the sequence (``Sq % bq == Skv % bkv == 0``).
-  A decode site (Sq == 1) never launches K2, so any positive tile is fine.
+* attention: ``bq * D <= 128 * 128`` (at most two consumer warpgroups of
+  64 rows at D = 128, each holding its (64, D) f32 accumulator), and the
+  blocks must divide the sequence (``Sq % bq == Skv % bkv == 0``).  A
+  decode site (Sq == 1) never launches K2, so any positive tile is fine.
+  :func:`attention_launch_plan` picks the variant, the warpgroups and the
+  keys a stage of the TMA ring holds.
 * chunk scan: the chunk ``Q`` is clamped to the sequence (``min(Q, S)``)
   and must be at most 1024 (its cumsum lives in shared memory); the state
   width N must be a multiple of 8 and at most 1024 (the CTA's slice of the
@@ -49,6 +52,10 @@ ATTN_ACC_LIMIT = 128 * 128      # f32 accumulator elements of a K2 CTA
 MM_MAX_ROWS, MM_MAX_COLS = 256, 512
 L2_BAND_BYTES = 8 << 20         # the band of x a group of CTAs keeps in L2
 MM_K_STAGE = 128                # the deepest stage of K1's TMA ring
+ATTN_WG_ROWS = 64               # query rows of a K2 consumer warpgroup
+ATTN_RING = 2                   # stages of K2's TMA ring (PERF.md, PR 14)
+ATTN_MAX_RING = 4
+ATTN_SMEM_DYN = 232448 - 1024   # dynamic shared memory a K2 CTA may take
 
 
 def _ceil_mult(x, m):
@@ -171,6 +178,52 @@ def _launch_plan(M, N, K, bm, bn, bk, sms, aligned):
     band = max(1, L2_BAND_BYTES // max(1, bm * K * 2))
     return MatmulLaunch(variant, bm, bn, bk, rows, cols, grid_m, grid_n,
                         splits, k_run, min(grid_m, band))
+
+
+class AttentionLaunch(NamedTuple):
+    """How K2 runs one call (``csrc/flash_attention.cu``): the variant, the
+    clamped blocks, the consumer warpgroups of 64 query rows, the keys a
+    stage of the TMA ring holds, the stages over ``Skv`` (before the
+    causal skip), the stages of the ring and its shared memory."""
+    variant: str        # "tma_wgmma" or "unaligned"
+    bq: int
+    bkv: int
+    warpgroups: int
+    stage_keys: int     # 128, or 64 where bkv < 128
+    n_stages: int       # ceil(Skv / stage_keys)
+    ring: int
+    smem: int           # dynamic shared memory bytes (tma_wgmma): Q,
+                        # the output staging and the ring
+
+
+def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
+                          strides=None,
+                          aligned: bool = True) -> Optional[AttentionLaunch]:
+    """The launch of K2 for a legal tile at head dim 128 (``None`` if the
+    tile is illegal or D is not 128).  ``strides`` are q's, k's and v's
+    (elements; ``None``: contiguous; a dimension of one element carries
+    its contiguous stride) and ``aligned`` says their base pointers are
+    16-byte aligned.  TMA takes a tensor whose D is contiguous and whose
+    other strides are positive multiples of 16 bytes; an operand it cannot
+    take runs the unaligned variant."""
+    if D != kfa.HEAD_DIM or not attention_tiles_legal(Sq, Skv, D, bq, bkv):
+        return None
+    bq, bkv = min(bq, Sq), min(bkv, Skv)
+    if Sq % bq or Skv % bkv:        # only at Sq == 1, which K2 never runs
+        return None
+    tma = aligned and (strides is None or all(
+        st[3] == 1 and all(x > 0 and x % 8 == 0 for x in st[:3])
+        for st in strides))
+    wgs = -(-bq // ATTN_WG_ROWS)
+    keys = 128 if bkv >= 128 else 64    # blocks below 64 keys: 64 a stage
+    n_stages = -(-Skv // keys)
+    stage_bytes = 4 * keys * D              # a K and a V tile, bf16
+    q_bytes = wgs * ATTN_WG_ROWS * D * 2    # Q, and as much to stage out
+    fit = (ATTN_SMEM_DYN - 1024 - 2 * q_bytes) // stage_bytes
+    ring = max(1, min(ATTN_RING, fit, ATTN_MAX_RING, n_stages))
+    return AttentionLaunch("tma_wgmma" if tma else "unaligned", bq, bkv,
+                           wgs, keys, n_stages, ring,
+                           2 * q_bytes + ring * stage_bytes + 1024)
 
 
 def _default_matmul_tiles(M: int, N: int, K: int) -> Tuple[int, int, int]:

@@ -204,26 +204,124 @@ def test_kernels_refuse_float32(cuda):
         ops.matmul(x, x.T)
 
 
-@pytest.mark.parametrize("sq,skv,tiles,causal", [
-    (512, 512, (64, 128), True),
-    (512, 512, (128, 512), True),
-    (512, 512, (128, 256), False),
-    (256, 512, (128, 128), True),
-    (128, 512, (64, 512), True),
-])
-def test_flash_kernel_matches_plain(cuda, sq, skv, tiles, causal):
-    q = _normal(5, 2, 8, sq, 128, device=cuda)
-    k = _normal(6, 2, 2, skv, 128, device=cuda)
-    v = _normal(7, 2, 2, skv, 128, device=cuda)
-    before = kfa.launches
-    y = ops.flash_attention(q, k, v, causal=causal, scale=128 ** -0.5,
-                            tiles=tiles)
+_CONTIG, _MODEL = "contiguous", "model"
+
+
+def _attention_inputs(B, hq, hkv, sq, skv, layout, device, seed=5):
+    """q, k, v; under the model's layout q and k are contiguous and v is
+    the transposed view of its projection (``models/attention.py``)."""
+    q = _normal(seed, B, hq, sq, 128, device=device)
+    k = _normal(seed + 1, B, hkv, skv, 128, device=device)
+    if layout == _MODEL:
+        v = _normal(seed + 2, B, skv, hkv, 128, device=device).transpose(1, 2)
+    else:
+        v = _normal(seed + 2, B, hkv, skv, 128, device=device)
+    return q, k, v
+
+
+def _flash_variant_ran(fn):
+    before = dict(kfa.launches_by_variant)
+    y = fn()
     torch.cuda.synchronize()
+    return y, {v: kfa.launches_by_variant[v] - before[v]
+               for v in kfa.VARIANTS}
+
+
+@pytest.mark.parametrize("B,hq,hkv,sq,skv,tiles,causal,layout", [
+    (2, 8, 2, 512, 512, (64, 128), True, _CONTIG),
+    (2, 8, 2, 512, 512, (128, 512), True, _CONTIG),
+    (2, 8, 2, 512, 512, (128, 256), False, _CONTIG),
+    (2, 8, 2, 256, 512, (128, 128), True, _CONTIG),
+    (2, 8, 2, 128, 512, (64, 512), True, _CONTIG),
+    (2, 32, 8, 512, 512, (128, 128), True, _MODEL),    # the served layout
+    (2, 32, 8, 512, 512, (128, 512), True, _MODEL),
+    (1, 128, 128, 512, 512, (128, 512), True, _CONTIG),  # the runner
+    (2, 4, 2, 16, 16, (64, 128), True, _CONTIG),       # 16 of 64 rows
+    (2, 4, 2, 256, 128, (128, 128), True, _CONTIG),    # rows see no key
+    (2, 4, 1, 192, 384, (64, 128), False, _MODEL),     # non-causal, 1 WG
+    (1, 4, 2, 96, 200, (128, 256), True, _CONTIG),     # ragged stage
+    (4, 16, 4, 256, 256, (64, 64), True, _MODEL),      # 64-key stages
+])
+def test_flash_kernel_matches_plain(cuda, B, hq, hkv, sq, skv, tiles,
+                                    causal, layout):
+    """K2's tma_wgmma variant against its plain version: the model's and
+    the runner's layouts, a 64-row warpgroup holding 16 rows, Sq > Skv
+    (rows that see no key give the mean of V), non-causal calls, a last
+    stage past Skv, 64-key stages, and more tiles than the card has SMs
+    (each persistent CTA walks several, its ring running on)."""
+    q, k, v = _attention_inputs(B, hq, hkv, sq, skv, layout, cuda)
+    before = kfa.launches
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=causal, scale=128 ** -0.5, tiles=tiles))
     assert kfa.launches == before + 1
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
     yp = kfa.flash_attention_plain(q, k, v, causal=causal,
                                    scale=128 ** -0.5, bq=tiles[0],
                                    bkv=tiles[1])
+    assert y.shape == (B, hq, sq, 128) and torch.isfinite(y.float()).all()
     assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+    if sq > skv and causal:
+        mean = v.float().mean(2, keepdim=True).repeat_interleave(
+            hq // hkv, 1)
+        assert float((y[:, :, :sq - skv].float() - mean).abs().max()) \
+            < K2_ABS_TOL
+
+
+def test_flash_kernel_probabilities_keep_their_places(cuda):
+    """V is the identity on the first 128 keys, so the output is P itself
+    (P summed over the keys k and k + 128): a permutation of the score
+    accumulator on its way to the register operand of P.V would show.
+    Scores spread over about +-10 so that P is far from uniform."""
+    q = _normal(20, 1, 2, 128, 128, device=cuda) * 0.3
+    k = _normal(21, 1, 2, 256, 128, device=cuda)
+    v = torch.eye(128, device=cuda).repeat(2, 1).bfloat16()[None, None]
+    v = v.expand(1, 2, 256, 128).contiguous()
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=False, scale=1.0, tiles=(128, 128)))
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
+    p = torch.softmax(q.float() @ k.float().transpose(-1, -2), -1)
+    want = p[..., :128] + p[..., 128:]
+    assert float(want.max()) > 0.3          # peaked rows
+    assert float((y.float() - want).abs().max()) < K2_ABS_TOL
+
+
+def test_flash_unaligned_operand_takes_the_unaligned_variant(cuda):
+    """q that starts 2 bytes into its storage, with a row pitch of 129
+    elements: TMA cannot take it, so the first kernel's loop runs it."""
+    base = _normal(22, 1, 4, 256, 129, device=cuda)
+    q = base[..., 1:]
+    k = _normal(23, 1, 2, 256, 128, device=cuda)
+    v = _normal(24, 1, 2, 256, 128, device=cuda)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=128 ** -0.5, tiles=(64, 128)))
+    assert ran == {"tma_wgmma": 0, "unaligned": 1}
+    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=128 ** -0.5,
+                                   bq=64, bkv=128)
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+
+
+def test_flash_library_holds_wgmma_and_tma_without_spills(cuda):
+    """libflash_attention's SASS holds Hopper's wgmma (HGMMA) and TMA load
+    (UTMALDG) instructions, and ptxas spilled no register."""
+    import os
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    build.load("flash_attention")
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
+        "cuobjdump")
+    sass = subprocess.run([tool, "-sass",
+                           str(build._lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    assert "HGMMA" in sass and "UTMALDG" in sass
+    spills = [ln for ln in build.build_log("flash_attention").splitlines()
+              if "spill" in ln]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                          for ln in spills), spills
 
 
 def test_flash_kernel_refuses_other_head_dims(cuda):

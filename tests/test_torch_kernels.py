@@ -353,6 +353,207 @@ def test_matmul_split_runs_are_whole_stages(shape, tiles, splits):
     assert (covered == 1).all()
 
 
+def _first_kernel_attention_legal(Sq, Skv, D, bq, bkv):
+    """The K2 launch rule of PRs 11-13 (16 query rows a warp, at most 8
+    warps), written out as the oracle: positive blocks clamped to the
+    sequence, bq * D <= 128 * 128, blocks that divide the sequence; a
+    decode site (Sq == 1) never launches K2."""
+    if bq <= 0 or bkv <= 0:
+        return False
+    if Sq == 1:
+        return True
+    bq_e, bkv_e = min(bq, Sq), min(bkv, Skv)
+    return bq_e * D <= 128 * 128 and Sq % bq_e == 0 and Skv % bkv_e == 0
+
+
+def _attention_site_shapes():
+    """(Sq, Skv, D) of qwen3_8b's serve sites (prefill and decode, which
+    the measurement runner times as they are) and of the GPU tests, and
+    Sq in {16, 128, 256, 512} against every Skv of them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.models.lm import build_model
+    sites = extract_serve_sites(build_model(get_config("qwen3_8b")), 4, 512,
+                                16)
+    shapes = {(s.m, s.k, s.n) for s in sites if s.kind == "attention"}
+    lens = (16, 128, 256, 512)
+    shapes |= {(sq, skv, 128) for sq in lens for skv in lens + (384,)}
+    shapes |= {(256, 128, 128), (96, 96, 128), (192, 192, 128),
+               (512, 512, 64), (512, 512, 80)}
+    return sorted(shapes)
+
+
+_ATTN_BLOCKS = sorted(set(NV.bq_choices) | {16, 32, 96})
+_ATTN_KV_BLOCKS = sorted(set(NV.bkv_choices) | {16, 64})
+
+
+def test_attention_legal_set_is_unchanged():
+    """The Hopper redesign keeps K2's launch rule: over the action grid
+    (and a few smaller blocks) at every attention site shape,
+    attention_tiles_legal and tile_ok agree with the first kernel's rule,
+    written out above."""
+    n_legal = n_all = 0
+    for Sq, Skv, D in _attention_site_shapes():
+        site = KernelSite("a", "attention", m=Sq, n=D, k=Skv, batch=128,
+                          causal=True)
+        for t in itertools.product(_ATTN_BLOCKS, _ATTN_KV_BLOCKS):
+            want = _first_kernel_attention_legal(Sq, Skv, D, *t)
+            assert bool(ops.attention_tiles_legal(Sq, Skv, D, *t)) == want, \
+                (Sq, Skv, D, t)
+            assert ops.tile_ok(site, t) == want, (Sq, Skv, D, t)
+            n_legal += want
+            n_all += 1
+    assert 0 < n_legal < n_all
+
+
+def _model_strides(B, H, S, D):
+    """q and k contiguous; v the transposed view of its projection
+    (``models/attention.py:_split_heads``)."""
+    return ((H * S * D, S * D, D, 1), (H * S * D, S * D, D, 1),
+            (S * H * D, D, H * D, 1))
+
+
+def test_attention_launch_plan_covers_every_legal_tile():
+    """Every legal tile at head dim 128 plans the tma_wgmma variant with
+    one or two 64-row warpgroups covering bq, 64- or 128-key stages that
+    cover Skv, whose edges fall on the bkv block edges where bkv >= 64 (or
+    the block is the whole sequence), and a ring that fits shared memory;
+    a tile whose blocks do not divide the sequence (legal at Sq == 1,
+    where K2 never runs) plans nothing; the model's
+    strided v and the runner's contiguous layout plan tma_wgmma, and an
+    operand TMA cannot take plans the unaligned variant."""
+    n = 0
+    for Sq, Skv, D in _attention_site_shapes():
+        for t in itertools.product(_ATTN_BLOCKS, _ATTN_KV_BLOCKS):
+            legal = bool(ops.attention_tiles_legal(Sq, Skv, D, *t))
+            p = ops.attention_launch_plan(Sq, Skv, D, *t)
+            divides = Sq % min(t[0], Sq) == 0 and Skv % min(t[1], Skv) == 0
+            if D != 128 or not legal or not divides:
+                assert p is None
+                continue
+            n += 1
+            bq, bkv = kfa.effective_blocks(Sq, Skv, *t)
+            assert p.variant == "tma_wgmma" and (p.bq, p.bkv) == (bq, bkv)
+            assert p.warpgroups in (1, 2)
+            assert (p.warpgroups - 1) * 64 < bq <= p.warpgroups * 64
+            assert p.stage_keys == (128 if bkv >= 128 else 64)
+            assert (p.n_stages - 1) * p.stage_keys < Skv
+            assert p.n_stages * p.stage_keys >= Skv
+            if bkv >= 64:        # the action space's blocks: 128 and up
+                assert bkv % p.stage_keys == 0 or bkv == Skv
+            assert 1 <= p.ring <= min(ops.ATTN_MAX_RING, p.n_stages)
+            assert p.ring >= min(2, p.n_stages)
+            assert p.smem == (2 * p.warpgroups * 64 * D * 2
+                              + p.ring * 4 * p.stage_keys * D + 1024)
+            assert p.smem <= 232448 - 1024
+    assert n > 0
+    model = ops.attention_launch_plan(512, 512, 128, 128, 128,
+                                      _model_strides(4, 8, 512, 128))
+    runner = ops.attention_launch_plan(
+        512, 512, 128, 128, 512, ((128 * 512 * 128, 512 * 128, 128, 1),) * 3)
+    assert model.variant == runner.variant == "tma_wgmma"
+    assert (model.warpgroups, model.stage_keys, model.n_stages) == (2, 128, 4)
+    odd = ((8 * 512 * 129, 512 * 129, 129, 1),) + _model_strides(
+        1, 8, 512, 128)[1:]
+    d_strided = _model_strides(1, 8, 512, 128)[:2] + ((0, 0, 0, 2),)
+    for strides, aligned in ((odd, True), (d_strided, True),
+                             (_model_strides(1, 8, 512, 128), False)):
+        p = ops.attention_launch_plan(512, 512, 128, 128, 128, strides,
+                                      aligned=aligned)
+        assert p.variant == "unaligned"
+
+
+def test_attention_tma_strides_ignore_single_element_dims():
+    """A dimension of one element may carry any stride in PyTorch; the
+    wrapper hands TMA its contiguous one."""
+    t = torch.empty(4096).as_strided((1, 2, 16, 128), (3, 2048, 128, 1))
+    assert kfa._tma_strides(t) == (4096, 2048, 128, 1)
+    v = torch.empty(2, 16, 4, 128).reshape(2, 16, 4, 128).transpose(1, 2)
+    assert kfa._tma_strides(v) == v.stride() == (8192, 128, 512, 1)
+
+
+def _emulate_tma_kernel(q, k, v, *, causal, scale, tiles):
+    """The tma_wgmma variant's walk in plain PyTorch, f32: its CTAs of
+    ``bq`` rows in 64-row warpgroups (rows past Sq zero, as TMA fills
+    them), the causal skip of whole stages, masks on edge stages only,
+    the online softmax in the log2 domain, P rounded to bf16."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    p = ops.attention_launch_plan(Sq, Skv, D, *tiles)
+    keys, bq = p.stage_keys, p.bq
+    c = scale * 1.4426950408889634
+    k = k.repeat_interleave(Hq // Hkv, 1).float()
+    v = v.repeat_interleave(Hq // Hkv, 1).float()
+    pad = keys * p.n_stages - Skv
+    k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    qz = torch.nn.functional.pad(q.float(), (0, 0, 0, 128))
+    out = torch.empty(B, Hq, Sq, D)
+    q_off = Skv - Sq
+    for q0 in range(0, Sq, bq):
+        nst = p.n_stages
+        if causal and q0 + q_off >= 0:
+            nst = min(nst, (q0 + bq - 1 + q_off) // keys + 1)
+        for wg in range(p.warpgroups):
+            r0 = q0 + wg * 64
+            qw = qz[:, :, r0:r0 + 64]
+            qpos = torch.arange(r0, r0 + 64) + q_off
+            m = torch.full((B, Hq, 64, 1), ops.kfa.NEG_INF)
+            l = torch.zeros((B, Hq, 64, 1))
+            o = torch.zeros((B, Hq, 64, D))
+            for i in range(nst):
+                k0 = i * keys
+                x = qw @ k[:, :, k0:k0 + keys].transpose(-1, -2) * c
+                if k0 + keys > Skv or (causal and k0 + keys - 1 > r0 + q_off):
+                    key = torch.arange(k0, k0 + keys)
+                    if causal:
+                        x = x.masked_fill(key[None, :] > qpos[:, None],
+                                          kfa.NEG_INF)
+                    x = x.masked_fill(key[None, :] >= Skv, -float("inf"))
+                m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                corr = torch.exp2(m - m_new)
+                pr = torch.exp2(x - m_new)
+                l = l * corr + pr.sum(-1, keepdim=True)
+                o = o * corr + pr.bfloat16().float() @ v[:, :, k0:k0 + keys]
+                m = m_new
+            rows = min(64, bq - wg * 64)
+            out[:, :, r0:r0 + rows] = (o / l.clamp(min=1e-30))[:, :, :rows]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,tiles,causal", [
+    (256, 256, 4, 2, (128, 128), True),     # two warpgroups, GQA
+    (256, 256, 4, 2, (64, 256), True),      # one warpgroup, bkv = 2 stages
+    (128, 384, 2, 2, (128, 128), True),     # Sq < Skv: shifted diagonal
+    (256, 128, 2, 1, (128, 128), True),     # Sq > Skv: rows that see no key
+    (16, 16, 2, 2, (64, 128), True),        # 16 rows of a 64-row warpgroup
+    (96, 96, 2, 1, (128, 128), True),       # 96 rows: a part warpgroup
+    (128, 200, 2, 2, (128, 512), False),    # a ragged last stage
+    (192, 320, 2, 1, (64, 64), False),      # 64-key stages
+])
+def test_tma_kernel_walk_matches_the_plain_version(sq, skv, hq, hkv, tiles,
+                                                    causal):
+    """The redesigned kernel's walk (stages of the launch plan, causal
+    skip, edge masks, exp2) computes the plain version's function: held
+    at f32 within 2e-5 after the bf16 output rounding of both (P is
+    rounded to bf16 in both, against maxima of other blocks, hence
+    bf16-level differences at most)."""
+    q = torch.from_numpy(_normal(11, 1, hq, sq, 128)).bfloat16()
+    k = torch.from_numpy(_normal(12, 1, hkv, skv, 128)).bfloat16()
+    v = torch.from_numpy(_normal(13, 1, hkv, skv, 128)).bfloat16()
+    want = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                     scale=128 ** -0.5, bq=tiles[0],
+                                     bkv=tiles[1]).float()
+    got = _emulate_tma_kernel(q, k, v, causal=causal, scale=128 ** -0.5,
+                              tiles=tiles).float()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 2e-2
+    if sq > skv and causal:      # rows that see no key: the mean of V
+        mean = v.float().mean(2, keepdim=True).repeat_interleave(
+            hq // hkv, 1)
+        assert float((got[:, :, :sq - skv] - mean).abs().max()) < 1e-2
+
+
 def test_cpu_tensors_take_the_plain_version():
     """No kernel launches on CPU tensors; the counters stay put."""
     before = (kmm.launches, kfa.launches)
