@@ -6,8 +6,9 @@
 Phases, each printed before the last line:
   1. device: nvidia-smi's name and power limit; TF32 switched off;
   2. build: the three CUDA sources compiled at once from csrc/ (seconds,
-     ptxas); K1's and K2's libraries must hold HGMMA and UTMALDG
-     instructions (cuobjdump -sass), and K2's build no spill;
+     ptxas); K1's, K2's and K3's libraries must hold HGMMA and UTMALDG
+     instructions (cuobjdump -sass), K2's and K3's builds no spill, and
+     K3's static shared memory (ptxas) must be its plan's;
   3. kernels vs their plain PyTorch versions on the card, in bf16:
      K1 (tiled matmul) at every distinct qwen3_8b serve-site shape under the
      baseline tiles, and a tile-invariance sweep over every legal tile of
@@ -21,9 +22,11 @@ Phases, each printed before the last line:
      xlstm_1_3b serve site as the measurement runner builds it (G=1,
      S=8192, P=N=1024) for every chunk of the action space (the ones the
      predicate refuses must raise TileError), and at a Mamba-2 head of
-     jamba_v0_1_52b's ssm.chunk_scan site (S=262144, P=64, N=16, Q=256).
-     Each shape prints the kernel's ms (the median over repeats of 20
-     calls back to back), the plain version's, one PyTorch call's where
+     jamba_v0_1_52b's ssm.chunk_scan site (S=262144, P=64, N=16, Q=256),
+     each K3 line with its variant (ops.chunk_launch_plan), the device ms
+     of each pass and their sum, and the share of the bound that sum
+     reaches.  Each shape prints the kernel's ms (the median over repeats
+     of 20 calls back to back), the plain version's, one PyTorch call's where
      there is one (a yardstick only, never called by the port, timed the
      same way) and the bound max(flops / 989e12, bytes / 3.35e12) s; each
      K1 line also its device ms (profiler), share of the bound (of the
@@ -46,14 +49,17 @@ Phases, each printed before the last line:
      fails on a failed timing, an open breaker, health other than "ok", a
      tuned tile that does not launch as tuned, K3 never launched during the
      xLSTM fit, K1's or K2's unaligned variant, or logits that disagree with
-     eager mode.  xlstm_1_3b's bf16 logits must also differ across the
-     batch rows and lie near an f32 eager prefill, no farther than 1.5x
-     the bf16 eager path's logits lie from it, and that f32 prefill must
-     match the f32 decode recurrence fed the prompt token by token; then
+     eager mode; the xLSTM fit's K3 times by chunk, as the runner timed
+     them, and the chunk it picked are printed.  xlstm_1_3b's bf16 logits
+     must also differ across the batch rows and lie near an f32 eager
+     prefill, no farther than 1.5x the bf16 eager path's logits lie from
+     it, and that f32 prefill must match the f32 decode recurrence fed the
+     prompt token by token; then
      K1 at each of its shapes under the baseline and the tuned tile (every
      K1 check prints how many outputs differ from torch.matmul at all);
   6. one JSON line describing each kernel of the paths (K1 and K2 with
-     their launches by variant);
+     their launches by variant, K3 with its device ms by pass and chunk
+     and the Mamba-2 head);
   7. the last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
@@ -481,11 +487,18 @@ def k3_check(inputs, Q, label):
     b, by = bound_s(flops, nbytes)
     passes = device_ms_by_kernel(lambda: ops.chunk_scan(x, Bm, Cm, la,
                                                         chunk=Q))
-    print(f"[k3:{label}] G={G} S={S} P={P} N={N} Q={Q} rel_err={rel:.2e} "
-          f"|k-plain|={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms=none (no single PyTorch call) bound_ms={b * 1e3:.4f} "
-          f"({by}); device ms by kernel (profiler): {passes}", flush=True)
+    dev = sum(passes.values()) or None
+    variant = ops.chunk_launch_plan(G, S, P, N, Q).variant
+    share = (f"{b * 1e3 / dev:.3f} (device ms)" if dev
+             else "not measured")
+    print(f"[k3:{label}] G={G} S={S} P={P} N={N} Q={Q} variant={variant} "
+          f"rel_err={rel:.2e} |k-plain|={err:.3e} ms={ms:.4f} device_ms="
+          f"{'not measured' if dev is None else f'{dev:.4f}'} "
+          f"plain_ms={plain_ms:.4f} library_ms=none (no single PyTorch "
+          f"call) bound_ms={b * 1e3:.4f} ({by}) share_of_bound={share}; "
+          f"device ms by pass (profiler): {passes}", flush=True)
     return {"err": err, "rel": rel, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev, "passes": passes, "variant": variant,
             "bound_s": b, "bound_by": by, "flops": flops, "bytes": nbytes}
 
 
@@ -521,7 +534,8 @@ def device_ms_by_kernel(fn, reps: int = 5) -> dict:
 
 def k3_checks(site, gen):
     """Every chunk of the action space at the xLSTM site, two chunks past
-    it, and a Mamba-2 head; returns the xLSTM records by Q."""
+    it, and a Mamba-2 head; returns the xLSTM records by Q and the Mamba-2
+    head's record."""
     import torch
     from repro_torch.configs.neurovec import DEFAULT as NV
     inputs = k3_inputs(1, site.batch * site.m, site.n, site.k, gen)
@@ -532,10 +546,10 @@ def k3_checks(site, gen):
             recs[q] = r
     del inputs
     m = MAMBA
-    k3_check(k3_inputs(m["G"], m["S"], m["P"], m["N"], gen), m["Q"],
-             "mamba2")
+    mamba = k3_check(k3_inputs(m["G"], m["S"], m["P"], m["N"], gen),
+                     m["Q"], "mamba2")
     torch.cuda.empty_cache()
-    return recs
+    return recs, mamba
 
 
 # ---------------------------------------------------------------------------
@@ -802,14 +816,15 @@ def main_path():
 
 
 def sass_check() -> None:
-    """K1's and K2's libraries must hold Hopper's wgmma (HGMMA) and TMA
-    load (UTMALDG) instructions, and K2's build no spilled register."""
+    """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
+    TMA load (UTMALDG) instructions, and K2's and K3's builds no spilled
+    register; K3's static shared memory must be what its plan counts."""
     import shutil
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
         "cuobjdump")
-    for name in ("matmul", "flash_attention"):
+    for name in ("matmul", "flash_attention", "chunk_scan"):
         sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -818,11 +833,20 @@ def sass_check() -> None:
               f"instructions", flush=True)
         if n_hgmma == 0 or n_tma == 0:
             fail(f"lib{name} holds no HGMMA or no UTMALDG instruction")
-    spills = [ln for ln in build.build_log("flash_attention").splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
-              "loads" not in ln]
-    if spills:
-        fail(f"ptxas spilled registers in flash_attention.cu: {spills}")
+    for name in ("flash_attention", "chunk_scan"):
+        spills = [ln for ln in build.build_log(name).splitlines()
+                  if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
+                  "loads" not in ln]
+        if spills:
+            fail(f"ptxas spilled registers in {name}.cu: {spills}")
+    from repro_torch.kernels import ops
+    smem = build.static_smem("chunk_scan")
+    for kernel, want in (("chunk_state_kernel", ops.CHUNK_STATE_STATIC),
+                         ("chunk_out_kernel", ops.CHUNK_OUT_STATIC)):
+        got = {v for k, v in smem.items() if kernel in k}
+        if got != {want}:
+            fail(f"{kernel}'s static shared memory {sorted(got)} B is not "
+                 f"the plan's {want} B (kernels/ops.py)")
 
 
 def _device_info():
@@ -885,7 +909,7 @@ def main() -> int:
     xl_sites = extract_serve_sites(build_model(get_config(XLSTM)), BATCH,
                                    PROMPT, GEN)
     xl_scan = next(s for s in xl_sites if s.kind == "chunk_scan")
-    k3 = k3_checks(xl_scan, gen)
+    k3, k3_mamba = k3_checks(xl_scan, gen)
 
     # ---- phase 4: the modelled main path ----
     res, counts = main_path()
@@ -936,10 +960,15 @@ def main() -> int:
         fail(f"K3 at the tuned chunk {q_tuned} or the baseline "
              f"{q_base} was not checked")
     pick = x_res.tuning["picks"][xl_scan.key()]
+    by_q = {}
+    for tiles, sec in pick["timed"].items():
+        by_q[tiles[0]] = min(sec, by_q.get(tiles[0], sec))
     print(f"[measured:{XLSTM}] K3 site: tuned chunk {q_tuned} (timed "
           f"{pick['pick_s'] * 1e3:.4f} ms by the runner), fastest timed "
           f"{pick['best']} ({(pick['best_s'] or 0) * 1e3:.4f} ms), baseline "
-          f"{q_base}", flush=True)
+          f"{q_base}; the runner's K3 ms by chunk: "
+          f"{ {q: round(v * 1e3, 4) for q, v in sorted(by_q.items())} }",
+          flush=True)
     del x_res
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
@@ -1009,13 +1038,30 @@ def main() -> int:
          "replaces": "src/repro/kernels/chunk_scan.py:56",
          "launches": total["chunk_scan"],
          "launches_by_path": path_counts("chunk_scan"),
-         "max_abs_err": max(r["err"] for r in k3.values()),
-         "max_rel_err": max(r["rel"] for r in k3.values()),
+         "max_abs_err": max([r["err"] for r in k3.values()]
+                            + [k3_mamba["err"]]),
+         "max_rel_err": max([r["rel"] for r in k3.values()]
+                            + [k3_mamba["rel"]]),
          "tolerance": f"{K3_TOL} of the largest |output| vs plain version",
          "ms": r3["ms"], "plain_ms": r3["plain_ms"],
          "bound_ms": r3["bound_s"] * 1e3, "bound_by": r3["bound_by"],
          "library_ms": None,
+         "device_ms": r3["device_ms"],
+         "variant": r3["variant"],
          "ms_by_chunk": {q: r["ms"] for q, r in k3.items()},
+         "device_ms_by_chunk": {q: r["device_ms"] for q, r in k3.items()},
+         "device_ms_by_pass_by_chunk": {q: r["passes"]
+                                        for q, r in k3.items()},
+         "variant_by_chunk": {q: r["variant"] for q, r in k3.items()},
+         "runner_ms_by_chunk": {q: v * 1e3 for q, v in sorted(by_q.items())},
+         "mamba2_head": {
+             "shape": MAMBA, "variant": k3_mamba["variant"],
+             "ms": k3_mamba["ms"], "device_ms": k3_mamba["device_ms"],
+             "device_ms_by_pass": k3_mamba["passes"],
+             "plain_ms": k3_mamba["plain_ms"],
+             "bound_ms": k3_mamba["bound_s"] * 1e3,
+             "bound_by": k3_mamba["bound_by"],
+             "max_abs_err": k3_mamba["err"]},
          "work": f"one call at the xlstm_1_3b mlstm.chunk_scan site as the "
                  f"runner builds it (G=1, S={xl_scan.batch * xl_scan.m}, "
                  f"P=N={xl_scan.n}) at the tuned chunk Q={q_tuned}; no single "

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the TMA/wgmma kernels (K1 in matmul.cu,
-// K2 in flash_attention.cu): mbarriers, TMA tensor loads, wgmma shared-memory
-// descriptors and the m64nNk16 bf16 -> f32 products, and the driver's
-// cuTensorMapEncodeTiled reached through the runtime.  sm_90a only.
+// K2 in flash_attention.cu, K3 in chunk_scan.cu): mbarriers, TMA tensor
+// loads, wgmma shared-memory descriptors and the m64nNk16 bf16 -> f32
+// products, and CUDA's cuTensorMapEncodeTiled reached through the
+// runtime, with the 2-D map K1 and K3 use.  sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -204,6 +205,31 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TB), "r"(1));
+}
+
+template <int WN, int TB>
+__device__ __forceinline__ void wgmma_tile_rs(float (&d)[WN / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (WN == 64) wgmma_m64n64_rs<TB>(d, a, db);
+  if constexpr (WN == 128) wgmma_m64n128_rs<TB>(d, a, db);
+}
+
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so the
 // library needs no -lcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -228,6 +254,23 @@ EncodeTiled encode_tiled() {
     if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// A 2-D bf16 map: `inner` contiguous elements a row, `outer` rows `ld`
+// elements apart, boxes of box_inner x box_outer, 128-byte swizzle;
+// out-of-bounds elements read as zero.
+bool make_map(CUtensorMap* map, const void* ptr, long long inner,
+              long long outer, long long ld, int box_inner, int box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -427,23 +427,6 @@ matmul_tma_kernel(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
-// A 2-D bf16 map: `inner` contiguous elements a row, `outer` rows `ld`
-// elements apart, boxes of box_inner x box_outer, 128-byte swizzle;
-// out-of-bounds elements read as zero.
-bool make_map(CUtensorMap* map, const void* ptr, long long inner,
-              long long outer, long long ld, int box_inner, int box_outer) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
-  cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int ROWS_P, int COLS, bool B_KMAJOR>
 cudaError_t launch_tma(const CUtensorMap& mx, const CUtensorMap& mw,
                        __nv_bfloat16* y, float* ws, int* counters, int M,

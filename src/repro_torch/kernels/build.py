@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -95,6 +96,21 @@ def build_log(name: str) -> str:
     from the last build of ``name`` in this checkout, or ''."""
     p = BUILD_DIR / f"{name}.log"
     return p.read_text() if p.exists() else ""
+
+
+def static_smem(name: str) -> Dict[str, int]:
+    """Each kernel's static shared memory in bytes, by mangled name, from
+    ``build_log(name)``."""
+    out, kernel = {}, None
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and kernel is not None:
+            out[kernel] = int(m.group(1))
+            kernel = None
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,29 +13,37 @@ state update ``state·exp(cum[-1]) + xᵀ @ (B·exp(cum[-1] - cum))``.
 
 The CUDA source is ``csrc/chunk_scan.cu``.  On the TPU the chunk axis of
 the grid runs in order on one core and carries the state in VMEM; on the
-card nothing carries over between CTAs, so one call is two passes:
+card the parallelism runs over chunks (the "state space duality" form of
+Mamba-2), in passes sized by
+:func:`repro_torch.kernels.ops.chunk_launch_plan`:
 
-1. *scores*: ``(C Bᵀ) ⊙ L`` of every chunk, in parallel over (group,
-   chunk, 64x64 tile), written in bf16 to a scratch of ``(G·S, Qp)`` with
-   ``Qp = Q`` rounded up to 64.  The Q x Q block never has to fit on chip.
-2. *scan*: one CTA per (group, 16 columns of P) walks the chunks in order.
-   The rows of the state and the columns of ``y`` are independent in P, so
-   P gives the parallelism (the runner's sites have G = 1); each CTA
-   carries its ``(16, N)`` f32 slice of the state in registers (N <= 1024)
-   as ``mma.sync`` accumulators.  The state update's decay is applied to
-   the 16 x Q slice of x, so B is read as it lies: slabs copied with
-   ``cp.async`` and read as fragments with ``ldmatrix.trans``.
+1. ``chunk_state``: each chunk's own state ``(B ⊙ d)ᵀ x`` (computed
+   transposed, rows n), f32, all chunks at once (TMA slabs; the decayed B
+   is ``wgmma``'s A operand from registers, x MN-major);
+2. ``state_pass``: the chain ``S_{c+1} = A_c S_c + ΔS_c`` in f32, one
+   thread per state element (or per segment of its chunks), storing the
+   state entering each chunk in bf16;
+3. ``chunk_out``: a CTA per 64-row block of a chunk computes its masked
+   scores once into shared memory, then per tile of P the carried-state
+   term and the intra-chunk term on ``wgmma`` into one accumulator.
 
-bf16 inputs, f32 accumulation, output in ``x.dtype``; the scores, the
-state and ``x·decay`` enter the tensor cores rounded to bf16.  What bounds
-it on the H100: at the xLSTM site (Q = 256, P = N = 1024) the operations
-(42.9 GFLOP against 67 MB); this version reads the scores and C as
-``mma.sync`` fragments from L2 and uses 64 of the 132 SMs at P = 1024.
+That is the ``three_pass`` variant.  In ``walk`` (many state tiles and
+many chunks, as at the xLSTM site with Q ≤ 256) a chunk_state CTA walks
+every chunk of its tile with the state in its accumulator, which fuses
+the state pass in and keeps ``ΔS`` out of device memory.
+
+:func:`chunk_scan_plain` is the function in f32 (the CPU tests also hold
+an emulation of the passes, with the kernel's bf16 roundings, against
+it).  bf16 x, B and C, ``la`` in bf16 or f32 (read as it is, ``cum`` in f32),
+output in ``x.dtype``.  What bounds it on the H100: at the xLSTM site
+(Q = 256, P = N = 1024) the operations, 38.7 GFLOP against 67 MB;
+three_pass adds ``n_chunks·P·N·12`` bytes of intermediates in device
+memory, the walk ``n_chunks·P·N·4``.
 
 On a CPU tensor :func:`repro_torch.kernels.ops.chunk_scan` takes
-:func:`chunk_scan_plain`; on a CUDA tensor it launches the kernel or
-raises.  ``launches`` counts kernel calls (both passes are one call) and
-nothing else.
+:func:`chunk_scan_plain`; on a CUDA tensor it launches the kernels or
+raises.  ``launches`` counts kernel calls (all passes of a call are one)
+and nothing else.
 """
 from __future__ import annotations
 
@@ -46,15 +54,15 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.matmul import TileError
 
-Q_MAX = 1024        # largest chunk: its cumsum lives in shared memory
-N_MAX = 1024        # largest state width: 16 accumulator tiles a warp
-TILE = 64           # edge of a scores tile; the scratch pitch is Q rounded
-                    # up to it
-MAX_GROUPS = 65535  # the scan grid's y dimension
+Q_MAX = 1024        # largest chunk: its cumsum and a row block's scores
+                    # against it live in shared memory
+N_MAX = 1024        # largest state width
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+             + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+VARIANTS = ("three_pass", "walk")
 
 
 def effective_chunk(S: int, chunk: int) -> int:
@@ -94,6 +102,12 @@ def chunk_scan_plain(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned base, as TMA reads it."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def _lib():
     lib = build.load("chunk_scan")
     fn = lib.repro_chunk_scan_bf16
@@ -106,7 +120,7 @@ def _lib():
 def chunk_scan_cuda(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                     la: torch.Tensor, *, chunk: int) -> torch.Tensor:
     """Launch K3 on CUDA tensors with the tuned chunk."""
-    from repro_torch.kernels.ops import chunk_tiles_legal
+    from repro_torch.kernels.ops import chunk_launch_plan, chunk_tiles_legal
     global launches
     if not all(t.dtype == torch.bfloat16 for t in (x, Bm, Cm)):
         raise TypeError(f"K3 takes bfloat16 x, B and C, got {x.dtype}/"
@@ -116,24 +130,35 @@ def chunk_scan_cuda(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
         raise ValueError(f"K3 needs x (G,S,P), B and C (G,S,N), la (G,S); "
                          f"got {tuple(x.shape)} {tuple(Bm.shape)} "
                          f"{tuple(Cm.shape)} {tuple(la.shape)}")
-    if not all(t.is_cuda and t.device == x.device for t in (Bm, Cm, la)):
+    if not all(t.is_cuda and t.device == x.device for t in (x, Bm, Cm, la)):
         raise ValueError("K3 needs x, B, C and la on one CUDA device")
     G, S, P = x.shape
     N = Bm.shape[-1]
-    Q = effective_chunk(S, chunk)
+    effective_chunk(S, chunk)
     if not chunk_tiles_legal(S, P, N, chunk):
         raise TileError(f"chunk {chunk} cannot launch at S={S} P={P} N={N} "
                         f"(ops.tile_ok)")
-    if G > MAX_GROUPS:
-        raise ValueError(f"K3 takes at most {MAX_GROUPS} groups, got {G}")
-    x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
-    la = la.float().contiguous()
-    qp = -(-Q // TILE) * TILE
-    scores = torch.empty((G * S, qp), dtype=torch.bfloat16, device=x.device)
-    y = torch.empty((G, S, P), dtype=x.dtype, device=x.device)
+    if G * S >= 2 ** 31:
+        raise ValueError(f"K3 takes fewer than 2^31 positions, got {G * S}")
+    plan = chunk_launch_plan(G, S, P, N, chunk)
+    if la.dtype not in (torch.bfloat16, torch.float32):
+        la = la.float()
+    x, Bm, Cm, la = (_aligned(t) for t in (x, Bm, Cm, la))
+    if plan.P_pad != P:                 # TMA needs 16-byte row strides
+        x = torch.nn.functional.pad(x, (0, plan.P_pad - P))
+    dev = x.device
+    dstate = torch.empty(plan.dstate_elems, dtype=torch.float32, device=dev)
+    states = torch.empty(plan.states_elems, dtype=torch.bfloat16, device=dev)
+    alog = torch.empty(plan.alog_elems, dtype=torch.float32, device=dev)
+    y = torch.empty((G, S, plan.P_pad), dtype=x.dtype, device=dev)
     rc = _lib()(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), la.data_ptr(),
-                scores.data_ptr(), y.data_ptr(), G, S, P, N, Q,
-                torch.cuda.current_stream(x.device).cuda_stream)
+                int(la.dtype == torch.bfloat16), dstate.data_ptr(),
+                states.data_ptr(), alog.data_ptr(), y.data_ptr(), G, S,
+                plan.P_pad, N, plan.Q, VARIANTS.index(plan.variant),
+                plan.state_cols, plan.state_wgs, plan.state_ring,
+                plan.segments,
+                plan.p_tile, plan.out_ring,
+                torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "chunk-scan kernel")
     launches += 1
-    return y
+    return y if plan.P_pad == P else y[..., :P].contiguous()

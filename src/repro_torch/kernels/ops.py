@@ -24,14 +24,14 @@ lives in registers, and that is the limit:
   :func:`attention_launch_plan` picks the variant, the warpgroups and the
   keys a stage of the TMA ring holds.
 * chunk scan: the chunk ``Q`` is clamped to the sequence (``min(Q, S)``)
-  and must be at most 1024 (its cumsum lives in shared memory); the state
-  width N must be a multiple of 8 and at most 1024 (the CTA's slice of the
-  state, 16 rows by N, is 16 register tiles a warp).  P never limits (it
-  is split across CTAs), nor does the Q x Q score block (it goes through
-  a scratch in device memory).  The measurement runner snaps S up to a
-  multiple of the clamped chunk, as the reference's does, so at a site
-  divisibility never limits either; a direct call whose chunk does not
-  divide S raises ``ValueError`` on every device.
+  and must be at most 1024 (its cumsum lives in shared memory, and so do
+  a 64-row block's scores against the whole chunk); the state width N
+  must be a multiple of 8 (TMA's 16-byte strides) and at most 1024.  P
+  never limits (it is tiled; x is padded to a multiple of 8).  The
+  measurement runner snaps S up to a multiple of the clamped chunk, as
+  the reference's does, so at a site divisibility never limits either; a
+  direct call whose chunk does not divide S raises ``ValueError`` on
+  every device.  :func:`chunk_launch_plan` sizes K3's passes.
 
 ``CostModelEnv(legality="h100")`` prices exactly these tiles as illegal.
 """
@@ -56,6 +56,20 @@ ATTN_WG_ROWS = 64               # query rows of a K2 consumer warpgroup
 ATTN_RING = 2                   # stages of K2's TMA ring (PERF.md, PR 14)
 ATTN_MAX_RING = 4
 ATTN_SMEM_DYN = 232448 - 1024   # dynamic shared memory a K2 CTA may take
+CHUNK_BOX = 64                  # every K3 TMA box is 64 x 64 bf16 (8 KB)
+CHUNK_RING = 4                  # the deepest ring of a K3 pass
+CHUNK_SMEM_DYN = 232448 - 9216  # dynamic shared memory a K3 CTA may take
+SM_SMEM = 233472                # shared memory of an H100 SM
+CTA_RESERVED = 1024             # shared memory the runtime keeps a CTA
+CHUNK_STATE_STATIC = 8320       # static shared memory of chunk_state and
+CHUNK_OUT_STATIC = 4224         # chunk_out (ptxas; a GPU test holds them)
+CHUNK_WALK_TILES = 128          # state tiles and chunks a group from
+CHUNK_WALK_CHUNKS = 32          # which a chunk_state CTA walks every
+                                # chunk of its tile (PERF.md §6: at 16
+                                # chunks, xLSTM's Q = 512, a tie)
+SCAN_THREADS = 256              # threads of a state_pass block
+SCAN_MAX_SEGMENTS = 32          # segments a chain of chunks is cut into
+SCAN_WANT_THREADS = 132 * 2048  # state_pass threads that fill the card
 
 
 def _ceil_mult(x, m):
@@ -224,6 +238,102 @@ def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
     return AttentionLaunch("tma_wgmma" if tma else "unaligned", bq, bkv,
                            wgs, keys, n_stages, ring,
                            2 * q_bytes + ring * stage_bytes + 1024)
+
+
+class ChunkLaunch(NamedTuple):
+    """How K3 runs one call (``csrc/chunk_scan.cu``): the variant, the
+    clamped chunk, x's padded width, and for each pass its tile, grid, ring
+    and dynamic shared memory; the scratch the wrapper allocates."""
+    variant: str        # "three_pass": chunk_state, state_pass, chunk_out;
+                        # "walk": chunk_state walks its tile's chunks
+                        # (the state pass fused in), then chunk_out
+    Q: int              # the chunk, clamped to S
+    n_chunks: int       # G * S / Q
+    P_pad: int          # P rounded up to 8: x is padded, y sliced
+    state_cols: int     # chunk_state: P columns a CTA, 64 or 128 (the
+                        # state is computed transposed, rows n)
+    state_wgs: int      # chunk_state: consumer warpgroups, 64 N rows each
+    state_grid: int     # chunk_state CTAs: (g, [c,] N tile, P tile)
+    state_ring: int
+    state_smem: int
+    segments: int       # state_pass: chunks walked by this many threads
+    scan_grid: int      # state_pass blocks of SCAN_THREADS (three_pass)
+    p_tile: int         # chunk_out: P columns a pass of a CTA (two
+                        # consumer warpgroups at 256)
+    out_grid: int       # chunk_out CTAs: (g, c, 64-row block)
+    out_ring: int
+    out_smem: int       # the block's scores, then the ring
+    dstate_elems: int   # f32 scratch: each chunk's own state (three_pass)
+    states_elems: int   # bf16 scratch: the state entering each chunk
+    alog_elems: int     # f32 scratch: each chunk's log-decay (three_pass)
+
+
+def _wide_tile(n: int) -> int:
+    return 64 if n <= 64 else 128 if n <= 128 else 256
+
+
+def chunk_launch_plan(G: int, S: int, P: int, N: int,
+                      Q: int) -> Optional[ChunkLaunch]:
+    """The launch of K3 for a legal chunk (``None`` if the chunk is illegal
+    or does not divide S).  ``walk`` when a group has at least
+    ``CHUNK_WALK_CHUNKS`` chunks (the f32 ``ΔS`` traffic of three_pass
+    grows with their number) and chunk_state at least
+    ``CHUNK_WALK_TILES`` (N, P) tiles (at the widest P tile up to 128 that
+    keeps that many), so that a CTA a tile fills the card; otherwise
+    ``three_pass``, whose state pass cuts each element's chain of chunks
+    into segments (joined by the associative decay rule) until the card
+    has ``SCAN_WANT_THREADS`` threads or a segment is one chunk.  Rings
+    take as many stages as fit, up to ``CHUNK_RING``; chunk_out with
+    64-column P tiles, whose stages are short, takes the ring of one or two
+    stages that puts more CTAs on a SM (two on a tie)."""
+    return _chunk_plan(int(G), int(S), int(P), int(N), int(Q), CHUNK_RING)
+
+
+@functools.lru_cache(maxsize=1024)
+def _chunk_plan(G, S, P, N, Q, ring, variant=None):
+    if G < 1 or P < 1 or not chunk_tiles_legal(S, P, N, Q):
+        return None
+    Q = min(Q, S)
+    if S % Q:
+        return None
+    nc = G * (S // Q)
+    P_pad = _ceil_mult(P, 8)
+    box = CHUNK_BOX
+    n_q = -(-Q // box)                      # 64-row slabs (blocks) a chunk
+    p_tile = _wide_tile(P_pad)
+    wgs = 1 if N <= box else 2
+    n_tiles = G * -(-N // (wgs * box))
+    walk_cols = [pc for pc in (128, 64) if pc <= p_tile
+                 and n_tiles * -(-P_pad // pc) >= CHUNK_WALK_TILES]
+    if variant is None:
+        variant = ("walk" if walk_cols and S // Q >= CHUNK_WALK_CHUNKS
+                   else "three_pass")
+    walk = variant == "walk"
+    # 128 columns at most: a consumer's accumulator (64 f32) beside its A
+    # fragments of the decayed B (16 registers) and no spill
+    cols = (walk_cols or [min(128, p_tile)])[0] if walk else min(128, p_tile)
+    tiles = n_tiles * -(-P_pad // cols)
+    stage1 = wgs * box * box * 2 + cols * box * 2
+    state_ring = min(ring, n_q * (S // Q if walk else 1))
+    elems = P_pad * N
+    segments = 1
+    while (not walk and segments < SCAN_MAX_SEGMENTS
+           and 2 * segments <= S // Q
+           and G * elems * segments < SCAN_WANT_THREADS):
+        segments *= 2
+    scores = n_q * box * box * 2
+    stage3 = box * box * 2 + p_tile * box * 2
+    out_ring = min(ring, (CHUNK_SMEM_DYN - 1024 - scores) // stage3)
+    if p_tile == box:
+        out_ring = max((2, 1), key=lambda r: SM_SMEM // (
+            scores + r * stage3 + 1024 + CHUNK_OUT_STATIC + CTA_RESERVED))
+    return ChunkLaunch(
+        variant, Q, nc, P_pad, cols, wgs,
+        tiles if walk else tiles * (S // Q), state_ring,
+        state_ring * stage1 + 1024, segments,
+        0 if walk else -(-G * elems // (SCAN_THREADS // segments)), p_tile,
+        nc * n_q, out_ring, scores + out_ring * stage3 + 1024,
+        0 if walk else nc * elems, nc * elems, 0 if walk else nc)
 
 
 def _default_matmul_tiles(M: int, N: int, K: int) -> Tuple[int, int, int]:

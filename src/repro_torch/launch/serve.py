@@ -127,7 +127,9 @@ def _tile_plan(args, sites, device):
 
     Returns ``(prog, speedup, tuning)``: ``tuning`` holds what the
     measured oracle did (``measured``, ``fit_s``, ``stats``, ``health``,
-    ``backend_key``, ``failures``, ``breaker_open``, ``picks``)."""
+    ``backend_key``, ``failures``, ``breaker_open``, ``picks``: per site
+    the pick, its time, the fastest tile timed and every timed tile's
+    seconds)."""
     legal_env = CostModelEnv(DEFAULT, legality="h100")
     env, tuning = legal_env, {"measured": bool(args.measured)}
     if args.tiles:
@@ -196,7 +198,8 @@ def _report_measured(env, prog, sites, sp, tuning):
         best = min(timed, key=timed.get) if timed else None
         tuning["picks"][s.key()] = {
             "pick": pick, "pick_s": t_pick, "best": best,
-            "best_s": timed[best] if best else None, "n_timed": len(timed)}
+            "best_s": timed[best] if best else None, "n_timed": len(timed),
+            "timed": dict(timed)}
         print(f"[serve] {s.site}@m{s.m}: pick {pick} {t_pick * 1e3:.4f} ms; "
               f"fastest of {len(timed)} timed "
               f"{best} {timed[best] * 1e3 if best else float('nan'):.4f} ms")

@@ -10,7 +10,7 @@ Tolerances are for bf16: K1 within 3e-2 relative of the f32 product (bf16
 output rounding over f32 accumulation, as ``tests/test_kernels.py``); K2
 within 2e-2 absolute of its plain version (bf16 output and bf16-rounded
 probabilities in both, |out| < ~1); K3 within 3e-2 of its plain version
-relative to the largest output (the scores, the state and x·decay enter
+relative to the largest output (the scores, the state and B·decay enter
 the tensor cores rounded to bf16, 2^-9 each, and the output is bf16).
 """
 import numpy as np
@@ -378,6 +378,12 @@ def _scan_inputs(G, S, P, N, device, seed=0):
     (1, 4096, 64, 16, 256),          # a Mamba-2 head
     (3, 384, 40, 24, 128),           # ragged P, N not a multiple of 16
     (2, 200, 32, 16, 40),            # a chunk that is no multiple of 16
+    (1, 65536, 64, 16, 256),         # a Mamba-2 head: 256 chunks
+    (1, 8192, 1024, 1024, 64),       # the xLSTM site at the smallest chunk
+    (2, 256, 7, 16, 64),             # P % 8 != 0: x padded, y sliced
+    (1, 640, 200, 136, 320),         # P and N past a tile, not a power of 2
+    (1, 1024, 128, 64, 256),         # 128-column P tiles
+    (4, 32768, 64, 16, 256),         # 512 chunks: a CTA runs a whole chunk
 ])
 def test_chunk_scan_kernel_matches_plain(cuda, G, S, P, N, Q):
     x, Bm, Cm, la = _scan_inputs(G, S, P, N, cuda)
@@ -411,3 +417,97 @@ def test_chunk_scan_refuses(cuda):
         x2, b2, c2, l2 = _scan_inputs(1, 512, 32, n, cuda)
         with pytest.raises(kmm.TileError):
             ops.chunk_scan(x2, b2, c2, l2, chunk=256)
+
+
+@pytest.mark.parametrize("G,S,P,N,Q", [
+    (1, 8192, 1024, 1024, 256),      # walk by the plan's rule
+    (2, 512, 128, 64, 64),           # three_pass by the plan's rule
+    (1, 640, 200, 136, 320),         # ragged tiles, Q past 4 key blocks
+])
+def test_chunk_scan_variants_agree(cuda, G, S, P, N, Q, monkeypatch):
+    """Both variants, whichever the plan picks, launch once and hold the
+    plain version's tolerance on the same inputs."""
+    x, Bm, Cm, la = _scan_inputs(G, S, P, N, cuda, seed=3)
+    want = kcs.chunk_scan_plain(x, Bm, Cm, la, chunk=Q).float()
+    for variant in ("three_pass", "walk"):
+        monkeypatch.setattr(ops, "chunk_launch_plan",
+                            lambda *a, v=variant: ops._chunk_plan(
+                                *a, ops.CHUNK_RING, v))
+        assert ops.chunk_launch_plan(G, S, P, N, Q).variant == variant
+        before = kcs.launches
+        y = ops.chunk_scan(x, Bm, Cm, la, chunk=Q)
+        torch.cuda.synchronize()
+        assert kcs.launches == before + 1
+        assert _rel_err(y, want) < K3_REL_TOL, variant
+
+
+def test_chunk_static_shared_memory_is_the_plans(cuda):
+    """The plan sizes chunk_out's ring by the CTAs a SM holds, which counts
+    each pass's static shared memory: ptxas's figures for every
+    chunk_state and chunk_out instantiation are ops' constants."""
+    from repro_torch.kernels import build
+    build.load("chunk_scan")
+    smem = build.static_smem("chunk_scan")
+    want = {"chunk_state_kernel": ops.CHUNK_STATE_STATIC,
+            "chunk_out_kernel": ops.CHUNK_OUT_STATIC}
+    for kernel, static in want.items():
+        got = {v for k, v in smem.items() if kernel in k}
+        assert got == {static}, (kernel, smem)
+
+
+def test_chunk_scan_reads_la_in_its_own_dtype(cuda):
+    """la in f32 and in bf16 (the runner's) both launch without a cast and
+    agree with the plain version on the same values."""
+    x, Bm, Cm, la = _scan_inputs(2, 512, 64, 32, cuda, seed=2)
+    for la_t in (la, la.float()):
+        y = ops.chunk_scan(x, Bm, Cm, la_t, chunk=128)
+        want = kcs.chunk_scan_plain(x, Bm, Cm, la_t, chunk=128).float()
+        assert _rel_err(y, want) < K3_REL_TOL
+
+
+@pytest.mark.parametrize("G,S,P,N,Q,kernels", [
+    (1, 2048, 128, 64, 256, ("chunk_state_kernel", "state_pass_kernel",
+                             "chunk_out_kernel")),
+    (1, 8192, 1024, 1024, 256, ("chunk_state_kernel", "chunk_out_kernel")),
+])
+def test_chunk_scan_runs_its_passes_as_one_launch(cuda, G, S, P, N, Q,
+                                                  kernels):
+    """One call counts one launch, and a profiler trace of it holds the
+    kernel of each pass the plan's variant runs (three_pass: three; walk:
+    the state pass inside chunk_state)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, Bm, Cm, la = _scan_inputs(G, S, P, N, cuda)
+    ops.chunk_scan(x, Bm, Cm, la, chunk=Q)
+    torch.cuda.synchronize()
+    before = kcs.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.chunk_scan(x, Bm, Cm, la, chunk=Q)
+        torch.cuda.synchronize()
+    assert kcs.launches == before + 1
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    for kernel in kernels:
+        assert sum(kernel in k for k in names) == 1, names
+    assert len(names) == len(kernels), names
+
+
+def test_chunk_scan_library_holds_wgmma_and_tma_without_spills(cuda):
+    """libchunk_scan's SASS holds wgmma (HGMMA) and TMA loads (UTMALDG),
+    and ptxas spilled no register."""
+    import os
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    build.load("chunk_scan")
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" /
+        "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("chunk_scan"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    assert "HGMMA" in sass and "UTMALDG" in sass
+    spills = [ln for ln in build.build_log("chunk_scan").splitlines()
+              if "spill" in ln]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
+                          for ln in spills), spills

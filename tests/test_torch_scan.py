@@ -168,3 +168,213 @@ def _jsite(s):
     from repro.models.compute import KernelSite as JKernelSite
     return JKernelSite(**{f.name: getattr(s, f.name)
                           for f in dataclasses.fields(KernelSite)})
+
+
+# ---------------------------------------------------------------------------
+# The Hopper redesign: the three passes, the legal set, the launch plan
+# ---------------------------------------------------------------------------
+
+PASS_TOL = 3e-2     # of the largest |output|: the passes round B·d, the
+                    # entering state and the masked scores to bf16 (2^-9
+                    # each), as the kernel does (K3_TOL in chip_smoke.py)
+
+
+def _chunk_scan_passes(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                       la: torch.Tensor, *, chunk: int) -> torch.Tensor:
+    """K3's passes (``csrc/chunk_scan.cu``) in plain PyTorch, f32 with the
+    kernel's bf16 roundings at the same points: ``B ⊙ d`` (chunk_state),
+    the state entering each chunk (state_pass or the walk) and the masked
+    scores (chunk_out).  Output in ``x.dtype``."""
+    G, S, P = x.shape
+    N = Bm.shape[-1]
+    Q = kcs.effective_chunk(S, chunk)
+    nc = S // Q
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+    xf = x.float().reshape(G, nc, Q, P)
+    bfm = Bm.float().reshape(G, nc, Q, N)
+    cf = Cm.float().reshape(G, nc, Q, N)
+    cum = torch.cumsum(la.float().reshape(G, nc, Q), dim=-1)
+    # chunk_state: each chunk's own state, from zero
+    d = torch.exp(cum[..., -1:] - cum)
+    dstate = xf.transpose(-1, -2) @ bf(bfm * d[..., None])     # (G,nc,P,N)
+    # state_pass: the chain over chunks, the entering state in bf16
+    decay = torch.exp(cum[..., -1])                           # (G,nc)
+    state = torch.zeros((G, P, N), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(bf(state))
+        state = decay[:, c, None, None] * state + dstate[:, c]
+    states = torch.stack(entering, dim=1)                     # (G,nc,P,N)
+    # chunk_out: masked scores in bf16, then both terms
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=x.device))
+    li = cum[..., :, None] - cum[..., None, :]
+    L = torch.where(causal, torch.exp(li), torch.zeros_like(li))
+    scores = bf((cf @ bfm.transpose(-1, -2)) * L)
+    y = (torch.exp(cum)[..., None] * (cf @ states.transpose(-1, -2))
+         + scores @ xf)
+    return y.reshape(G, S, P).to(x.dtype)
+
+
+@pytest.mark.parametrize("G,S,P,N,Q", [
+    (1, 128, 16, 16, 64),            # two chunks
+    (2, 200, 12, 24, 40),            # G > 1, N = 24, a chunk end inside a
+                                     # 64-row box
+    (1, 1024, 8, 16, 16),            # 64 chunks
+    (3, 256, 24, 8, 128),            # G = 3, the narrowest N
+])
+def test_chunk_scan_passes_match_pallas_plain_and_oracle(G, S, P, N, Q):
+    """The kernel's three passes, emulated in plain PyTorch with its bf16
+    roundings, against the JAX package's Pallas kernel in interpret mode,
+    the port's plain version and the sequential oracle, within PASS_TOL of
+    the largest output."""
+    arrs = _inputs(7, G, S, P, N)
+    y = _chunk_scan_passes(*_torch(*arrs), chunk=Q).numpy()
+    jarrs = list(map(jnp.asarray, arrs))
+    assert _rel(y, jops.chunk_scan(*jarrs, chunk=Q, interpret=True)) \
+        < PASS_TOL
+    assert _rel(y, kcs.chunk_scan_plain(*_torch(*arrs), chunk=Q)) < PASS_TOL
+    assert _rel(y, jref.chunk_scan_ref(*jarrs)) < PASS_TOL
+
+
+def test_chunk_scan_passes_round_where_the_kernel_does():
+    """With bf16 inputs the passes differ from the f32 plain version by
+    about bf16's rounding and not less: the roundings are there."""
+    x, Bm, Cm, la = (t.bfloat16() for t in _torch(*_inputs(8, 1, 256, 32,
+                                                            32)))
+    got = _chunk_scan_passes(x, Bm, Cm, la, chunk=64).float()
+    want = kcs.chunk_scan_plain(x.float(), Bm.float(), Cm.float(),
+                                la.float(), chunk=64)
+    rel = _rel(got, want)
+    assert 1e-4 < rel < PASS_TOL
+
+
+_CHUNKS = sorted(set(DEFAULT.chunk_choices) | {1, 16, 40, 100, 320, 2048,
+                                               4096})
+
+
+def _first_kernel_chunk_legal(S, N, Q):
+    """The first K3 kernel's launch rule, written out: the chunk clamped
+    to S at most 1024, N a multiple of 8 from 8 to 1024; P never
+    limits."""
+    return Q > 0 and min(Q, S) <= 1024 and 8 <= N <= 1024 and N % 8 == 0
+
+
+def test_chunk_legal_set_is_unchanged():
+    """The Hopper redesign keeps K3's launch rule: over the action grid's
+    chunks and a few others at every chunk-scan site of ``_chunk_sites``,
+    chunk_tiles_legal and tile_ok agree with the first kernel's rule."""
+    n_legal = n_all = 0
+    for s in _chunk_sites():
+        S = s.batch * s.m
+        for q in _CHUNKS:
+            want = _first_kernel_chunk_legal(S, s.k, q)
+            assert bool(ops.chunk_tiles_legal(S, s.n, s.k, q)) == want, \
+                (s.key(), q)
+            assert ops.tile_ok(s, (q, 1, 1)) == want, (s.key(), q)
+            n_legal += want
+            n_all += 1
+    assert 0 < n_legal < n_all
+
+
+def _plan_shapes():
+    """(G, S, P, N, Q) of every legal chunk at every chunk-scan site (S
+    snapped up to the clamped chunk, as the runner does), plus the GPU
+    tests' shapes."""
+    out = set()
+    for s in _chunk_sites():
+        for q in _CHUNKS:
+            S = s.batch * s.m
+            if ops.chunk_tiles_legal(S, s.n, s.k, q):
+                qe = min(q, S)
+                out.add((1, -(-S // qe) * qe, s.n, s.k, q))
+    out |= {(1, 8192, 1024, 1024, 64), (2, 256, 7, 16, 64),
+            (1, 640, 200, 136, 320), (4, 32768, 64, 16, 256),
+            (3, 384, 40, 24, 128), (2, 200, 32, 16, 40),
+            (1, 262144, 64, 16, 256), (1, 4096, 1024, 1024, 1)}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("variant", [None, "three_pass", "walk"])
+def test_chunk_launch_plan_covers_every_legal_shape(variant, monkeypatch):
+    """Every legal shape plans (the rule's variant, and each variant when
+    forced); the tiles are the kernel's, they cover P and N, the grids
+    match them, the rings hold at least one stage (two when a pass has
+    more than one) and each pass fits the card's shared memory."""
+    if variant is not None:
+        monkeypatch.setattr(ops, "chunk_launch_plan",
+                            lambda *a: ops._chunk_plan(*a, ops.CHUNK_RING,
+                                                       variant))
+    box, limit = ops.CHUNK_BOX, 232448
+    for G, S, P, N, Q in _plan_shapes():
+        p = ops.chunk_launch_plan(G, S, P, N, Q)
+        assert p is not None, (G, S, P, N, Q)
+        assert p.variant == (variant or p.variant)
+        assert p.variant in ("three_pass", "walk")
+        nc_g, n_q = S // p.Q, -(-p.Q // box)
+        assert p.Q == min(Q, S) and p.n_chunks == G * nc_g
+        assert p.P_pad % 8 == 0 and P <= p.P_pad < P + 8
+        assert p.state_cols in (64, 128)
+        assert p.p_tile in (64, 128, 256) and p.state_cols <= p.p_tile
+        assert p.state_wgs == (1 if N <= box else 2)
+        tiles = (G * -(-N // (box * p.state_wgs))
+                 * -(-p.P_pad // p.state_cols))
+        walk = p.variant == "walk"
+        assert p.state_grid == (tiles if walk else tiles * nc_g)
+        assert p.out_grid == G * nc_g * n_q
+        stages = n_q * (nc_g if walk else 1)
+        assert 1 <= p.state_ring <= min(stages, ops.CHUNK_RING)
+        assert p.state_ring >= min(2, stages)
+        assert 1 <= p.out_ring <= ops.CHUNK_RING
+        assert p.out_ring >= 2 or p.p_tile == box
+        assert p.state_smem == (p.state_ring
+                                * (p.state_wgs + p.state_cols // box)
+                                * box * box * 2 + 1024)
+        assert p.out_smem == ((n_q + p.out_ring * (1 + p.p_tile // box))
+                              * box * box * 2 + 1024)
+        for dyn, static in ((p.state_smem, ops.CHUNK_STATE_STATIC),
+                            (p.out_smem, ops.CHUNK_OUT_STATIC)):
+            assert dyn <= ops.CHUNK_SMEM_DYN and dyn + static <= limit
+        if walk:
+            assert p.state_cols <= 128 and p.scan_grid == 0
+            assert p.dstate_elems == p.alog_elems == 0
+        else:
+            seg = p.segments
+            assert seg & (seg - 1) == 0 and 1 <= seg <= min(32, nc_g)
+            assert p.scan_grid * (ops.SCAN_THREADS // seg) >= G * p.P_pad * N
+            assert p.dstate_elems == G * nc_g * p.P_pad * N
+            assert p.alog_elems == G * nc_g
+        assert p.states_elems == G * nc_g * p.P_pad * N
+
+
+def test_chunk_launch_plan_rule():
+    """The xLSTM site walks its chunks from 32 chunks a group (Q <= 256 at
+    S = 8192), 128 CTAs of 128 x 64 state elements, and runs three passes
+    above; a Mamba-2 head (one 64 x 16 state) always runs three passes,
+    its state pass in 32 segments."""
+    variants = {q: ops.chunk_launch_plan(1, 8192, 1024, 1024, q).variant
+                for q in DEFAULT.chunk_choices}
+    assert variants == {64: "walk", 128: "walk", 256: "walk",
+                        512: "three_pass", 1024: "three_pass"}
+    walk = ops.chunk_launch_plan(1, 8192, 1024, 1024, 256)
+    assert (walk.state_cols, walk.state_wgs, walk.state_grid) == (64, 2, 128)
+    mamba = ops.chunk_launch_plan(1, 262144, 64, 16, 256)
+    assert mamba.variant == "three_pass" and mamba.segments == 32
+    # one stage a ring puts four chunk_out CTAs on a SM, two stages three
+    assert (mamba.p_tile, mamba.out_ring, mamba.out_grid) == (64, 1, 4096)
+    assert ops.chunk_launch_plan(1, 8192, 1024, 1024, 2048) is None
+    assert ops.chunk_launch_plan(1, 8192, 64, 12, 256) is None
+    assert ops.chunk_launch_plan(1, 8192, 64, 16, 384) is None
+
+
+def test_cuda_wrapper_refuses_before_it_plans():
+    """On CPU tensors the CUDA wrapper raises before it builds or plans
+    anything: a CUDA tensor launches the kernels or raises, and never falls
+    back to the plain version."""
+    arrs = [a.bfloat16() for a in _torch(*_inputs(9, 1, 128, 8, 8))]
+    with pytest.raises(ValueError, match="CUDA"):
+        kcs.chunk_scan_cuda(*arrs, chunk=64)
+    with pytest.raises(TypeError):
+        kcs.chunk_scan_cuda(arrs[0].float(), *arrs[1:], chunk=64)
