@@ -18,7 +18,12 @@ Phases, each printed before the last line:
      projection), over every legal (bq, bkv), each line with the variant,
      device ms, share of the bound and ratio to SDPA (stream and device
      ms), and once at the
-     runner's shape (B=1, H=Hkv=128, contiguous); K3 (SSD chunk scan) at the
+     runner's shape (B=1, H=Hkv=128, contiguous); K2 at the StableLM-3B
+     prefill (B=4, H=Hkv=32, S=512, D=80, causal, v the transposed view)
+     over every legal tile, its bound at the true D beside SDPA's time,
+     once with q, k and v all transposed views and once through the
+     unaligned variant, and at D = 64 and 96 at a small shape through both
+     variants; K3 (SSD chunk scan) at the
      xlstm_1_3b serve site as the measurement runner builds it (G=1,
      S=8192, P=N=1024) for every chunk of the action space (the ones the
      predicate refuses must raise TileError), and at a Mamba-2 head of
@@ -57,10 +62,20 @@ Phases, each printed before the last line:
      prompt token by token; then
      K1 at each of its shapes under the baseline and the tuned tile (every
      K1 check prints how many outputs differ from torch.matmul at all);
-  6. one JSON line describing each kernel of the paths (K1 and K2 with
-     their launches by variant, K3 with its device ms by pass and chunk
-     and the Mamba-2 head);
-  7. the last line: {"ok": true, "device": {...}}.
+  6. the paper's main-path loop (tests/test_system.py:22-55) on
+     stablelm_3b at full width (32 layers, head dim 80, bf16, batch 4,
+     prompt 512, 16 tokens): PPO fit on dataset.generate(400, seed=0,
+     base=sites) under CostModelEnv(legality="h100") with the reference
+     test's PPO settings, its tiles tuned (the TPU-v5e-modelled speedup
+     printed), serve --tiles --inject with them against eager mode, K1 at
+     every StableLM shape under the baseline and the tuned tile, then
+     serve --autotune brute --measured --inject (its pick must be the
+     fastest tile it timed at every site) and PPO's program priced from
+     the same timings: the two measured speedups side by side;
+  7. one JSON line describing each kernel of the paths (K1 and K2 with
+     their launches by variant and their StableLM-3B numbers, K3 with its
+     device ms by pass and chunk and the Mamba-2 head);
+  8. the last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -101,6 +116,11 @@ RECUR_TOL = 1e-3            # f32 chunkwise prefill vs f32 token-by-token
                             # summation order only (4.2e-5 on an H100)
 ARCH, BATCH, PROMPT, GEN, STEPS = "qwen3_8b", 4, 512, 16, 2000
 XLSTM = "xlstm_1_3b"
+STABLELM = "stablelm_3b"
+# tests/test_system.py's PPO for the main-path loop: its NeuroVecConfig,
+# learning rate and budget, on dataset.generate(400, seed=0, base=sites)
+LOOP_NV = dict(train_batch=256, sgd_minibatch=64, ppo_epochs=4)
+LOOP_LR, LOOP_STEPS, LOOP_CORPUS = 5e-4, 2500, 400
 # jamba_v0_1_52b's ssm.chunk_scan site at batch 4, prompt 512 (d_model 4096,
 # expand 2, head dim 64 -> 128 heads; chunk 256): batch 4*128*2 = 1024
 # instances of 256 positions, P = 64, N = 16, as the runner builds it
@@ -427,6 +447,69 @@ def k2_checks(gen):
     return recs
 
 
+def k2_head_dim_checks(gen):
+    """K2 at head dims below 128.  At the StableLM-3B prefill (B=4,
+    H=Hkv=32, S=512, D=80, causal; q and k contiguous, v the transposed
+    view of its projection, as the model passes them) over every (bq, bkv)
+    of the action space (the illegal ones must raise), each line with its
+    bound at the true D and SDPA's time; once with q, k and v all the
+    transposed views of their projections (strides (S*H*D, D, H*D, 1)),
+    and once through the unaligned variant (q 2 bytes into its storage).
+    Then D = 64 and 96 at a small shape, both variants.  Returns the D =
+    80 records by tile and the largest error of the other checks."""
+    import torch
+    from repro_torch.configs.neurovec import DEFAULT as NV
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops, ref
+    B, H, S, D = 4, 32, 512, 80
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    q, k = rnd(B, H, S, D), rnd(B, H, S, D)
+    v = rnd(B, S, H, D).transpose(1, 2)
+    yr = ref.attention_ref(q.float(), k.float(), v.float(), causal=True,
+                           scale=D ** -0.5)
+    recs = {}
+    tiles = sorted({(min(bq, S), min(bkv, S))
+                    for bq in NV.bq_choices for bkv in NV.bkv_choices})
+    for t in tiles:
+        if not ops.attention_tiles_legal(S, S, D, *t):
+            try:
+                ops.flash_attention(q, k, v, causal=True, scale=D ** -0.5,
+                                    tiles=t)
+            except ValueError:
+                print(f"[k2:d80] tiles={t}: illegal, raised as it must",
+                      flush=True)
+                continue
+            fail(f"K2 launched the illegal tile {t} at D = {D}")
+        recs[t] = k2_line("stablelm prefill", q, k, v, t, ref_out=yr)
+    del yr
+    qt, kt = (rnd(B, S, H, D).transpose(1, 2) for _ in range(2))
+    k2_line("stablelm all-views", qt, kt, v, (128, 512))
+    del qt, kt
+    checks = [("d80 unaligned", D, rnd(B, H, S, D + 1)[..., 1:], k, v,
+               "unaligned")]
+    for d in (64, 96):
+        b, h, hkv, s_ = 2, 8, 2, 256
+        qd, kd, vd = rnd(b, h, s_, d), rnd(b, hkv, s_, d), rnd(b, hkv, s_, d)
+        checks += [(f"d{d}", d, qd, kd, vd, "tma_wgmma"),
+                   (f"d{d} unaligned", d, rnd(b, h, s_, d + 1)[..., 1:], kd,
+                    vd, "unaligned")]
+    small = 0.0
+    for label, d, qc, kc, vc, want in checks:
+        y, variant = k2_call(qc, kc, vc, (128, 128))
+        yp = kfa.flash_attention_plain(qc, kc, vc, causal=True,
+                                       scale=d ** -0.5, bq=128, bkv=128)
+        err = float((y.float() - yp.float()).abs().max())
+        print(f"[k2:{label}] shape={tuple(qc.shape)} variant={variant} "
+              f"|k-plain|={err:.3e} (tol {K2_TOL})", flush=True)
+        if variant != want or not torch.isfinite(y).all() or err >= K2_TOL:
+            fail(f"K2 {label}: variant {variant} (want {want}), abs err "
+                 f"{err:.3e}")
+        small = max(small, err)
+    return recs, small
+
+
 # ---------------------------------------------------------------------------
 # phase 3: K3
 # ---------------------------------------------------------------------------
@@ -599,15 +682,16 @@ def per_pass_launches(cfg):
              "chunk_scan": 0})
 
 
-def measured_path(arch, params=None, prompts=None):
-    """serve --measured --inject at full width, counters zeroed just before
-    and read just after; checked against eager mode on the same prompts."""
+def measured_path(arch, params=None, prompts=None, agent="ppo", extra=()):
+    """serve --autotune ``agent`` --measured --inject at full width,
+    counters zeroed just before and read just after; checked against eager
+    mode on the same prompts."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--full", "--batch", str(BATCH), "--prompt-len",
-            str(PROMPT), "--gen", str(GEN), "--autotune", "ppo",
-            "--autotune-steps", str(STEPS), "--measured", "--inject"]
+            str(PROMPT), "--gen", str(GEN), "--autotune", agent,
+            "--autotune-steps", str(STEPS), "--measured", *extra, "--inject"]
     print(f"[measured] serve.run({argv})", flush=True)
     zero_counts()
     t0 = time.perf_counter()
@@ -621,8 +705,9 @@ def measured_path(arch, params=None, prompts=None):
     print(f"[measured:{arch}] launches in the run: {counts}; tuning "
           f"{tun['launches']}; by pass {res.launches}; wall {wall:.1f} s; "
           f"fit {tun['fit_s']:.1f} s for {n_timed} timed pairs "
-          f"({tun['fit_s'] / max(n_timed, 1) * 1e3:.1f} ms a pair, PPO "
-          f"updates included); {st['transport_failed_pairs_total']} failed, "
+          f"({tun['fit_s'] / max(n_timed, 1) * 1e3:.1f} ms a pair, the "
+          f"{agent} fit and tune included); "
+          f"{st['transport_failed_pairs_total']} failed, "
           f"{st['transport_hits_total']} DB hits, "
           f"{st['transport_coalesced_total']} coalesced; health "
           f"{tun['health']}; {tun['backend_key']}", flush=True)
@@ -641,7 +726,7 @@ def measured_path(arch, params=None, prompts=None):
              for k in counts}
     if counts != total:
         fail(f"{arch}: total launch counts {counts} != {total}")
-    path_variants(f"measured:{arch}", counts)
+    path_variants(f"measured:{arch}:{agent}", counts)
     kinds = {s.kind for s in res.sites}
     need = {"matmul": "matmul", "attention": "flash_attention",
             "chunk_scan": "chunk_scan"}
@@ -815,6 +900,225 @@ def main_path():
     return res, counts
 
 
+def prefill_breakdown(model, params, prompts, prog, label):
+    """One prefill under ``prog`` (eager mode for ``None``): the wall ms
+    (median of 3, after a warm pass), and from a ``torch.profiler`` trace
+    of one more the device's busy ms, its idle share of that prefill's
+    wall time, and the kernels that took the most device time."""
+    import contextlib
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.vectorizer import inject
+    cache = model.make_cache(BATCH, PROMPT + GEN, device="cuda")
+    ctx = inject(prog) if prog is not None else contextlib.nullcontext()
+    with torch.inference_mode(), ctx:
+        walls = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill(params, {"tokens": prompts}, cache)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.prefill(params, {"tokens": prompts}, cache)
+            torch.cuda.synchronize()
+    wall = statistics.median(walls[1:])
+    by = {}
+    for e in prof.key_averages():       # kernels only: an operator's
+        # device time is its kernels', which would count twice
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and \
+                e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split("::")[-1][:40]
+            by[name] = by.get(name, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(by.values())
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[stablelm:breakdown] {label}: prefill wall {wall:.2f} ms (median "
+          f"of 3), device busy {busy:.2f} ms, idle "
+          f"{max(0.0, 1 - busy / wall) * 100:.1f}% of the wall; top device "
+          f"ms: " + ", ".join(f"{k} {v:.2f}" for k, v in top), flush=True)
+    return {"wall_ms": wall, "busy_ms": busy, "top": top}
+
+
+def stablelm_path(gen):
+    """The paper's main-path loop (``tests/test_system.py:22-55``) on the
+    full-width StableLM-3B (32 layers, head dim 80, bf16, random weights
+    from seed 0): its serve sites extracted; PPO fit on
+    ``dataset.generate(400, seed=0, base=sites)`` under
+    ``CostModelEnv(legality="h100")``; the sites tuned over their legal
+    tiles (modelled speedup: the TPU v5e formula); ``serve --tiles
+    --inject`` with that program (counters zeroed just before, read just
+    after) against eager mode; then ``serve --autotune brute --measured
+    --inject``, whose pick at every site must be the fastest tile it
+    timed, and PPO's program priced from the same timings.  Returns the
+    records the kernels line needs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.neurovec import DEFAULT, NeuroVecConfig
+    from repro_torch.core import dataset
+    from repro_torch.core.agents import PPOAgent
+    from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.core.costmodel_vec import action_tiles_grid
+    from repro_torch.core.env import ActionSpace, CostModelEnv
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.core.vectorizer import program_speedup, tune
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.measure import make_measured_env
+    from repro_torch.models.lm import build_model
+    cfg = get_config(STABLELM)
+    sites = extract_serve_sites(build_model(cfg), BATCH, PROMPT, GEN)
+    corpus = dataset.generate(LOOP_CORPUS, seed=0, base=sites)
+    nv = NeuroVecConfig(**LOOP_NV)
+    env = CostModelEnv(nv, legality="h100")
+    refused = int((~np.isfinite(env.cost_grid(corpus)).any(1)).sum())
+    agent = PPOAgent(nv, lr=LOOP_LR, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    agent.fit(corpus, env, total_steps=LOOP_STEPS)
+    fit_s = time.perf_counter() - t0
+    prog = tune(sites, agent, env.space, env)
+    sp = program_speedup(prog, sites, env)
+    print(f"[stablelm] {len(sites)} serve sites; corpus of {len(corpus)} "
+          f"sites ({refused} with no tile the kernels launch: f32, or a "
+          f"head dim the rule refuses); PPO fit {LOOP_STEPS} steps in "
+          f"{fit_s:.1f} s (last mean reward "
+          f"{agent.history[-1]['reward_mean']:.3f}); TPU-v5e-modelled "
+          f"speedup of the tuned program {sp:.3f}x (cost model, not an "
+          f"H100 number)", flush=True)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    tiles_path = build_dir / "stablelm_ppo_tiles.json"
+    prog.save(str(tiles_path))
+    argv = ["--arch", STABLELM, "--full", "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--tiles",
+            str(tiles_path), "--inject"]
+    print(f"[stablelm] serve.run({argv}) (full depth: {cfg.n_layers} "
+          f"layers)", flush=True)
+    zero_counts()
+    res = serve.run(serve.parse_args(argv))
+    counts = read_counts()
+    want_pre, want_dec = per_pass_launches(cfg)
+    n_pre = 1 + len(res.prefill_ms_runs)
+    n_dec = 1 + len(res.decode_tok_s_runs)
+    total = {k: want_pre[k] * n_pre + want_dec[k] * n_dec for k in counts}
+    print(f"[stablelm] launches in the run: {counts}; by pass "
+          f"{res.launches}", flush=True)
+    if res.launches != {"prefill": want_pre, "decode": want_dec} or \
+            counts != total:
+        fail(f"stablelm: launch counts {res.launches} / {counts} != "
+             f"{want_pre} {want_dec} / {total}")
+    path_variants("stablelm:ppo", counts)
+    bad = [s.key() for s in sites if not ops.tile_ok(s, prog.tiles[s.key()])]
+    if bad or counts["matmul"] == 0 or counts["flash_attention"] == 0:
+        fail(f"stablelm: tiles that cannot launch {bad}, or a kernel never "
+             f"launched {counts}")
+    logits = res.prefill_logits
+    if logits.shape != (BATCH, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or res.seq.shape != (BATCH, GEN):
+        fail(f"stablelm: logits {tuple(logits.shape)} / tokens "
+             f"{tuple(res.seq.shape)}")
+    eager = serve.run(serve.parse_args(argv[:argv.index("--tiles")]),
+                      params=res.params, prompts=res.prompts)
+    rel = float((logits - eager.prefill_logits).abs().max()
+                / eager.prefill_logits.abs().max())
+    agree = float((res.seq == eager.seq).float().mean())
+
+    def spread(r):
+        return (f"prefill ms {r.prefill_ms:.2f} of "
+                f"{[round(t, 2) for t in r.prefill_ms_runs]}, decode tok/s "
+                f"{r.decode_tok_s:.2f} of "
+                f"{[round(t, 2) for t in r.decode_tok_s_runs]}")
+    print(f"[stablelm] kernel vs eager prefill logits: relative {rel:.4e} "
+          f"(tol {LOGIT_TOL}); greedy tokens agree {agree * 100:.1f}%; "
+          f"kernels (PPO tiles): {spread(res)}; eager: {spread(eager)}",
+          flush=True)
+    if rel >= LOGIT_TOL:
+        fail(f"stablelm: prefill logits differ from eager: {rel:.3e}")
+    print(f"[stablelm] PPO tiles: " + ", ".join(
+        f"{s.site}@M={s.m}:{tuple(prog.tiles[s.key()])}" for s in sites),
+        flush=True)
+    params, prompts = res.params, res.prompts
+    del res, eager
+    # K1 at each StableLM shape under the baseline and the PPO tile (q, k,
+    # v and o share a shape: each shape and tile is checked once)
+    k1_tuned, k1_launches, seen = {}, {}, {}
+    for s in sites:
+        if s.kind != "matmul":
+            continue
+        shape = (s.m, s.n, s.k, s.site == "lm_head")
+        for tiles, how in ((baseline_tiles(s), "baseline"),
+                           (prog.tiles[s.key()], "tuned")):
+            key = (shape, tuple(tiles))
+            if key not in seen:
+                seen[key] = k1_check(shape, tiles, f"stablelm {how}:{s.site}",
+                                     gen)
+        k1_tuned[s.key()] = seen[(shape, tuple(prog.tiles[s.key()]))]
+        k1_launches[s.key()] = 2 if s.site == "lm_head" else cfg.n_layers
+    att = next(s for s in sites if s.kind == "attention" and s.m > 1)
+    t_att = tuple(min(a, PROMPT) for a in prog.tiles[att.key()][:2])
+    # brute force under the measured oracle, from a fresh timing DB
+    db = build_dir / "stablelm_measure.jsonl"
+    if db.exists():
+        db.unlink()
+    b_res, b_counts, _ = measured_path(STABLELM, params, prompts,
+                                       agent="brute",
+                                       extra=("--measure-db", str(db)))
+    # brute force takes the fastest tile of the action space it timed (the
+    # runner also timed each site's baseline tile, which may lie outside
+    # the action space: bq = 8 at decode attention)
+    picks = b_res.tuning["picks"]
+    slow = []
+    for s in sites:
+        p = picks[s.key()]
+        grid = {tuple(int(x) for x in t)
+                for t in action_tiles_grid(ActionSpace(DEFAULT), s.kind)}
+        best = min(v for t, v in p["timed"].items() if tuple(t) in grid)
+        if p["pick_s"] > best:
+            slow.append((s.key(), p["pick"], p["pick_s"], best))
+    if slow:
+        fail(f"stablelm: brute force did not take the fastest tile of the "
+             f"action space it timed: {slow}")
+    menv = make_measured_env(DEFAULT, db_path=str(db), device="cuda",
+                             legality="h100")
+    ppo_measured = program_speedup(prog, sites, menv)
+    base_s = menv.baseline_costs(sites)
+    for s, t_base in zip(sites, base_s):
+        t_ppo = float(menv.tiles_costs([s], [prog.tiles[s.key()][:3]])[0])
+        p = picks[s.key()]
+        print(f"[stablelm] {s.site}@M={s.m}: the runner's ms: baseline "
+              f"{tuple(baseline_tiles(s))} {t_base * 1e3:.4f}, PPO "
+              f"{tuple(prog.tiles[s.key()])} {t_ppo * 1e3:.4f}, brute "
+              f"{tuple(p['pick'])} {p['pick_s'] * 1e3:.4f}", flush=True)
+    st = menv.measure_fn.transport.stats()
+    menv.measure_fn.transport.close()
+    print(f"[stablelm] measured H100 speedup over the baseline tiles at "
+          f"the {len(sites)} serve sites: brute force "
+          f"{b_res.modelled_speedup:.3f}x, PPO on the corpus "
+          f"{ppo_measured:.3f}x (PPO's tiles priced from brute force's "
+          f"timings: {st['transport_hits_total']} DB hits, "
+          f"{st['transport_timed_pairs_total']} timed anew)", flush=True)
+    brute_tiles, brute_sp = dict(b_res.prog.tiles), b_res.modelled_speedup
+    # where a prefill's time goes, each program in turn, then eager
+    breakdown = {}
+    for label, p_ in (("PPO tiles", prog), ("brute tiles", b_res.prog),
+                      ("eager", None), ("PPO tiles again", prog),
+                      ("brute tiles again", b_res.prog)):
+        breakdown[label] = prefill_breakdown(b_res.model, params, prompts,
+                                             p_, label)
+    del b_res, params, prompts
+    torch.cuda.empty_cache()
+    return {"ppo": counts, "brute": b_counts, "k1_tuned": k1_tuned,
+            "k1_launches": k1_launches, "t_att": t_att,
+            "n_layers": cfg.n_layers, "modelled_speedup": sp,
+            "ppo_measured_speedup": ppo_measured,
+            "brute_measured_speedup": brute_sp, "brute_tiles": brute_tiles,
+            "breakdown": breakdown}
+
+
 def sass_check() -> None:
     """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
     TMA load (UTMALDG) instructions, and K2's and K3's builds no spilled
@@ -905,6 +1209,7 @@ def main() -> int:
                       and s.site == "attn.q")
     k1_sweep(sweep_site, gen)
     k2 = k2_checks(gen)
+    k2_d80, k2_small_err = k2_head_dim_checks(gen)
     torch.cuda.empty_cache()
     xl_sites = extract_serve_sites(build_model(get_config(XLSTM)), BATCH,
                                    PROMPT, GEN)
@@ -970,13 +1275,22 @@ def main() -> int:
           f"{ {q: round(v * 1e3, 4) for q, v in sorted(by_q.items())} }",
           flush=True)
     del x_res
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the main-path loop on StableLM-3B ----
+    sl = stablelm_path(gen)
+    by_path["stablelm_3b ppo (corpus)"] = sl["ppo"]
+    by_path["stablelm_3b brute measured"] = sl["brute"]
+    if sl["t_att"] not in k2_d80:
+        fail(f"StableLM's tuned attention tile {sl['t_att']} was not "
+             f"checked at D = 80")
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
 
     def path_counts(k):
         return {p: c[k] for p, c in by_path.items()}
 
-    # ---- phase 6: kernels line ----
+    # ---- phase 7: kernels line ----
     def agg(recs, weights):
         """Launch-weighted sums; the bound is the sum of each launch's own
         bound, and ``bound_by`` the limit that holds for most of it."""
@@ -999,6 +1313,9 @@ def main() -> int:
     k2_dev, k2_lib_dev = ((k2[t_att][f] * n_layers if k2[t_att][f] else None)
                           for f in ("device_ms", "lib_device_ms"))
     r3 = k3[q_tuned]
+    sl_k1, sl_k1_b, sl_k1_by = agg(sl["k1_tuned"], sl["k1_launches"])
+    sl_k2, sl_k2_b, sl_k2_by = agg(k2_d80, {sl["t_att"]: sl["n_layers"]})
+    r80 = k2_d80[sl["t_att"]]
     line = {"kernels": [
         {"name": "tiled_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul.cu",
@@ -1016,7 +1333,14 @@ def main() -> int:
          "device_ms": k1_dev,
          "work": "one prefill + one decode step of the qwen3_8b modelled "
                  "path, tuned tiles; M = 4 shapes timed over copies of w "
-                 f"exceeding {COLD_BYTES / 1e6:.0f} MB"},
+                 f"exceeding {COLD_BYTES / 1e6:.0f} MB",
+         "stablelm_3b": {
+             "ms": sl_k1["ms"], "plain_ms": sl_k1["plain_ms"],
+             "bound_ms": sl_k1_b * 1e3, "bound_by": sl_k1_by,
+             "library_ms": sl_k1["lib_ms"],
+             "max_abs_err": max(r["err"] for r in sl["k1_tuned"].values()),
+             "work": "one prefill + one decode step of stablelm_3b at the "
+                     "PPO (corpus) tiles"}},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
@@ -1025,14 +1349,26 @@ def main() -> int:
          "launches_by_variant": by_variant("flash_attention"),
          "launches_by_variant_by_path": path_counts(
              "flash_attention_by_variant"),
-         "max_abs_err": max(r["err"] for r in k2.values()),
+         "max_abs_err": max([r["err"] for r in k2.values()]
+                            + [r["err"] for r in k2_d80.values()]
+                            + [k2_small_err]),
          "tolerance": f"abs {K2_TOL} vs plain version",
          "ms": k2_tot["ms"], "plain_ms": k2_tot["plain_ms"],
          "bound_ms": k2_b * 1e3, "bound_by": k2_by,
          "library_ms": k2_tot["lib_ms"],
          "device_ms": k2_dev, "library_device_ms": k2_lib_dev,
          "work": f"one prefill of the qwen3_8b modelled path ({n_layers} "
-                 f"launches at tiles {t_att}, v in the served layout)"},
+                 f"launches at tiles {t_att}, v in the served layout)",
+         "stablelm_3b": {
+             "ms": sl_k2["ms"], "plain_ms": sl_k2["plain_ms"],
+             "bound_ms": sl_k2_b * 1e3, "bound_by": sl_k2_by,
+             "library_ms": sl_k2["lib_ms"],
+             "device_ms": (r80["device_ms"] * sl["n_layers"]
+                           if r80["device_ms"] else None),
+             "max_abs_err": max([r["err"] for r in k2_d80.values()]
+                                + [k2_small_err]),
+             "work": f"one prefill of stablelm_3b ({sl['n_layers']} launches "
+                     f"at head dim 80, tiles {sl['t_att']})"}},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/chunk_scan.cu",
          "replaces": "src/repro/kernels/chunk_scan.py:56",

@@ -13,7 +13,7 @@ import dataclasses
 import importlib
 from dataclasses import dataclass
 
-PORTED_ARCHS = ("qwen3_8b", "xlstm_1_3b")
+PORTED_ARCHS = ("qwen3_8b", "stablelm_3b", "xlstm_1_3b")
 
 
 @dataclass(frozen=True)

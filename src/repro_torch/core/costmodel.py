@@ -10,10 +10,14 @@ TPU-v5e-modelled and says nothing about the H100.
 ``legality`` picks which tiles are illegal:
 
 * ``"tpu_v5e"`` — VMEM overflow, exactly as the reference (parity);
-* ``"h100"`` — the Hopper kernel cannot launch the tile
-  (``repro_torch.kernels.ops.tile_ok``), so "fails to compile" means the
-  same to the oracle and to the kernel, for all three kernels (K1, K2,
-  K3).
+* ``"h100"`` — the Hopper kernel cannot launch the tile at the site's
+  dtype and head dim (``repro_torch.kernels.ops.tile_ok``), so "fails to
+  compile" means the same to the oracle and to the kernel, for all three
+  kernels (K1, K2, K3); a site the kernels refuse has no legal tile;
+* ``"cpu"`` — the CPU route, where the kernels' plain versions run: the
+  same rule without its dtype clause (``tile_ok(..., route="cpu")``), so
+  a reduced f32 config tunes on the CPU to the tiles the card would
+  launch at its shapes.
 
 Also provides the heuristic baseline tile pickers, verbatim.
 """
@@ -35,7 +39,8 @@ LANE = 128
 GRID_STEP_OVERHEAD = 3e-7
 FIXED_OVERHEAD = 2e-6
 
-LEGALITIES = ("tpu_v5e", "h100")
+LEGALITIES = ("tpu_v5e", "h100", "cpu")
+ROUTE = {"h100": "cuda", "cpu": "cpu"}     # legality -> ops.tile_ok route
 DEFAULT_LEGALITY = "h100"
 
 
@@ -71,7 +76,7 @@ def _mxu_util(bm: int, bn: int, bk: int) -> float:
 def _legal(site: KernelSite, tiles, vmem: int, legality: str) -> bool:
     if check_legality(legality) == "tpu_v5e":
         return vmem <= VMEM_BYTES
-    return ops.tile_ok(site, tiles)
+    return ops.tile_ok(site, tiles, ROUTE[legality])
 
 
 def matmul_cost(site: KernelSite, tiles: Tuple[int, int, int],

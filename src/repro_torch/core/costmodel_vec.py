@@ -4,8 +4,9 @@ port of ``repro/core/costmodel_vec.py``).
 Evaluates whole ``(n_sites, n_actions)`` grids with float64 NumPy in the
 same evaluation order as :mod:`repro_torch.core.costmodel`; illegal tiles
 are ``np.inf``.  ``legality`` is as in the scalar model: ``"tpu_v5e"``
-(VMEM overflow, the reference's exact grids) or ``"h100"`` (the Hopper
-kernels' launch predicate, ``kernels.ops``).
+(VMEM overflow, the reference's exact grids), ``"h100"`` (the Hopper
+kernels' launch rule, ``kernels.ops``, at each site's dtype and head dim)
+or ``"cpu"`` (that rule without its dtype clause).
 """
 from __future__ import annotations
 
@@ -35,13 +36,14 @@ def _mxu_util_vec(bm, bn, bk):
 
 
 def matmul_cost_vec(M, N, K, s, peak, bm, bn, bk,
-                    legality: str = DEFAULT_LEGALITY) -> np.ndarray:
+                    legality: str, dtype) -> np.ndarray:
     tm, tn, tk = _ceil(M, bm), _ceil(N, bn), _ceil(K, bk)
     if cm.check_legality(legality) == "tpu_v5e":
         vmem = 2 * (bm * bk + bk * bn) * s + bm * bn * 4 + bm * bn * s
         legal = vmem <= cm.VMEM_BYTES
     else:
-        legal = ops.matmul_tiles_legal(M, N, K, bm, bn, bk)
+        legal = ops.matmul_tiles_legal(M, N, K, bm, bn, bk, dtype=dtype,
+                                       route=cm.ROUTE[legality])
     pm = (tm * bm).astype(np.float64)
     pn = (tn * bn).astype(np.float64)
     pk = (tk * bk).astype(np.float64)
@@ -56,14 +58,15 @@ def matmul_cost_vec(M, N, K, s, peak, bm, bn, bk,
 
 
 def attention_cost_vec(Sq, Skv, D, BH, causal, s, peak, bq, bkv,
-                       legality: str = DEFAULT_LEGALITY) -> np.ndarray:
+                       legality: str, dtype) -> np.ndarray:
     tq, tkv = _ceil(Sq, bq), _ceil(Skv, bkv)
     if cm.check_legality(legality) == "tpu_v5e":
         vmem = 2 * (bq * D + 2 * bkv * D) * s + bq * D * 4 + 2 * bq * 4 \
             + bq * bkv * 4
         legal = vmem <= cm.VMEM_BYTES
     else:
-        legal = ops.attention_tiles_legal(Sq, Skv, D, bq, bkv)
+        legal = ops.attention_tiles_legal(Sq, Skv, D, bq, bkv, dtype=dtype,
+                                          route=cm.ROUTE[legality])
     pq = (tq * bq).astype(np.float64)
     pkv = (tkv * bkv).astype(np.float64)
     grid = BH.astype(np.float64) * tq * tkv
@@ -80,13 +83,14 @@ def attention_cost_vec(Sq, Skv, D, BH, causal, s, peak, bq, bkv,
 
 
 def chunk_scan_cost_vec(m, P, N, batch, s, peak, Q,
-                        legality: str = DEFAULT_LEGALITY) -> np.ndarray:
+                        legality: str, dtype) -> np.ndarray:
     tokens = batch * m
     if cm.check_legality(legality) == "tpu_v5e":
         vmem = 2 * Q * (P + 2 * N) * s + P * N * 4 + Q * Q * 4
         legal = vmem <= cm.VMEM_BYTES
     else:
-        legal = ops.chunk_tiles_legal(tokens, P, N, Q)
+        legal = ops.chunk_tiles_legal(tokens, P, N, Q, dtype=dtype,
+                                      route=cm.ROUTE[legality])
     chunks_total = _ceil(tokens, Q)
     per_chunk = 2.0 * Q * Q * N + 2.0 * Q * Q * P + 4.0 * Q * P * N
     flops = per_chunk * chunks_total
@@ -110,9 +114,9 @@ def _dtype_meta(dtype: str) -> Tuple[int, float]:
 
 
 def _site_cols(sites: Sequence[KernelSite], grid: bool = True):
-    rows = [(s.m, s.n, s.k, s.batch, s.causal, *_dtype_meta(s.dtype))
-            for s in sites]
-    m, n, k, b, causal, sb, peak = zip(*rows) if rows else ((),) * 7
+    rows = [(s.m, s.n, s.k, s.batch, s.causal, *_dtype_meta(s.dtype),
+             str(s.dtype)) for s in sites]
+    m, n, k, b, causal, sb, peak, dt_ = zip(*rows) if rows else ((),) * 8
 
     def col(vals, dt):
         a = np.array(vals, dt)
@@ -120,7 +124,7 @@ def _site_cols(sites: Sequence[KernelSite], grid: bool = True):
     return {"m": col(m, np.int64), "n": col(n, np.int64),
             "k": col(k, np.int64), "batch": col(b, np.int64),
             "causal": col(causal, bool), "s": col(sb, np.int64),
-            "peak": col(peak, np.float64)}
+            "peak": col(peak, np.float64), "dtype": col(dt_, object)}
 
 
 def _cost_kind(kind: str, c: Dict[str, np.ndarray], tiles: np.ndarray,
@@ -133,14 +137,15 @@ def _cost_kind(kind: str, c: Dict[str, np.ndarray], tiles: np.ndarray,
         t0, t1, t2 = t[:, 0], t[:, 1], t[:, 2]
     if kind == "matmul":
         return matmul_cost_vec(c["m"], c["n"], c["k"], c["s"], c["peak"],
-                               t0, t1, t2, legality)
+                               t0, t1, t2, legality, c["dtype"])
     if kind == "attention":
         return attention_cost_vec(c["m"], c["k"], c["n"], c["batch"],
                                   c["causal"], c["s"], c["peak"], t0, t1,
-                                  legality)
+                                  legality, c["dtype"])
     if kind == "chunk_scan":
         return chunk_scan_cost_vec(c["m"], c["n"], c["k"], c["batch"],
-                                   c["s"], c["peak"], t0, legality)
+                                   c["s"], c["peak"], t0, legality,
+                                   c["dtype"])
     raise ValueError(kind)
 
 
@@ -269,14 +274,12 @@ def baseline_tiles_batch(sites) -> np.ndarray:
     return out
 
 
-def baseline_costs(sites, legality: str = DEFAULT_LEGALITY) -> np.ndarray:
-    """(n,) baseline cost per site; raises if a baseline tile is illegal."""
-    tiles = baseline_tiles_batch(sites)
-    out = np.empty((len(sites),), np.float64)
-    for kind, idx in group_by_kind(sites).items():
-        c = _site_cols([sites[i] for i in idx], grid=False)
-        out[idx] = _cost_kind(kind, c, tiles[idx], grid=False,
-                              legality=legality)
-    if not np.isfinite(out).all():
+def baseline_costs(sites, legality: str = DEFAULT_LEGALITY,
+                   strict: bool = True) -> np.ndarray:
+    """(n,) baseline cost per site; an illegal baseline tile raises, or
+    with ``strict=False`` is ``inf`` (an env's reward then fails the site
+    closed to the penalty)."""
+    out = costs_for_tiles(sites, baseline_tiles_batch(sites), legality)
+    if strict and not np.isfinite(out).all():
         raise ValueError(f"baseline tiles illegal ({legality}) for some site")
     return out

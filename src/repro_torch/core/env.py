@@ -82,13 +82,24 @@ class ActionSpace:
         s = self.valid_sizes(kind)
         return (flat // (s[1] * s[2]), (flat // s[2]) % s[1], flat % s[2])
 
+    def unflatten_batch(self, kind: str, flat) -> np.ndarray:
+        """(n, 3) head indices of flat actions (vectorized ``unflatten``)."""
+        s = self.valid_sizes(kind)
+        f = np.asarray(flat, np.int64)
+        return np.stack([f // (s[1] * s[2]), (f // s[2]) % s[1], f % s[2]],
+                        axis=-1)
+
 
 class CostModelEnv:
     """Reward oracle backed by the analytic cost model.
 
-    ``legality="h100"`` (the default, and the serve path's) prices a tile
-    the Hopper kernels cannot launch as illegal; ``"tpu_v5e"`` reproduces
-    the reference's VMEM rule exactly."""
+    ``legality="h100"`` (the default, and the serve path's on the card)
+    prices a tile the Hopper kernels cannot launch as illegal, and every
+    tile of a site whose dtype or head dim they refuse; ``"cpu"`` is that
+    rule without its dtype clause (the serve path's on the CPU);
+    ``"tpu_v5e"`` reproduces the reference's VMEM rule exactly.  A site
+    whose baseline tile is illegal has an infinite baseline, and every
+    action there earns the penalty."""
 
     def __init__(self, nv_cfg: NeuroVecConfig, seed: int = 0,
                  legality: str = costmodel.DEFAULT_LEGALITY):
@@ -103,7 +114,9 @@ class CostModelEnv:
         key = site.key()
         c = self._baseline_cache.get(key)
         if c is None:
-            c = costmodel.baseline_cost(site, self.legality)
+            c = costmodel.site_cost(site, costmodel.baseline_tiles(site),
+                                    self.legality)
+            c = math.inf if c is None else c
             self._baseline_cache[key] = c
         return c
 
@@ -113,7 +126,7 @@ class CostModelEnv:
                    if k not in self._baseline_cache]
         if missing:
             fresh = costmodel_vec.baseline_costs([sites[i] for i in missing],
-                                                 self.legality)
+                                                 self.legality, strict=False)
             for i, c in zip(missing, fresh):
                 self._baseline_cache[keys[i]] = float(c)
         return np.array([self._baseline_cache[k] for k in keys], np.float64)

@@ -47,11 +47,17 @@ def tune(sites: List[KernelSite], agent, space: ActionSpace,
 
     With ``env``, the greedy pick is the agent's most probable action among
     those ``env`` prices as legal (a finite cost), so that under
-    ``legality="h100"`` every tile of the program launches.  Without it the
-    pick is the reference's plain argmax."""
+    ``legality="h100"`` every tile of the program launches; a site with no
+    legal action (a dtype or head dim the kernels refuse) raises
+    ``ValueError``.  Without it the pick is the reference's plain
+    argmax."""
     if not sites:
         return TileProgram()
     legal = None if env is None else np.isfinite(env.cost_grid(sites))
+    if legal is not None:
+        for s, row in zip(sites, legal):
+            if not row.any():
+                raise ValueError(f"no legal action for site {s.key()}")
     actions = np.asarray(agent.act(sites, sample=False, legal=legal))
     return TileProgram({s.key(): tuple(int(t) for t in space.tiles(s.kind, a))
                         for s, a in zip(sites, actions)})

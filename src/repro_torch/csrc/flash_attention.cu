@@ -4,8 +4,15 @@
 //
 // q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), each read through its own
 // strides (the model's v is the transposed view of its projection, strides
-// (S*H*D, D, H*D, 1)); out (B, Hq, Sq, D) contiguous; D = 128.  GQA is read
-// in place: query head h uses KV head h / (Hq / Hkv).
+// (S*H*D, D, H*D, 1)); out (B, Hq, Sq, D) contiguous.  GQA is read in
+// place: query head h uses KV head h / (Hq / Hkv).
+//
+// Head dims: D a multiple of 8 up to D_PAD = 128 (kernels/ops.py:
+// head_dim_ok).  Both variants compute in the layout of D_PAD: variant A's
+// tensor maps carry the true D, so TMA fills the columns past it with zeros
+// (Q.K^T over them adds nothing; the P.V columns past D are computed and
+// never stored); variant B masks its loads.  Both store only the first D
+// columns.  The scale comes from the caller (1/sqrt(D) at the true D).
 //
 // The function is the reference's: scores scaled, the causal mask bottom-
 // right aligned (query row i sees keys 0 .. i + Skv - Sq) with the finite
@@ -58,14 +65,14 @@
 
 namespace {
 
-constexpr int D = 128;
+constexpr int D_PAD = 128;       // the head dim the kernels compute in
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
 // B. unaligned operands
 // ---------------------------------------------------------------------------
 
-constexpr int DP = D + 8;        // row pitch of Q and K tiles (bank spread)
+constexpr int DP = D_PAD + 8;    // row pitch of Q and K tiles (bank spread)
 constexpr int KV_SUB = 64;       // keys staged per shared-memory pass
 constexpr int KVP = KV_SUB + 8;  // row pitch of the transposed V tile
 
@@ -85,7 +92,7 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
-                       int Sq, int Skv, long long qsb, long long qsh,
+                       int Sq, int Skv, int d, long long qsb, long long qsh,
                        long long qss, long long qsd, long long ksb,
                        long long ksh, long long kss, long long ksd,
                        long long vsb, long long vsh, long long vss,
@@ -110,18 +117,19 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
 
   // ---- Q tile -> shared -> per-warp register fragments ----
-  for (int i = tid; i < nwarps * 16 * (D / 8); i += blockDim.x) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+  for (int i = tid; i < nwarps * 16 * (D_PAD / 8); i += blockDim.x) {
+    const int r = i / (D_PAD / 8), c = (i % (D_PAD / 8)) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (r < bq) val = load8(qb + (q0 + r) * qss + c * qsd, qsd, vec_q);
+    if (r < bq && c < d)
+      val = load8(qb + (q0 + r) * qss + c * qsd, qsd, vec_q);
     *reinterpret_cast<uint4*>(Qs + r * DP + c) = val;
   }
   __syncthreads();
-  uint32_t qa[D / 16][4];
+  uint32_t qa[D_PAD / 16][4];
   {
     const __nv_bfloat16* qr = Qs + (warp * 16 + g) * DP;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D_PAD / 16; ++kk) {
       qa[kk][0] = ld_u32(qr + kk * 16 + 2 * t);
       qa[kk][1] = ld_u32(qr + 8 * DP + kk * 16 + 2 * t);
       qa[kk][2] = ld_u32(qr + kk * 16 + 2 * t + 8);
@@ -129,9 +137,10 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  float o[D / 8][4];
+  float o[D_PAD / 8][4];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  for (int i = 0; i < D_PAD / 8; ++i)
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
   const int qpos0 = q0 + warp * 16 + g + q_off;   // row g; row g+8 is +8
   const int cta_qmax = q0 + bq - 1 + q_off;
@@ -142,11 +151,11 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
     for (int ks = kb; ks < kend; ks += KV_SUB) {
       if (can_skip && ks > cta_qmax) break;   // block-uniform
       // ---- stage K (row-major) and V (transposed) sub-slabs ----
-      for (int i = tid; i < KV_SUB * (D / 8); i += blockDim.x) {
-        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      for (int i = tid; i < KV_SUB * (D_PAD / 8); i += blockDim.x) {
+        const int r = i / (D_PAD / 8), c = (i % (D_PAD / 8)) * 8;
         const bool ok = ks + r < kend;
         uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-        if (ok) {
+        if (ok && c < d) {
           kv = load8(kb_ + (ks + r) * kss + c * ksd, ksd, vec_k);
           vv = load8(vb + (ks + r) * vss + c * vsd, vsd, vec_v);
         }
@@ -163,7 +172,7 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
       for (int nt = 0; nt < KV_SUB / 8; ++nt)
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < D_PAD / 16; ++kk) {
 #pragma unroll
         for (int nt = 0; nt < KV_SUB / 8; ++nt) {
           const __nv_bfloat16* kr = Ks + (nt * 8 + g) * DP + kk * 16 + 2 * t;
@@ -211,7 +220,7 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
         l_row[hh] = l_row[hh] * corr[hh] + rs[hh];
       }
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
+      for (int dt = 0; dt < D_PAD / 8; ++dt) {
         o[dt][0] *= corr[0]; o[dt][1] *= corr[0];
         o[dt][2] *= corr[1]; o[dt][3] *= corr[1];
       }
@@ -225,7 +234,7 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
         pa[2] = pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]);
         pa[3] = pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3]);
 #pragma unroll
-        for (int dt = 0; dt < D / 8; ++dt) {
+        for (int dt = 0; dt < D_PAD / 8; ++dt) {
           const __nv_bfloat16* vr = Vt + (dt * 8 + g) * KVP + j * 16 + 2 * t;
           mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
         }
@@ -234,17 +243,18 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // ---- out = acc / max(l, 1e-30) ----
-  __nv_bfloat16* ob = out + ((long long)bh * Sq + q0) * D;
+  // ---- out = acc / max(l, 1e-30): the first d columns ----
+  __nv_bfloat16* ob = out + ((long long)bh * Sq + q0) * d;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = warp * 16 + g + 8 * hh;
     if (r >= bq) continue;
     const float l = fmaxf(l_row[hh], 1e-30f);
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(ob + r * D + dt * 8 + 2 * t) =
-          pack_bf16x2(o[dt][2 * hh] / l, o[dt][2 * hh + 1] / l);
+    for (int dt = 0; dt < D_PAD / 8; ++dt) {
+      if (dt * 8 < d)
+        *reinterpret_cast<uint32_t*>(ob + r * d + dt * 8 + 2 * t) =
+            pack_bf16x2(o[dt][2 * hh] / l, o[dt][2 * hh + 1] / l);
     }
   }
 }
@@ -254,7 +264,8 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 constexpr int WG_ROWS = 64;                 // query rows a consumer warpgroup
-constexpr int Q_WG_BYTES = WG_ROWS * D * 2; // its Q tile: two 64 x 64 slabs
+constexpr int Q_WG_BYTES = WG_ROWS * D_PAD * 2;  // its Q tile: two 64 x 64
+                                                 // slabs
 constexpr int MAX_RING = 4;
 constexpr int SMEM_LIMIT = 232448;          // bytes a block may use on sm_90
 constexpr int SMEM_DYN = SMEM_LIMIT - 1024; // dynamic part (static: barriers)
@@ -300,8 +311,8 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  __nv_bfloat16* __restrict__ out, int B, int Hq, int Hkv,
-                 int Sq, int Skv, int bq, int n_stages, int ring, int causal,
-                 float scale_log2) {
+                 int Sq, int Skv, int d, int bq, int n_stages, int ring,
+                 int causal, float scale_log2) {
   using C = StageCfg<KEYS>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_k[MAX_RING];
@@ -402,7 +413,7 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
         mbar_wait(&full_k[s], phase);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < D_PAD / 16; ++kk) {
           const uint32_t off = (kk & 3) * 32;   // slab kk / 4, 16 columns
           wgmma_tile<KEYS, 0>(
               sc, make_desc(q_addr + (kk >> 2) * (Q_WG_BYTES / 2) + off, 16,
@@ -510,12 +521,12 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       const int rows = min(WG_ROWS, bq - wg * WG_ROWS);  // rows of the block
       __nv_bfloat16* ob =
-          out + (((size_t)b * Hq + h) * Sq + q0 + wg * WG_ROWS) * D;
+          out + (((size_t)b * Hq + h) * Sq + q0 + wg * WG_ROWS) * d;
 #pragma unroll
       for (int r8 = 0; r8 < WG_ROWS / 8; ++r8) {
         const int r = r8 * 8 + (t >> 4), c = t & 15;
-        if (r < rows)
-          *reinterpret_cast<uint4*>(ob + (size_t)r * D + c * 8) =
+        if (r < rows && c * 8 < d)      // the first d columns only
+          *reinterpret_cast<uint4*>(ob + (size_t)r * d + c * 8) =
               *reinterpret_cast<const uint4*>(o_tile + r * 256 +
                                               ((c ^ (r & 7)) * 16));
       }
@@ -523,14 +534,15 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// A 4-D bf16 map over (D, S, H, B) with the tensor's strides (elements) of
+// A 4-D bf16 map over (d, S, H, B) with the tensor's strides (elements) of
 // its S, H and B dimensions; boxes of 64 x rows x 1 x 1, 128-byte swizzle;
-// out-of-bounds rows read as zero.
-bool make_map_4d(CUtensorMap* map, const void* ptr, int S, int H, int B,
-                 long long ss, long long sh, long long sb, int rows) {
+// out-of-bounds rows, and the columns of the two 64-column slabs past d,
+// read as zero.
+bool make_map_4d(CUtensorMap* map, const void* ptr, int d, int S, int H,
+                 int B, long long ss, long long sh, long long sb, int rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)S, (cuuint64_t)H,
                         (cuuint64_t)B};
   cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
                            (cuuint64_t)sb * 2};
@@ -554,7 +566,7 @@ int sm_count() {
 template <int NWG, int KEYS>
 cudaError_t launch_tma(const CUtensorMap& mq, const CUtensorMap& mk,
                        const CUtensorMap& mv, __nv_bfloat16* out, int B,
-                       int Hq, int Hkv, int Sq, int Skv, int bq,
+                       int Hq, int Hkv, int Sq, int Skv, int d, int bq,
                        int n_stages, int ring, int causal, float scale_log2,
                        cudaStream_t stream) {
   // Q and the output staging, then the ring
@@ -572,14 +584,15 @@ cudaError_t launch_tma(const CUtensorMap& mq, const CUtensorMap& mk,
   }
   const int tiles = (Sq / bq) * B * Hq;
   kernel<<<tiles < sms ? tiles : sms, (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, out, B, Hq, Hkv, Sq, Skv, bq, n_stages, ring, causal,
+      mq, mk, mv, out, B, Hq, Hkv, Sq, Skv, d, bq, n_stages, ring, causal,
       scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point of variant A.  bq is the effective (clamped) query block,
+// C entry point of variant A.  D is the true head dim (a multiple of 8 up
+// to D_PAD); bq is the effective (clamped) query block,
 // warpgroups = ceil(bq / 64), stage_keys (64 or 128) the keys a ring stage
 // holds, n_stages = ceil(Skv / stage_keys), ring the stages of the ring
 // (kernels/ops.py:attention_launch_plan).  Strides are in elements; D is
@@ -588,28 +601,31 @@ cudaError_t launch_tma(const CUtensorMap& mq, const CUtensorMap& mk,
 // cudaErrorNotSupported when the tensor maps cannot be made.
 extern "C" int repro_flash_fwd_tma_bf16(
     const void* q, const void* k, const void* v, void* out, int B, int Hq,
-    int Hkv, int Sq, int Skv, long long qsb, long long qsh, long long qss,
-    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
-    long long vss, int bq, int warpgroups, int stage_keys, int n_stages,
-    int ring, int causal, float scale, void* stream) {
-  if (bq < 1 || Sq % bq || Hkv < 1 || Hq % Hkv ||
+    int Hkv, int Sq, int Skv, int D, long long qsb, long long qsh,
+    long long qss, long long ksb, long long ksh, long long kss,
+    long long vsb, long long vsh, long long vss, int bq, int warpgroups,
+    int stage_keys, int n_stages, int ring, int causal, float scale,
+    void* stream) {
+  if (D < 8 || D % 8 || D > D_PAD || bq < 1 || Sq % bq || Hkv < 1 ||
+      Hq % Hkv ||
       warpgroups != (bq + WG_ROWS - 1) / WG_ROWS ||
       (long long)n_stages * stage_keys < Skv ||
       (long long)(n_stages - 1) * stage_keys >= Skv || ring < 1 ||
       ring > MAX_RING)
     return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
-  if (!make_map_4d(&mq, q, Sq, Hq, B, qss, qsh, qsb, WG_ROWS) ||
-      !make_map_4d(&mk, k, Skv, Hkv, B, kss, ksh, ksb, stage_keys) ||
-      !make_map_4d(&mv, v, Skv, Hkv, B, vss, vsh, vsb, stage_keys))
+  if (!make_map_4d(&mq, q, D, Sq, Hq, B, qss, qsh, qsb, WG_ROWS) ||
+      !make_map_4d(&mk, k, D, Skv, Hkv, B, kss, ksh, ksb, stage_keys) ||
+      !make_map_4d(&mv, v, D, Skv, Hkv, B, vss, vsh, vsb, stage_keys))
     return (int)cudaErrorNotSupported;
   const float scale_log2 = scale * 1.4426950408889634f;
   auto o = static_cast<__nv_bfloat16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
 #define REPRO_FA_CASE(W_, K_)                                                 \
   if (warpgroups == W_ && stage_keys == K_)                                   \
-    return (int)launch_tma<W_, K_>(mq, mk, mv, o, B, Hq, Hkv, Sq, Skv, bq,    \
-                                   n_stages, ring, causal, scale_log2, st);
+    return (int)launch_tma<W_, K_>(mq, mk, mv, o, B, Hq, Hkv, Sq, Skv, D,     \
+                                   bq, n_stages, ring, causal, scale_log2,    \
+                                   st);
   REPRO_FA_CASE(1, 64)
   REPRO_FA_CASE(1, 128)
   REPRO_FA_CASE(2, 64)
@@ -618,20 +634,22 @@ extern "C" int repro_flash_fwd_tma_bf16(
   return (int)cudaErrorInvalidValue;
 }
 
-// C entry point of variant B.  (bq, bkv) are the effective (clamped)
-// blocks; strides in elements, each tensor's four; vec_* say that a
-// tensor's rows are contiguous and 16-byte aligned.  Returns
-// cudaGetLastError() after the launch.
+// C entry point of variant B.  D is the true head dim (a multiple of 8 up
+// to D_PAD); (bq, bkv) are the effective (clamped) blocks; strides in
+// elements, each tensor's four; vec_* say that a tensor's rows are
+// contiguous and 16-byte aligned.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a head dim the kernel does not take.
 extern "C" int repro_flash_fwd_unaligned_bf16(
     const void* q, const void* k, const void* v, void* out, int B, int Hq,
-    int Hkv, int Sq, int Skv, long long qsb, long long qsh, long long qss,
-    long long qsd, long long ksb, long long ksh, long long kss,
-    long long ksd, long long vsb, long long vsh, long long vss,
-    long long vsd, int bq, int bkv, int causal, int vec_q, int vec_k,
-    int vec_v, float scale, void* stream) {
+    int Hkv, int Sq, int Skv, int D, long long qsb, long long qsh,
+    long long qss, long long qsd, long long ksb, long long ksh,
+    long long kss, long long ksd, long long vsb, long long vsh,
+    long long vss, long long vsd, int bq, int bkv, int causal, int vec_q,
+    int vec_k, int vec_v, float scale, void* stream) {
+  if (D < 8 || D % 8 || D > D_PAD) return (int)cudaErrorInvalidValue;
   const int nwarps = (bq + 15) / 16;
   const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)nwarps * 16 * DP + KV_SUB * DP + D * KVP);
+                      ((size_t)nwarps * 16 * DP + KV_SUB * DP + D_PAD * KVP);
   cudaError_t err = cudaFuncSetAttribute(
       flash_unaligned_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -642,7 +660,7 @@ extern "C" int repro_flash_fwd_unaligned_bf16(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Hq, Hkv, Sq, Skv, qsb, qsh, qss, qsd, ksb, ksh, kss, ksd, vsb, vsh, vss,
-      vsd, bq, bkv, causal, scale, vec_q, vec_k, vec_v);
+      Hq, Hkv, Sq, Skv, D, qsb, qsh, qss, qsd, ksb, ksh, kss, ksd, vsb, vsh,
+      vss, vsd, bq, bkv, causal, scale, vec_q, vec_k, vec_v);
   return (int)cudaGetLastError();
 }

@@ -120,11 +120,12 @@ def _lib():
 def chunk_scan_cuda(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                     la: torch.Tensor, *, chunk: int) -> torch.Tensor:
     """Launch K3 on CUDA tensors with the tuned chunk."""
-    from repro_torch.kernels.ops import chunk_launch_plan, chunk_tiles_legal
+    from repro_torch.kernels.ops import (KERNEL_DTYPE, chunk_launch_plan,
+                                         chunk_tiles_legal, torch_dtype_ok)
     global launches
-    if not all(t.dtype == torch.bfloat16 for t in (x, Bm, Cm)):
-        raise TypeError(f"K3 takes bfloat16 x, B and C, got {x.dtype}/"
-                        f"{Bm.dtype}/{Cm.dtype}")
+    if not torch_dtype_ok(x, Bm, Cm):
+        raise TypeError(f"K3 takes {KERNEL_DTYPE} x, B and C, got {x.dtype}/"
+                        f"{Bm.dtype}/{Cm.dtype} (ops.dtype_ok)")
     if x.dim() != 3 or Bm.shape != Cm.shape or Bm.dim() != 3 \
             or Bm.shape[:2] != x.shape[:2] or tuple(la.shape) != x.shape[:2]:
         raise ValueError(f"K3 needs x (G,S,P), B and C (G,S,N), la (G,S); "

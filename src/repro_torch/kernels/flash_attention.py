@@ -23,8 +23,14 @@ variants (``ops.attention_launch_plan`` picks one):
 What bounds it on the H100: at the Qwen3-8B prefill (B=4, H=32, Hkv=8,
 S=512, causal) the bytes, 42 MB of q, k, v and out (0.0125 ms) against
 0.0087 ms of the causal half's products; the scores never reach device
-memory and each K/V tile is loaded once a CTA for both warpgroups.  Head
-dim 128 only.
+memory and each K/V tile is loaded once a CTA for both warpgroups.
+
+Head dims: any multiple of 8 up to 128 (``ops.head_dim_ok``).  The kernel
+keeps its layout of two 64-column slabs, the padded 128: TMA's tensor
+maps carry the true D, so the columns past it load as zeros (``Q.K^T``
+over them adds nothing, the ``P.V`` columns past D are never stored), and
+the epilogue stores only the first D columns.  A D below 128 so pays the
+tensor work of 128 (StableLM-3B's 80: 1.6x its own).
 
 On a CPU tensor :func:`repro_torch.kernels.ops.flash_attention` takes
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel or
@@ -41,16 +47,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.matmul import TileError
 
 NEG_INF = -1e30
-HEAD_DIM = 128          # the only head dim the CUDA kernel is built for
 
 VARIANTS = ("tma_wgmma", "unaligned")
 launches = 0
 launches_by_variant = {v: 0 for v in VARIANTS}
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
-_TMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+_TMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                  + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_void_p])
 _CALLS: dict = {}       # call signature -> (variant, C function, arguments)
@@ -126,15 +131,18 @@ def _tma_strides(t: torch.Tensor):
 def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
     """Check a call and plan it: the variant, the C function, and its
     arguments between the four pointers and the scale."""
-    from repro_torch.kernels.ops import attention_launch_plan
+    from repro_torch.kernels.ops import (ATTN_D_PAD, KERNEL_DTYPE,
+                                         attention_launch_plan, head_dim_ok,
+                                         torch_dtype_ok)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"K2 takes bfloat16, got {q.dtype}/{k.dtype}/"
-                        f"{v.dtype}")
-    if D != HEAD_DIM or k.shape[-1] != D or v.shape[-1] != D:
-        raise ValueError(f"K2 is built for head dim {HEAD_DIM}, got "
-                         f"q {D}, k {k.shape[-1]}, v {v.shape[-1]}")
+    if not torch_dtype_ok(q, k, v):
+        raise TypeError(f"K2 takes {KERNEL_DTYPE}, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype} (ops.dtype_ok)")
+    if not head_dim_ok(D) or k.shape[-1] != D or v.shape[-1] != D:
+        raise ValueError(f"K2 takes one head dim, a multiple of 8 up to "
+                         f"{ATTN_D_PAD} (ops.head_dim_ok), got q {D}, "
+                         f"k {k.shape[-1]}, v {v.shape[-1]}")
     if k.shape != v.shape or k.shape[0] != B or Hq % Hkv:
         raise ValueError(f"bad attention shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
@@ -150,7 +158,7 @@ def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
                         f"Sq={Sq} Skv={Skv} D={D} (ops.tile_ok)")
     if plan.variant == "tma_wgmma":
         return plan.variant, _fn("repro_flash_fwd_tma_bf16", _TMA_ARGTYPES), (
-            B, Hq, Hkv, Sq, Skv, *strides[0][:3], *strides[1][:3],
+            B, Hq, Hkv, Sq, Skv, D, *strides[0][:3], *strides[1][:3],
             *strides[2][:3], plan.bq, plan.warpgroups, plan.stage_keys,
             plan.n_stages, plan.ring, int(causal))
     # 16-byte loads where a tensor's rows are contiguous and aligned
@@ -158,7 +166,7 @@ def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
                and all(st % 8 == 0 for st in t.stride()[:3]))
            for t in (q, k, v)]
     return plan.variant, _fn("repro_flash_fwd_unaligned_bf16", _ARGTYPES), (
-        B, Hq, Hkv, Sq, Skv, *q.stride(), *k.stride(), *v.stride(), plan.bq,
+        B, Hq, Hkv, Sq, Skv, D, *q.stride(), *k.stride(), *v.stride(), plan.bq,
         plan.bkv, int(causal), *vec)
 
 

@@ -96,10 +96,12 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, bm: int, bn: int,
                 bk: int) -> torch.Tensor:
     """Launch K1 on CUDA tensors with the tuned tile ``(bm, bn, bk)``."""
-    from repro_torch.kernels.ops import matmul_launch_plan
+    from repro_torch.kernels.ops import (KERNEL_DTYPE, matmul_launch_plan,
+                                         torch_dtype_ok)
     global launches
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"K1 takes bfloat16, got {x.dtype} @ {w.dtype}")
+    if not torch_dtype_ok(x, w):
+        raise TypeError(f"K1 takes {KERNEL_DTYPE}, got {x.dtype} @ "
+                        f"{w.dtype} (ops.dtype_ok)")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"K1 needs x(M,K) @ w(K,N), got {tuple(x.shape)} "
                          f"@ {tuple(w.shape)}")

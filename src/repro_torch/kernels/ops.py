@@ -1,39 +1,56 @@
-"""Kernel entry points and the one predicate for which tiles can launch.
+"""Kernel entry points and the one rule for which tiles can launch.
 
 ``tiles`` is the factor tuple the NeuroVectorizer agent injected
 (``repro_torch.core.vectorizer``); ``None`` takes the heuristic baseline,
 as in ``repro/kernels/ops.py``.  A CPU tensor takes the kernel's plain
 PyTorch version; a CUDA tensor launches the Hopper kernel or raises.
 
-Which tiles launch (:func:`tile_ok`).  The reference clamps are applied
-first: ``bm <= ceil8(M)``, ``bn, bk <= ceil128(N | K)`` for matmul and
-``bq <= Sq``, ``bkv <= Skv`` for attention.  The f32 accumulator of a CTA
-lives in registers, and that is the limit:
+Which tiles launch (:func:`tile_ok`).  One rule, in three clauses, which
+``tile_ok``, ``CostModelEnv(legality="h100")`` (scalar and batched), the
+launch plans and the kernels' own argument checks all call:
 
-* matmul: the CTA tile is ``bm`` rounded up to a power of two of at least
-  16 rows by ``bn`` rounded up to a power of two of at least 128 columns;
-  it launches when ``rows * cols <= 128 * 256`` (128 f32 a thread at 256
-  threads).  ``bk`` never limits.  The wgmma variants pad the rows to 64
-  (two consumer warpgroups, still at most 128 accumulators a thread), so
-  this rule is unchanged from the first kernel; :func:`matmul_launch_plan`
-  picks the variant and, for a small output grid, the split over ``bk``.
-* attention: ``bq * D <= 128 * 128`` (at most two consumer warpgroups of
-  64 rows at D = 128, each holding its (64, D) f32 accumulator), and the
-  blocks must divide the sequence (``Sq % bq == Skv % bkv == 0``).  A
-  decode site (Sq == 1) never launches K2, so any positive tile is fine.
-  :func:`attention_launch_plan` picks the variant, the warpgroups and the
-  keys a stage of the TMA ring holds.
-* chunk scan: the chunk ``Q`` is clamped to the sequence (``min(Q, S)``)
-  and must be at most 1024 (its cumsum lives in shared memory, and so do
-  a 64-row block's scores against the whole chunk); the state width N
-  must be a multiple of 8 (TMA's 16-byte strides) and at most 1024.  P
-  never limits (it is tiled; x is padded to a multiple of 8).  The
-  measurement runner snaps S up to a multiple of the clamped chunk, as
-  the reference's does, so at a site divisibility never limits either; a
-  direct call whose chunk does not divide S raises ``ValueError`` on
-  every device.  :func:`chunk_launch_plan` sizes K3's passes.
+* dtype (:func:`dtype_ok`): K1, K2 and K3 take bfloat16 and nothing else.
+  On the CPU route (``route="cpu"``, the plain versions) any dtype runs;
+  the other clauses still hold there, so a program tuned on the CPU names
+  tiles the card launches at the same shapes in bf16.
+* head dim (:func:`head_dim_ok`, K2 at Sq > 1): D a multiple of 8 (TMA's
+  16-byte strides, the epilogue's 16-byte stores) up to ``ATTN_D_PAD`` =
+  128.  K2 computes every D in two 64-column slabs of the padded 128: TMA
+  fills the columns past D with zeros on load and the epilogue stores only
+  the first D.  ``Dv == D``.
+* the tile: the reference clamps are applied first: ``bm <= ceil8(M)``,
+  ``bn, bk <= ceil128(N | K)`` for matmul and ``bq <= Sq``, ``bkv <= Skv``
+  for attention.  The f32 accumulator of a CTA lives in registers, and
+  that is the limit:
 
-``CostModelEnv(legality="h100")`` prices exactly these tiles as illegal.
+  - matmul: the CTA tile is ``bm`` rounded up to a power of two of at
+    least 16 rows by ``bn`` rounded up to a power of two of at least 128
+    columns; it launches when ``rows * cols <= 128 * 256`` (128 f32 a
+    thread at 256 threads).  ``bk`` never limits.  The wgmma variants pad
+    the rows to 64 (two consumer warpgroups, still at most 128
+    accumulators a thread), so this rule is unchanged from the first
+    kernel; :func:`matmul_launch_plan` picks the variant and, for a small
+    output grid, the split over ``bk``.
+  - attention: ``bq * ATTN_D_PAD <= 128 * 128`` (at most two consumer
+    warpgroups of 64 rows, each holding its (64, 128) f32 accumulator),
+    and the blocks must divide the sequence (``Sq % bq == Skv % bkv ==
+    0``).  A decode site (Sq == 1) never launches K2, so any positive tile
+    of a bf16 site is fine.  :func:`attention_launch_plan` picks the
+    variant, the warpgroups and the keys a stage of the TMA ring holds.
+  - chunk scan: the chunk ``Q`` is clamped to the sequence (``min(Q,
+    S)``) and must be at most 1024 (its cumsum lives in shared memory, and
+    so do a 64-row block's scores against the whole chunk); the state
+    width N must be a multiple of 8 (TMA's 16-byte strides) and at most
+    1024.  P never limits (it is tiled; x is padded to a multiple of 8).
+    The measurement runner snaps S up to a multiple of the clamped chunk,
+    as the reference's does, so at a site divisibility never limits
+    either; a direct call whose chunk does not divide S raises
+    ``ValueError`` on every device.  :func:`chunk_launch_plan` sizes K3's
+    passes.
+
+``CostModelEnv(legality="h100")`` prices exactly these tiles as illegal;
+a site whose dtype or head dim the kernels refuse has no legal tile at
+all, and ``tune`` raises for it.
 """
 from __future__ import annotations
 
@@ -47,8 +64,12 @@ from repro_torch.kernels import chunk_scan as kcs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 
+KERNEL_DTYPE = "bfloat16"        # the one dtype K1, K2 and K3 take
+ROUTES = ("cuda", "cpu")        # the card's kernels; the plain versions
 MM_ACC_LIMIT = 128 * 256        # f32 accumulator elements of a K1 CTA
-ATTN_ACC_LIMIT = 128 * 128      # f32 accumulator elements of a K2 CTA
+ATTN_ACC_LIMIT = 128 * 128      # f32 accumulator elements of a K2 CTA,
+                                # at the padded head dim
+ATTN_D_PAD = 128                # K2's head dim: two 64-column slabs
 MM_MAX_ROWS, MM_MAX_COLS = 256, 512
 L2_BAND_BYTES = 8 << 20         # the band of x a group of CTAs keeps in L2
 MM_K_STAGE = 128                # the deepest stage of K1's TMA ring
@@ -81,55 +102,88 @@ def _pow2_at_least(x, lo):
     return np.maximum(lo, 2 ** np.ceil(np.log2(x)).astype(np.int64))
 
 
-def matmul_tiles_legal(M, N, K, bm, bn, bk):
+def dtype_ok(dtype, route: str = "cuda"):
+    """The rule's dtype clause, elementwise over dtype names (numpy
+    broadcast): on the card (``route="cuda"``) the kernels take bfloat16
+    only; the plain versions of the CPU route take any dtype."""
+    d = np.asarray(dtype)
+    if route == "cpu":
+        return np.ones(d.shape, bool)
+    if route != "cuda":
+        raise ValueError(f"route {route!r} not in {ROUTES}")
+    return d == KERNEL_DTYPE
+
+
+def torch_dtype_ok(*tensors) -> bool:
+    """The dtype clause for a kernel's operands on the card: one dtype, and
+    one the kernels take."""
+    names = {str(t.dtype).removeprefix("torch.") for t in tensors}
+    return len(names) == 1 and bool(dtype_ok(names.pop()))
+
+
+def head_dim_ok(D):
+    """The rule's head-dim clause for K2 (elementwise): a multiple of 8 up
+    to the padded ``ATTN_D_PAD``."""
+    D = np.asarray(D, np.int64)
+    return (D >= 8) & (D % 8 == 0) & (D <= ATTN_D_PAD)
+
+
+def matmul_tiles_legal(M, N, K, bm, bn, bk, *, dtype=KERNEL_DTYPE,
+                       route="cuda"):
     """Elementwise (numpy-broadcast) K1 launch predicate."""
     bm, bn, bk = (np.asarray(a, np.int64) for a in (bm, bn, bk))
     pos = (bm > 0) & (bn > 0) & (bk > 0)
     rows = _pow2_at_least(np.minimum(bm, _ceil_mult(M, 8)), 16)
     cols = _pow2_at_least(np.minimum(bn, _ceil_mult(N, 128)), 128)
-    return (pos & (rows <= MM_MAX_ROWS) & (cols <= MM_MAX_COLS)
-            & (rows * cols <= MM_ACC_LIMIT))
+    return (dtype_ok(dtype, route) & pos & (rows <= MM_MAX_ROWS)
+            & (cols <= MM_MAX_COLS) & (rows * cols <= MM_ACC_LIMIT))
 
 
-def attention_tiles_legal(Sq, Skv, D, bq, bkv):
+def attention_tiles_legal(Sq, Skv, D, bq, bkv, *, dtype=KERNEL_DTYPE,
+                          route="cuda"):
     """Elementwise (numpy-broadcast) K2 launch predicate."""
     bq, bkv = np.asarray(bq, np.int64), np.asarray(bkv, np.int64)
     pos = (bq > 0) & (bkv > 0)
     bq_e = np.maximum(np.minimum(bq, Sq), 1)
     bkv_e = np.maximum(np.minimum(bkv, Skv), 1)
-    launched = ((bq_e * D <= ATTN_ACC_LIMIT) & (Sq % bq_e == 0)
-                & (Skv % bkv_e == 0))
+    launched = (head_dim_ok(D) & (bq_e * ATTN_D_PAD <= ATTN_ACC_LIMIT)
+                & (Sq % bq_e == 0) & (Skv % bkv_e == 0))
     # Sq == 1 (decode) never launches K2: it takes the plain branch
-    return pos & ((np.asarray(Sq) == 1) | launched)
+    return dtype_ok(dtype, route) & pos & ((np.asarray(Sq) == 1) | launched)
 
 
-def chunk_tiles_legal(S, P, N, Q):
+def chunk_tiles_legal(S, P, N, Q, *, dtype=KERNEL_DTYPE, route="cuda"):
     """Elementwise (numpy-broadcast) K3 launch predicate; ``S`` is the
     number of scanned positions of a group.  ``P`` never limits."""
     Q, N = np.asarray(Q, np.int64), np.asarray(N, np.int64)
     q_e = np.minimum(Q, S)
-    return ((Q > 0) & (q_e <= kcs.Q_MAX) & (N >= 8) & (N % 8 == 0)
-            & (N <= kcs.N_MAX))
+    return (dtype_ok(dtype, route) & (Q > 0) & (q_e <= kcs.Q_MAX) & (N >= 8)
+            & (N % 8 == 0) & (N <= kcs.N_MAX))
 
 
-def tile_ok(site, tiles) -> bool:
-    """True when the Hopper kernel for ``site`` launches with ``tiles``.
-    A chunk-scan site scans ``batch * m`` positions (one group, as the
-    measurement runner materialises it)."""
+def tile_ok(site, tiles, route: str = "cuda") -> bool:
+    """True when the Hopper kernel for ``site`` launches with ``tiles``
+    (``route="cpu"``: when the plain versions take it, which is the same
+    rule without its dtype clause).  A chunk-scan site scans ``batch * m``
+    positions (one group, as the measurement runner materialises it)."""
+    kw = dict(dtype=site.dtype, route=route)
     if site.kind == "matmul":
-        return bool(matmul_tiles_legal(site.m, site.n, site.k, *tiles[:3]))
+        return bool(matmul_tiles_legal(site.m, site.n, site.k, *tiles[:3],
+                                       **kw))
     if site.kind == "attention":
         return bool(attention_tiles_legal(site.m, site.k, site.n,
-                                          *tiles[:2]))
+                                          *tiles[:2], **kw))
     if site.kind == "chunk_scan":
         return bool(chunk_tiles_legal(site.batch * site.m, site.n, site.k,
-                                      tiles[0]))
+                                      tiles[0], **kw))
     raise ValueError(site.kind)
 
 
 def matmul_tile_plan(M: int, N: int, K: int, tiles):
     """``(bm, bn, bk, rows, cols)``: the clamped tiles (the CTA strides)
-    and the compiled CTA tile covering them, or ``None`` if illegal."""
+    and the compiled CTA tile covering them, or ``None`` if illegal (the
+    plans take the operands' dtype as checked: the wrappers call
+    :func:`torch_dtype_ok` first)."""
     bm, bn, bk = (int(t) for t in tiles[:3])
     if not matmul_tiles_legal(M, N, K, bm, bn, bk):
         return None
@@ -213,14 +267,15 @@ class AttentionLaunch(NamedTuple):
 def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
                           strides=None,
                           aligned: bool = True) -> Optional[AttentionLaunch]:
-    """The launch of K2 for a legal tile at head dim 128 (``None`` if the
-    tile is illegal or D is not 128).  ``strides`` are q's, k's and v's
-    (elements; ``None``: contiguous; a dimension of one element carries
-    its contiguous stride) and ``aligned`` says their base pointers are
+    """The launch of K2 for a legal tile (``None`` if the rule refuses the
+    tile or the head dim).  Shared memory is sized at the padded
+    head dim ``ATTN_D_PAD``.  ``strides`` are q's, k's and v's (elements;
+    ``None``: contiguous; a dimension of one element carries its
+    contiguous stride) and ``aligned`` says their base pointers are
     16-byte aligned.  TMA takes a tensor whose D is contiguous and whose
     other strides are positive multiples of 16 bytes; an operand it cannot
     take runs the unaligned variant."""
-    if D != kfa.HEAD_DIM or not attention_tiles_legal(Sq, Skv, D, bq, bkv):
+    if not attention_tiles_legal(Sq, Skv, D, bq, bkv):
         return None
     bq, bkv = min(bq, Sq), min(bkv, Skv)
     if Sq % bq or Skv % bkv:        # only at Sq == 1, which K2 never runs
@@ -231,8 +286,9 @@ def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
     wgs = -(-bq // ATTN_WG_ROWS)
     keys = 128 if bkv >= 128 else 64    # blocks below 64 keys: 64 a stage
     n_stages = -(-Skv // keys)
-    stage_bytes = 4 * keys * D              # a K and a V tile, bf16
-    q_bytes = wgs * ATTN_WG_ROWS * D * 2    # Q, and as much to stage out
+    stage_bytes = 4 * keys * ATTN_D_PAD             # a K and a V tile, bf16
+    q_bytes = wgs * ATTN_WG_ROWS * ATTN_D_PAD * 2   # Q, and as much to
+                                                    # stage out
     fit = (ATTN_SMEM_DYN - 1024 - 2 * q_bytes) // stage_bytes
     ring = max(1, min(ATTN_RING, fit, ATTN_MAX_RING, n_stages))
     return AttentionLaunch("tma_wgmma" if tma else "unaligned", bq, bkv,

@@ -3,13 +3,17 @@ under a tile program a PPO agent tuned (the port of
 ``repro/launch/serve.py``).
 
 The paper's train-once, tune-and-deploy loop (§4.2): extract the kernel
-sites of the prefill and decode steps, fit the PPO agent against a reward
-oracle with ``legality="h100"`` (tiles the Hopper kernels cannot launch are
-illegal), greedily tune the sites into a ``TileProgram`` (the greedy pick
-taken over the legal tiles), and with ``--inject`` run every matmul and
-prefill-attention site through the hand-written kernels with exactly those
-tiles: a tile they cannot launch (from ``--tiles``) stops the run with
-``TileError``.  Runs on the GPU unless ``--device cpu`` is given::
+sites of the prefill and decode steps, fit an agent (``--autotune ppo``,
+``brute`` or ``baseline``) against a reward oracle with
+``legality="h100"`` on the card (tiles the Hopper kernels cannot launch
+are illegal; ``"cpu"`` with ``--device cpu``, the same rule without its
+dtype clause), greedily tune the sites into a ``TileProgram`` (the greedy
+pick taken over the legal tiles), and with ``--inject`` run every matmul
+and prefill-attention site through the hand-written kernels with exactly
+those tiles: a tile they cannot launch (from ``--tiles``) stops the run
+with ``TileError``, and on the card a site whose dtype or head dim the
+kernels refuse stops it before tuning.  Runs on the GPU unless
+``--device cpu`` is given::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b --full \\
       --batch 4 --prompt-len 512 --gen 16 --autotune ppo --measured --inject
@@ -18,9 +22,10 @@ The oracle is the analytic cost model (TPU v5e constants: its speedup is
 not an H100 number) unless ``--measured`` is given: then the reward is
 the measured time of the kernels themselves at each site's shapes (paper
 eq. 2; ``repro_torch.measure``), on the card, or of their plain versions
-at capped shapes with ``--device cpu``.  ``--measure-db PATH`` keeps the
-timings, so a repeat run times nothing; ``--measure-reps`` sets the timing
-repetitions per pair.
+at capped shapes with ``--device cpu``; ``--autotune brute --measured``
+times every legal tile of every site and takes the fastest.
+``--measure-db PATH`` keeps the timings, so a repeat run times nothing;
+``--measure-reps`` sets the timing repetitions per pair.
 
 After one untimed pass, prefill ms is the median of ``PREFILL_REPS``
 timed prefills and decode tokens/s the median of ``DECODE_REPS`` timed
@@ -37,11 +42,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.neurovec import DEFAULT
-from repro_torch.core.env import CostModelEnv
+from repro_torch.core import costmodel_vec
+from repro_torch.core.env import ActionSpace, CostModelEnv
 from repro_torch.core.protocols import resolve_health
 from repro_torch.core.extractor import extract_serve_sites
 from repro_torch.core.vectorizer import (TileProgram, inject,
@@ -50,9 +57,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import chunk_scan as kcs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
+from repro_torch.kernels import ops
 from repro_torch.models.lm import build_model
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
+AUTOTUNE = ("ppo", "brute", "baseline")     # the ported agents
 PREFILL_REPS = 5        # timed prefills, after one untimed pass
 DECODE_REPS = 3         # timed decode windows of gen - 1 steps each
 
@@ -86,7 +95,7 @@ def parse_args(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--autotune", choices=("ppo",), default=None,
+    ap.add_argument("--autotune", choices=AUTOTUNE, default=None,
                     help="tune the serving kernels' tiles with this agent")
     ap.add_argument("--autotune-steps", type=int, default=2000,
                     help="RL budget for --autotune ppo")
@@ -122,15 +131,22 @@ def parse_args(argv=None):
     return args
 
 
+def legality_for(device) -> str:
+    """The legality profile of a serve on ``device``: the kernels' launch
+    rule on the card, the plain versions' on the CPU."""
+    return "h100" if torch.device(device).type == "cuda" else "cpu"
+
+
 def _tile_plan(args, sites, device):
     """Tune (or load) a TileProgram for the serving sites.
 
-    Returns ``(prog, speedup, tuning)``: ``tuning`` holds what the
-    measured oracle did (``measured``, ``fit_s``, ``stats``, ``health``,
-    ``backend_key``, ``failures``, ``breaker_open``, ``picks``: per site
-    the pick, its time, the fastest tile timed and every timed tile's
-    seconds)."""
-    legal_env = CostModelEnv(DEFAULT, legality="h100")
+    Returns ``(prog, speedup, tuning)``: ``tuning`` holds the wall seconds
+    of the fit and the greedy tune (``fit_s``) and what the measured
+    oracle did (``measured``, ``stats``, ``health``, ``backend_key``,
+    ``failures``, ``breaker_open``, ``picks``: per site the pick, its
+    time, the fastest tile timed and every timed tile's seconds)."""
+    legality = legality_for(device)
+    legal_env = CostModelEnv(DEFAULT, legality=legality)
     env, tuning = legal_env, {"measured": bool(args.measured)}
     if args.tiles:
         prog = TileProgram.load(args.tiles)
@@ -139,22 +155,24 @@ def _tile_plan(args, sites, device):
             print(f"[serve] WARNING: the tile plan misses sites that run at "
                   f"baseline tiles: {', '.join(missing)}", file=sys.stderr)
     else:
-        from repro_torch.core.agents.ppo import PPOAgent
+        from repro_torch.core.agents import make_agent
         if args.measured:
             from repro_torch.measure import make_measured_env
             env = make_measured_env(DEFAULT, db_path=args.measure_db,
                                     reps=args.measure_reps,
-                                    device=str(device), legality="h100")
+                                    device=str(device), legality=legality)
             print(f"[serve] measured oracle: transport=inproc "
                   f"reps={args.measure_reps} db={args.measure_db or '-'} "
                   f"({env.measure_fn.transport.backend_key})")
-        agent = PPOAgent(DEFAULT, seed=0, device=str(device))
+        kw = {"device": str(device)} if args.autotune == "ppo" else {}
+        agent = make_agent(args.autotune, DEFAULT, seed=0, **kw)
         t0 = time.perf_counter()
         agent.fit(sites, env, total_steps=args.autotune_steps)
-        tuning["fit_s"] = time.perf_counter() - t0
         # the legal mask comes from the cost model under the same legality:
-        # the measured env would time the whole grid for it
+        # the measured env would time the whole grid for it (brute force
+        # times it all the same: its pick is the argmin of that grid)
         prog = tune(sites, agent, env.space, legal_env)
+        tuning["fit_s"] = time.perf_counter() - t0
         if args.save_tiles:
             prog.save(args.save_tiles)
     sp = program_speedup(prog, sites, env)
@@ -230,17 +248,22 @@ def _decode(serve, params, logits, cache, args):
 
 
 def _check_kernel_sites(cfg, sites) -> None:
-    """The CUDA kernels take bfloat16 at every kernel site and head dim
-    128 at prefill attention (Sq > 1)."""
-    bad = sorted({s.dtype for s in sites if s.dtype != "bfloat16"})
-    dims = sorted({s.n for s in sites if s.kind == "attention" and s.m > 1
-                   and s.n != kfa.HEAD_DIM})
-    if bad or dims:
+    """Every site must have a tile the CUDA kernels launch: the launch
+    rule (``ops.tile_ok``, under ``CostModelEnv(legality="h100")``) over
+    the action space, at each site's dtype and head dim."""
+    legal = np.isfinite(costmodel_vec.cost_grid(ActionSpace(DEFAULT), sites,
+                                                "h100"))
+    bad = [s for s, row in zip(sites, legal) if not row.any()]
+    if bad:
+        dtypes = sorted({s.dtype for s in bad})
+        dims = sorted({s.n for s in bad if s.kind == "attention"})
         raise ValueError(
-            f"{cfg.name}: the CUDA kernels take bfloat16 at every kernel "
-            f"site and head dim {kfa.HEAD_DIM} at prefill attention; the "
-            f"sites have dtypes {bad or ['bfloat16']} and attention head "
-            f"dims {dims or [kfa.HEAD_DIM]} (the reduced test config?); "
+            f"{cfg.name}: no tile of the CUDA kernels launches at "
+            f"{len(bad)} sites ({', '.join(sorted({s.site for s in bad}))})"
+            f": they take "
+            f"{ops.KERNEL_DTYPE} and attention head dims that are multiples "
+            f"of 8 up to {ops.ATTN_D_PAD}; those sites have dtypes {dtypes} "
+            f"and attention head dims {dims} (the reduced test config?); "
             f"pass --full")
 
 

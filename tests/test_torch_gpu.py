@@ -207,15 +207,15 @@ def test_kernels_refuse_float32(cuda):
 _CONTIG, _MODEL = "contiguous", "model"
 
 
-def _attention_inputs(B, hq, hkv, sq, skv, layout, device, seed=5):
+def _attention_inputs(B, hq, hkv, sq, skv, layout, device, seed=5, d=128):
     """q, k, v; under the model's layout q and k are contiguous and v is
     the transposed view of its projection (``models/attention.py``)."""
-    q = _normal(seed, B, hq, sq, 128, device=device)
-    k = _normal(seed + 1, B, hkv, skv, 128, device=device)
+    q = _normal(seed, B, hq, sq, d, device=device)
+    k = _normal(seed + 1, B, hkv, skv, d, device=device)
     if layout == _MODEL:
-        v = _normal(seed + 2, B, skv, hkv, 128, device=device).transpose(1, 2)
+        v = _normal(seed + 2, B, skv, hkv, d, device=device).transpose(1, 2)
     else:
-        v = _normal(seed + 2, B, hkv, skv, 128, device=device)
+        v = _normal(seed + 2, B, hkv, skv, d, device=device)
     return q, k, v
 
 
@@ -325,9 +325,102 @@ def test_flash_library_holds_wgmma_and_tma_without_spills(cuda):
 
 
 def test_flash_kernel_refuses_other_head_dims(cuda):
-    q = torch.zeros((1, 2, 64, 80), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q, q, q, causal=True, scale=0.1)
+    """K2 takes head dims that are multiples of 8 up to 128 (the launch
+    rule, ``ops.head_dim_ok``); others raise before any launch."""
+    before = kfa.launches
+    for d in (20, 136, 192):
+        q = torch.zeros((1, 2, 64, d), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_attention(q, q, q, causal=True, scale=0.1)
+    assert kfa.launches == before
+
+
+def _flash_into_canary(q, k, v, causal, tiles):
+    """K2 through its C entry point into an output buffer followed by a
+    canary: the output's rows are D apart, so a column at or past D
+    written by the last row lands on the canary.  Returns the output and
+    the canary."""
+    B, H, Sq, D = q.shape
+    n = B * H * Sq * D
+    buf = torch.full((n + 1024,), 7.0, dtype=torch.bfloat16, device=q.device)
+    variant, fn, args = kfa._prepare(q, k, v, causal, *tiles)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), *args,
+            float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    return variant, buf[:n].view(B, H, Sq, D), buf[n:]
+
+
+@pytest.mark.parametrize("d", [80, 64, 96, 40, 16])
+@pytest.mark.parametrize("B,hq,hkv,sq,skv,tiles,causal,layout", [
+    (2, 8, 8, 512, 512, (128, 512), True, _MODEL),     # StableLM's layout
+    (2, 8, 2, 512, 512, (128, 128), True, _CONTIG),    # GQA
+    (2, 4, 2, 256, 512, (64, 256), True, _CONTIG),     # Sq < Skv
+    (1, 4, 2, 96, 200, (128, 256), False, _CONTIG),    # ragged, not causal
+    (2, 4, 4, 256, 256, (64, 64), True, _MODEL),       # 64-key stages
+])
+def test_flash_kernel_matches_plain_at_head_dims(cuda, d, B, hq, hkv, sq,
+                                                 skv, tiles, causal,
+                                                 layout):
+    """K2 at head dims below 128 (two 64-column slabs, the columns past D
+    zero-filled by TMA; at D <= 64 the second slab wholly) against its
+    plain version at the true D, with the scale 1/sqrt(D); nothing is
+    written at or past column D."""
+    q, k, v = _attention_inputs(B, hq, hkv, sq, skv, layout, cuda, seed=30,
+                                d=d)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=causal, scale=d ** -0.5, tiles=tiles))
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
+    yp = kfa.flash_attention_plain(q, k, v, causal=causal, scale=d ** -0.5,
+                                   bq=tiles[0], bkv=tiles[1])
+    assert y.shape == (B, hq, sq, d) and torch.isfinite(y.float()).all()
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+    variant, yc, canary = _flash_into_canary(q, k, v, causal, tiles)
+    assert variant == "tma_wgmma" and torch.equal(yc, y)
+    assert bool((canary == 7.0).all())
+
+
+@pytest.mark.parametrize("d", [80, 64, 96, 40, 16])
+def test_flash_unaligned_variant_at_head_dims(cuda, d):
+    """The unaligned variant (q 2 bytes into its storage, rows D + 1
+    apart) at head dims below 128 masks its loads and stores by hand."""
+    q = _normal(40, 1, 4, 256, d + 1, device=cuda)[..., 1:]
+    k = _normal(41, 1, 2, 256, d, device=cuda)
+    v = _normal(42, 1, 2, 256, d, device=cuda)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=d ** -0.5, tiles=(64, 128)))
+    assert ran == {"tma_wgmma": 0, "unaligned": 1}
+    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=d ** -0.5,
+                                   bq=64, bkv=128)
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+    variant, yc, canary = _flash_into_canary(q, k, v, True, (64, 128))
+    assert variant == "unaligned" and torch.equal(yc, y)
+    assert bool((canary == 7.0).all())
+
+
+def test_stablelm_under_inject_matches_eager_on_the_card(cuda):
+    """A 2-layer bf16 stablelm_3b at its head dim 80 (LayerNorm, MHA):
+    every matmul and the prefill attention go through the kernels, and the
+    logits stay within 5e-2 of eager mode's, relative to their largest
+    value."""
+    cfg = get_config("stablelm_3b").reduced(
+        n_layers=2, d_model=640, n_heads=8, n_kv_heads=8, head_dim=80,
+        d_ff=1024, vocab_size=1000, dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    tok = torch.randint(0, 1000, (2, 128),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    prog = baseline_program(extract_serve_sites(model, 2, 128, 1))
+    with torch.inference_mode():
+        le, _ = model.prefill(params, {"tokens": tok},
+                              model.make_cache(2, 129, device=cuda))
+        before = (kmm.launches, kfa.launches)
+        with inject(prog):
+            lk, _ = model.prefill(params, {"tokens": tok},
+                                  model.make_cache(2, 129, device=cuda))
+        torch.cuda.synchronize()
+    assert (kmm.launches - before[0], kfa.launches - before[1]) == (15, 2)
+    assert float((lk - le).abs().max() / le.abs().max()) < 5e-2
 
 
 def test_model_under_inject_matches_eager_on_the_card(cuda):

@@ -366,6 +366,18 @@ def _first_kernel_attention_legal(Sq, Skv, D, bq, bkv):
     return bq_e * D <= 128 * 128 and Sq % bq_e == 0 and Skv % bkv_e == 0
 
 
+def _attention_rule(Sq, Skv, D, bq, bkv, dtype):
+    """The K2 launch rule with its dtype and head-dim clauses, written out:
+    bf16 only; at Sq > 1 a head dim that is a multiple of 8 up to 128,
+    where the first kernel's rule holds at the padded head dim 128 (at D =
+    128 that rule, unchanged)."""
+    if dtype != "bfloat16":
+        return False
+    if Sq > 1 and (D % 8 or not 8 <= D <= 128):
+        return False
+    return _first_kernel_attention_legal(Sq, Skv, 128, bq, bkv)
+
+
 def _attention_site_shapes():
     """(Sq, Skv, D) of qwen3_8b's serve sites (prefill and decode, which
     the measurement runner times as they are) and of the GPU tests, and
@@ -380,6 +392,10 @@ def _attention_site_shapes():
     shapes |= {(sq, skv, 128) for sq in lens for skv in lens + (384,)}
     shapes |= {(256, 128, 128), (96, 96, 128), (192, 192, 128),
                (512, 512, 64), (512, 512, 80)}
+    # the head dims of the corpus (and of stablelm_3b, 80), and some K2
+    # refuses: not a multiple of 8, or past 128
+    shapes |= {(sq, 512, d) for sq in (1, 256, 512)
+               for d in (16, 40, 64, 80, 96, 192, 20, 136)}
     return sorted(shapes)
 
 
@@ -388,19 +404,23 @@ _ATTN_KV_BLOCKS = sorted(set(NV.bkv_choices) | {16, 64})
 
 
 def test_attention_legal_set_is_unchanged():
-    """The Hopper redesign keeps K2's launch rule: over the action grid
-    (and a few smaller blocks) at every attention site shape,
-    attention_tiles_legal and tile_ok agree with the first kernel's rule,
-    written out above."""
+    """K2's launch rule over the action grid (and a few smaller blocks) at
+    every attention site shape and in bf16 and f32: attention_tiles_legal
+    and tile_ok agree with the rule written out above.  At head dim 128 in
+    bf16 (every qwen3_8b site) that is the first kernel's rule, unchanged;
+    the other head dims launch at the padded 128, and f32 never."""
     n_legal = n_all = 0
-    for Sq, Skv, D in _attention_site_shapes():
+    for (Sq, Skv, D), dtype in itertools.product(_attention_site_shapes(),
+                                                 ("bfloat16", "float32")):
         site = KernelSite("a", "attention", m=Sq, n=D, k=Skv, batch=128,
-                          causal=True)
+                          causal=True, dtype=dtype)
         for t in itertools.product(_ATTN_BLOCKS, _ATTN_KV_BLOCKS):
-            want = _first_kernel_attention_legal(Sq, Skv, D, *t)
-            assert bool(ops.attention_tiles_legal(Sq, Skv, D, *t)) == want, \
-                (Sq, Skv, D, t)
-            assert ops.tile_ok(site, t) == want, (Sq, Skv, D, t)
+            want = _attention_rule(Sq, Skv, D, *t, dtype)
+            if D == 128 and dtype == "bfloat16":
+                assert want == _first_kernel_attention_legal(Sq, Skv, D, *t)
+            assert bool(ops.attention_tiles_legal(
+                Sq, Skv, D, *t, dtype=dtype)) == want, (Sq, Skv, D, t, dtype)
+            assert ops.tile_ok(site, t) == want, (Sq, Skv, D, t, dtype)
             n_legal += want
             n_all += 1
     assert 0 < n_legal < n_all
@@ -414,10 +434,11 @@ def _model_strides(B, H, S, D):
 
 
 def test_attention_launch_plan_covers_every_legal_tile():
-    """Every legal tile at head dim 128 plans the tma_wgmma variant with
-    one or two 64-row warpgroups covering bq, 64- or 128-key stages that
-    cover Skv, whose edges fall on the bkv block edges where bkv >= 64 (or
-    the block is the whole sequence), and a ring that fits shared memory;
+    """Every legal tile, at every head dim the rule admits, plans the
+    tma_wgmma variant with one or two 64-row warpgroups covering bq, 64- or
+    128-key stages that cover Skv, whose edges fall on the bkv block edges
+    where bkv >= 64 (or the block is the whole sequence), and a ring whose
+    shared memory, counted at the padded head dim 128, fits;
     a tile whose blocks do not divide the sequence (legal at Sq == 1,
     where K2 never runs) plans nothing; the model's
     strided v and the runner's contiguous layout plan tma_wgmma, and an
@@ -428,7 +449,7 @@ def test_attention_launch_plan_covers_every_legal_tile():
             legal = bool(ops.attention_tiles_legal(Sq, Skv, D, *t))
             p = ops.attention_launch_plan(Sq, Skv, D, *t)
             divides = Sq % min(t[0], Sq) == 0 and Skv % min(t[1], Skv) == 0
-            if D != 128 or not legal or not divides:
+            if not legal or not divides:
                 assert p is None
                 continue
             n += 1
@@ -443,8 +464,9 @@ def test_attention_launch_plan_covers_every_legal_tile():
                 assert bkv % p.stage_keys == 0 or bkv == Skv
             assert 1 <= p.ring <= min(ops.ATTN_MAX_RING, p.n_stages)
             assert p.ring >= min(2, p.n_stages)
-            assert p.smem == (2 * p.warpgroups * 64 * D * 2
-                              + p.ring * 4 * p.stage_keys * D + 1024)
+            assert p.smem == (2 * p.warpgroups * 64 * ops.ATTN_D_PAD * 2
+                              + p.ring * 4 * p.stage_keys * ops.ATTN_D_PAD
+                              + 1024)
             assert p.smem <= 232448 - 1024
     assert n > 0
     model = ops.attention_launch_plan(512, 512, 128, 128, 128,

@@ -229,7 +229,7 @@ def test_unknown_mode_and_arch_raise():
         with compute.compute_mode("pallas"):
             pass
     with pytest.raises(ValueError, match="not ported"):
-        get_config("stablelm_3b")
+        get_config("starcoder2_7b")
 
 
 @pytest.mark.parametrize("change", [dict(mla=True), dict(act="gelu"),

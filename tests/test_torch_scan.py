@@ -129,7 +129,8 @@ def _chunk_sites():
 
 def test_tile_ok_and_h100_cost_model_agree_on_chunk_scans():
     """``tile_ok`` and ``CostModelEnv(legality="h100")`` follow the one K3
-    predicate on every ``chunk_choices`` value, scalar and vectorised."""
+    predicate, at the site's dtype, on every ``chunk_choices`` value,
+    scalar and vectorised."""
     sites = _chunk_sites()
     space = ActionSpace(DEFAULT)
     env = CostModelEnv(DEFAULT, legality="h100")
@@ -139,7 +140,7 @@ def test_tile_ok_and_h100_cost_model_agree_on_chunk_scans():
         for a, q in enumerate(DEFAULT.chunk_choices):
             ok = ops.tile_ok(s, (q, 1, 1))
             assert ok == bool(ops.chunk_tiles_legal(s.batch * s.m, s.n, s.k,
-                                                    q))
+                                                    q, dtype=s.dtype))
             assert np.isfinite(grid[i, a]) == ok
             assert (tcm.site_cost(s, (q, 1, 1), "h100") is None) == (not ok)
             assert (env.cost(s, (a, 0, 0)) is None) == (not ok)
@@ -265,13 +266,17 @@ def _first_kernel_chunk_legal(S, N, Q):
 def test_chunk_legal_set_is_unchanged():
     """The Hopper redesign keeps K3's launch rule: over the action grid's
     chunks and a few others at every chunk-scan site of ``_chunk_sites``,
-    chunk_tiles_legal and tile_ok agree with the first kernel's rule."""
+    chunk_tiles_legal and tile_ok agree with the first kernel's rule at
+    the bf16 sites; K3 takes bf16 only, so an f32 site has no legal
+    chunk."""
     n_legal = n_all = 0
     for s in _chunk_sites():
         S = s.batch * s.m
         for q in _CHUNKS:
-            want = _first_kernel_chunk_legal(S, s.k, q)
-            assert bool(ops.chunk_tiles_legal(S, s.n, s.k, q)) == want, \
+            want = (s.dtype == "bfloat16"
+                    and _first_kernel_chunk_legal(S, s.k, q))
+            assert bool(ops.chunk_tiles_legal(S, s.n, s.k, q,
+                                              dtype=s.dtype)) == want, \
                 (s.key(), q)
             assert ops.tile_ok(s, (q, 1, 1)) == want, (s.key(), q)
             n_legal += want

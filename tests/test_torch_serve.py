@@ -151,7 +151,7 @@ def test_tuned_tiles_all_launch_even_when_the_policy_favours_others():
     ["--inject"],
     ["--autotune", "ppo", "--tiles", "x.json"],
     ["--gen", "0"],
-    ["--autotune", "brute"],
+    ["--autotune", "dtree"],
 ])
 def test_bad_flags_are_refused(argv):
     with pytest.raises(SystemExit):

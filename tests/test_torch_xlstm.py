@@ -190,9 +190,11 @@ def test_serve_gives_the_greedy_tokens_of_jax(models, tmp_path):
 
 
 def test_inject_guard_checks_the_extracted_sites():
-    """``--inject`` on the card needs bf16 at every kernel site and head
-    dim 128 at prefill attention: the full xLSTM-1.3B (head_dim 512, no
-    attention site) passes, the reduced f32 configs are refused."""
+    """``--inject`` on the card needs a tile the kernels launch at every
+    site (the launch rule: bf16, and at prefill attention a head dim that
+    is a multiple of 8 up to 128): the full xLSTM-1.3B (head_dim 512, no
+    attention site) and a bf16 qwen3_8b at head dim 16 pass, the reduced
+    f32 configs and a bf16 head dim of 20 are refused."""
     full = get_config(ARCH)
     serve._check_kernel_sites(full, extractor.extract_serve_sites(
         build_model(full), 4, 512, 16))
@@ -202,6 +204,9 @@ def test_inject_guard_checks_the_extracted_sites():
         with pytest.raises(ValueError, match="--full"):
             serve._check_kernel_sites(cfg, sites)
     qwen = get_config("qwen3_8b").reduced(dtype="bfloat16")
-    with pytest.raises(ValueError, match="head dims \\[16\\]"):
+    serve._check_kernel_sites(qwen, extractor.extract_serve_sites(
+        build_model(qwen), 2, 16, 4))
+    qwen = get_config("qwen3_8b").reduced(dtype="bfloat16", head_dim=20)
+    with pytest.raises(ValueError, match="head dims \\[20\\]"):
         serve._check_kernel_sites(qwen, extractor.extract_serve_sites(
             build_model(qwen), 2, 16, 4))
