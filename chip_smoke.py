@@ -74,8 +74,23 @@ Phases, each printed before the last line:
      the same timings: the two measured speedups side by side;
   7. one JSON line describing each kernel of the paths (K1 and K2 with
      their launches by variant and their StableLM-3B numbers, K3 with its
-     device ms by pass and chunk and the Mamba-2 head);
-  8. the last line: {"ok": true, "device": {...}}.
+     device ms by pass and chunk and the Mamba-2 head), printed last so
+     that phase 8's launches count in it;
+  8. the facade (run between phases 6 and 7): the full-width StableLM-3B
+     through repro_torch.api only.  A brute-force NeuroVectorizer against
+     the measured oracle, with a fresh timing DB and program store under
+     build/, fitted and tuned (timed and failed pairs, wall s, measured
+     speedup, health "ok"); one prefill under nv.inject(prog), whose K1
+     and K2 launches must be a prefill's and whose logits must lie within
+     LOGIT_TOL of eager mode's; save, a second tune answered by the store
+     with no inference, load with the same DB and store (the same
+     program), and a load refitted against the warm DB that times 0
+     pairs; the seven methods of make_agent, each fitted on the corpus
+     under CostModelEnv(legality="h100") (PPO at the loop's budget),
+     tuned to tiles ops.tile_ok admits and priced by the facade's
+     measured oracle (one line each: modelled and measured speedup, pairs
+     timed anew); then examples/torch_quickstart.py's main on the card;
+  9. the last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -1119,6 +1134,233 @@ def stablelm_path(gen):
             "breakdown": breakdown}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the facade
+# ---------------------------------------------------------------------------
+
+def take_counts(acc: dict) -> dict:
+    """Add the launches since the last zero_counts() (and K1's and K2's by
+    variant) into ``acc``, zero the counters, and return the segment's."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    seg = read_counts()
+    for k, v in seg.items():
+        acc[k] = acc.get(k, 0) + v
+    for name, mod in (("matmul", kmm), ("flash_attention", kfa)):
+        by = acc.setdefault(f"{name}_by_variant", {})
+        for var, n in mod.launches_by_variant.items():
+            by[var] = by.get(var, 0) + n
+    zero_counts()
+    return seg
+
+
+def facade_path():
+    """Phase 8: the full-width StableLM-3B through ``repro_torch.api`` only.
+    (1) A brute-force facade against the measured oracle, with a fresh
+    timing DB and program store under ``build/``: fit, tune, its measured
+    speedup and health.  (2) One prefill under ``nv.inject(prog)``: K1's
+    and K2's launches must be a prefill's, the logits eager's within
+    LOGIT_TOL.  (3) save, a store hit with no inference, load with the same
+    DB and store, and a refit of a load without the store that times
+    nothing.  (4) The seven methods of ``make_agent``, each fitted on the
+    corpus under ``CostModelEnv(legality="h100")``, tuned, checked by
+    ``ops.tile_ok`` and priced by the facade's measured oracle.  (5) The
+    port's quickstart at its own sizes.  Counters are zeroed at the start
+    and read at the end of each step; the sum is the path's."""
+    import importlib.util
+    import shutil
+    import statistics
+
+    import numpy as np
+    import torch
+    from repro_torch.api import (AGENT_NAMES, CostModelEnv, NeuroVecConfig,
+                                 NeuroVectorizer, make_agent)
+    from repro_torch.configs import get_config
+    from repro_torch.core import dataset
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.steps import make_prefill_step
+    cfg = get_config(STABLELM)
+    model = build_model(cfg)
+    sites = extract_serve_sites(model, BATCH, PROMPT, GEN)
+    nvc = NeuroVecConfig(**LOOP_NV)
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    db, store = (build_dir / "facade_measure.jsonl",
+                 build_dir / "facade_programs.jsonl")
+    ckpt = build_dir / "facade_ckpt"
+    for f in (db, store):
+        f.unlink(missing_ok=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    acc, out = {}, {}
+    zero_counts()
+
+    # (1) build and tune
+    t0 = time.perf_counter()
+    nv = NeuroVectorizer(nvc, agent="brute", oracle="measured",
+                         db_path=str(db), program_store=str(store),
+                         device="cuda")
+    prog = nv.fit(sites).tune_sites(sites)
+    fit_s = time.perf_counter() - t0
+    transport = nv.oracle.measure_fn.transport
+    st = transport.stats()
+    sp, health = nv.speedup(prog, sites), nv.health()
+    fit_seg = take_counts(acc)
+    print(f"[facade] brute, measured: {st['transport_timed_pairs_total']} "
+          f"pairs timed, {st['transport_failed_pairs_total']} failed, in "
+          f"{fit_s:.1f} s (facade built, fitted and tuned); measured H100 "
+          f"speedup over the baseline tiles {sp:.3f}x; health {health}; "
+          f"launches {fit_seg}", flush=True)
+    if health != "ok" or st["transport_failed_pairs_total"] or \
+            st["transport_timed_pairs_total"] == 0:
+        fail(f"facade: health {health}, stats {st}")
+    bad = [s.key() for s in sites if not ops.tile_ok(s, prog.tiles[s.key()])]
+    if bad:
+        fail(f"facade: brute tiles that cannot launch: {bad}")
+    out.update(timed=st["transport_timed_pairs_total"], fit_s=fit_s,
+               measured_speedup=sp)
+
+    # (2) inject: one prefill against eager mode
+    params = model.init(seed=0, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1)
+                            ).cuda()
+    cache = model.make_cache(BATCH, PROMPT + GEN, device="cuda")
+    prefill = make_prefill_step(model)
+    with torch.inference_mode():
+        eager, _ = prefill(params, {"tokens": prompts}, cache)
+        take_counts(acc)
+        with nv.inject(prog):
+            logits, _ = prefill(params, {"tokens": prompts}, cache)
+            torch.cuda.synchronize()
+            seg = take_counts(acc)
+            walls = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prefill(params, {"tokens": prompts}, cache)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+        take_counts(acc)
+    want = per_pass_launches(cfg)[0]
+    rel = float((logits.float() - eager.float()).abs().max()
+                / eager.float().abs().max())
+    prefill_ms = statistics.median(walls[1:])
+    print(f"[facade] prefill under nv.inject(prog): launches {seg} (a "
+          f"prefill's: {want}); logits vs eager: relative {rel:.4e} (tol "
+          f"{LOGIT_TOL}); prefill ms {prefill_ms:.2f} (median of 5 after a "
+          f"warm pass, of {[round(w, 2) for w in walls[1:]]})", flush=True)
+    if seg != want:
+        fail(f"facade: prefill launches {seg} != {want}")
+    if not torch.isfinite(logits).all() or \
+            logits.shape != (BATCH, cfg.vocab_size) or rel >= LOGIT_TOL:
+        fail(f"facade: injected prefill logits {tuple(logits.shape)} "
+             f"differ from eager: {rel:.3e}")
+    out.update(prefill_launches=seg, logits_rel=rel, prefill_ms=prefill_ms,
+               prefill_ms_runs=walls[1:])
+    del params, cache, eager, logits
+    torch.cuda.empty_cache()
+
+    # (3) persist and warm-start
+    fp = nv.save(str(ckpt))
+    inferences = nv.agent_inferences
+    again = nv.tune_sites(sites)
+    if again.tiles != prog.tiles or nv.store_hits != 1 or \
+            nv.agent_inferences != inferences:
+        fail(f"facade: second tune_sites: store hits {nv.store_hits}, "
+             f"inferences {inferences} -> {nv.agent_inferences}")
+    nv2 = NeuroVectorizer.load(str(ckpt), db_path=str(db),
+                               program_store=str(store), device="cuda")
+    p2 = nv2.tune_sites(sites)
+    nv3 = NeuroVectorizer.load(str(ckpt), db_path=str(db), device="cuda")
+    p3 = nv3.fit(sites).tune_sites(sites)
+    st3 = nv3.oracle.measure_fn.transport.stats()
+    print(f"[facade] saved (agent fingerprint {fp[:16]}); a second "
+          f"tune_sites: store hits {nv.store_hits}, agent inferences "
+          f"{nv.agent_inferences} (unchanged); loaded with the DB and the "
+          f"store: same program {p2.tiles == prog.tiles} (store hits "
+          f"{nv2.store_hits}, inferences {nv2.agent_inferences}); loaded "
+          f"and refitted against the warm DB without the store: same "
+          f"program {p3.tiles == prog.tiles}, "
+          f"{st3['transport_timed_pairs_total']} pairs timed, "
+          f"{st3['transport_hits_total']} DB hits", flush=True)
+    for name, p_ in (("loaded", p2), ("refitted", p3)):
+        diff = [k for k in prog.tiles if p_.tiles.get(k) != prog.tiles[k]]
+        if diff or set(p_.tiles) != set(prog.tiles):
+            fail(f"facade: the {name} facade's program differs at {diff}")
+    if nv2.store_hits != 1 or nv2.agent_inferences:
+        fail(f"facade: the loaded facade's store hits {nv2.store_hits}, "
+             f"inferences {nv2.agent_inferences}")
+    if st3["transport_timed_pairs_total"] != 0:
+        fail(f"facade: the warm refit timed {st3}")
+    nv2.close()
+    nv3.close()
+    take_counts(acc)
+
+    # (4) the seven methods, priced by the facade's measured oracle
+    corpus = dataset.generate(LOOP_CORPUS, seed=0, base=sites)
+    env = CostModelEnv(nvc, legality="h100")
+    methods = {}
+    for name in AGENT_NAMES:
+        agent = make_agent(name, nvc, seed=0, device="cuda",
+                           **({"lr": LOOP_LR} if name == "ppo" else {}))
+        nv_m = NeuroVectorizer(nvc, agent=agent, oracle=env, metrics=False,
+                               device="cuda")
+        t0 = time.perf_counter()
+        nv_m.fit(corpus, **({"total_steps": LOOP_STEPS} if name == "ppo"
+                            else {}))
+        p_m = nv_m.tune_sites(sites)
+        fit_m = time.perf_counter() - t0
+        bad = [s.key() for s in sites
+               if not ops.tile_ok(s, p_m.tiles[s.key()])]
+        if bad:
+            fail(f"facade: {name} tuned tiles that cannot launch: {bad}")
+        modelled = nv_m.speedup(p_m, sites)
+        before = transport.stats()["transport_timed_pairs_total"]
+        measured = nv.speedup(p_m, sites)
+        extra = transport.stats()["transport_timed_pairs_total"] - before
+        nv_m.close()
+        methods[name] = {"fit_s": fit_m, "modelled_speedup": modelled,
+                         "measured_speedup": measured, "timed_anew": extra}
+        print(f"[facade:{name}] fit on {len(corpus)} corpus sites and tune "
+              f"in {fit_m:.1f} s; speedup over the baseline tiles: "
+              f"TPU-v5e-modelled {modelled:.3f}x, measured on the H100 "
+              f"{measured:.3f}x ({extra} pairs timed beyond step 1)",
+              flush=True)
+        if not np.isfinite(measured) or measured <= 0:
+            fail(f"facade: {name}'s measured speedup {measured}")
+    nv.close()
+    take_counts(acc)
+    out["methods"] = methods
+
+    # (5) the quickstart on the card at its own sizes
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    t0 = time.perf_counter()
+    q = qs.main(["--device", "cuda"])
+    q_seg = take_counts(acc)
+    if q_seg["matmul"] != 1:
+        fail(f"facade: the quickstart's injected matmul launched {q_seg}")
+    q["wall_s"] = time.perf_counter() - t0
+    print(f"[facade:quickstart] {q['sites']} qwen3_8b train sites; reward "
+          f"{q['reward_first']:+.3f} -> {q['reward_last']:+.3f}; modelled "
+          f"speedup {q['speedup']:.3f}x; bf16 demo matmul at "
+          f"{q['tiles']}: relative error {q['rel_err']:.2e} (tol "
+          f"{qs.DEMO_TOL}); {q['wall_s']:.1f} s", flush=True)
+    out["quickstart"] = q
+    for name in ("matmul", "flash_attention"):
+        if acc[f"{name}_by_variant"].get("unaligned"):
+            fail(f"facade: {acc[f'{name}_by_variant']['unaligned']} {name} "
+                 f"launches took the unaligned variant")
+    print(f"[facade] launches in the path: {acc}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return acc, out
+
+
 def sass_check() -> None:
     """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
     TMA load (UTMALDG) instructions, and K2's and K3's builds no spilled
@@ -1284,6 +1526,11 @@ def main() -> int:
     if sl["t_att"] not in k2_d80:
         fail(f"StableLM's tuned attention tile {sl['t_att']} was not "
              f"checked at D = 80")
+
+    # ---- phase 8: the facade (before the kernels line: its launches
+    # count into the line's) ----
+    by_path["stablelm_3b facade"], facade = facade_path()
+    print("[facade] summary " + json.dumps(facade, default=str), flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
 

@@ -6,6 +6,8 @@ with its leaves as numpy arrays, onto the port's.  The two trees have the
 same structure: each period slot's leaves stacked along a leading layer
 axis (``repro/models/lm.py:44-58``), every matmul weight ``w(K, N)`` with
 the same meaning.  So the map is exact: the same numbers, no transposes.
+``embedder_from_jax(np_params)`` does the same for the code2vec
+embedder's four leaves.
 """
 from __future__ import annotations
 
@@ -43,6 +45,15 @@ def _map(ref, src, path, device):
         raise ValueError(f"{path}: {tuple(t.shape)} {t.dtype}, expected "
                          f"{tuple(ref.shape)} {ref.dtype}")
     return t
+
+
+def embedder_from_jax(np_params, device="cuda") -> dict:
+    """The code2vec embedder's parameters (``tok``, ``path``, ``W``,
+    ``att``) from the reference's ``embedding.embedder_init`` leaves as
+    numpy arrays, the same numbers as f32 tensors."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.array(np_params[k], np.float32), device=dev)
+            for k in ("tok", "path", "W", "att")}
 
 
 def params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:

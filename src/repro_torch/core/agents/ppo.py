@@ -199,6 +199,14 @@ class PPOAgent:
             out[i] = self.space.unflatten(s.kind, flat)
         return out
 
+    @torch.no_grad()
+    def code_vectors(self, sites) -> np.ndarray:
+        """(n, EMBED_DIM) code vectors of the agent's embedder (the
+        ``embed_fn`` of nns/dtree in the paper's frozen-after-RL setup)."""
+        ctx, mask, _ = self.feats(sites)
+        return emb.embed_sites(self.params["embedder"], ctx,
+                               mask).cpu().numpy()
+
     # -- PPO update ---------------------------------------------------------
     def _loss(self, ctx, mask, vs, actions, old_logp, rewards):
         logits, v = policy_forward(self.params, self.head_sizes, ctx, mask,

@@ -1,11 +1,16 @@
 """Contracts shared across the port (from ``repro/core/protocols.py``):
-agent-state versioning for ``Agent.load_state`` implementations, the
-:class:`MeasureTransport` contract of how measurements execute, and
-:func:`resolve_health`.  The ``Agent``/``Oracle`` protocols and the
-``AsyncOracle`` adapter wait for the facade."""
+the :class:`Agent` protocol of a decision method, the :class:`Oracle`
+protocol of a reward source, agent-state versioning for
+``Agent.load_state`` implementations, the :class:`MeasureTransport`
+contract of how measurements execute, and :func:`resolve_health`.  All
+three protocols are ``runtime_checkable``: ``isinstance`` checks that the
+members are present, not their signatures.  The ``AsyncOracle`` adapter is
+not ported yet."""
 from __future__ import annotations
 
 from typing import Protocol, Sequence, runtime_checkable
+
+import numpy as np
 
 AGENT_STATE_VERSION = 1
 
@@ -23,6 +28,74 @@ def check_agent_state(state: dict, expect_name: str) -> None:
     if version != AGENT_STATE_VERSION:
         raise ValueError(f"agent state version {version!r} is not the "
                          f"supported {AGENT_STATE_VERSION}")
+
+
+@runtime_checkable
+class Agent(Protocol):
+    """A vectorization decision method (RL, NNS, dtree, brute, ...)."""
+
+    name: str
+
+    def fit(self, sites: Sequence, oracle: "Oracle", **kwargs) -> "Agent":
+        """Train or label against ``oracle``; returns ``self``.  For the
+        search-free methods (random, polly, baseline) a no-op that may
+        pick up the oracle's action space."""
+        ...
+
+    def act(self, sites: Sequence, *, sample: bool = False,
+            legal=None) -> np.ndarray:
+        """``(n, 3)`` integer per-head action indices.  ``sample=False``
+        (deployment) is deterministic.  ``legal`` ((n, A) bool over flat
+        actions, laid out as ``Oracle.cost_grid``) limits the pick to
+        those actions; without it the pick is the reference's."""
+        ...
+
+    def state_dict(self) -> dict:
+        """Everything ``act`` depends on, as plain python values and numpy
+        arrays, carrying ``name`` and ``version``; stable, so that saving
+        twice without training gives the same fingerprint."""
+        ...
+
+    def load_state(self, state: dict) -> "Agent":
+        """Restore a ``state_dict`` (validated with
+        :func:`check_agent_state`); ``act(sites, sample=False)`` is then
+        the saver's, bitwise."""
+        ...
+
+
+@runtime_checkable
+class Oracle(Protocol):
+    """A batched reward oracle over (site, action) pairs, with the
+    penalty semantics of ``cfg`` (``fail_penalty``, ``illegal_slowdown``)
+    over the action space ``space``."""
+
+    cfg: object
+    space: object
+
+    def baseline_costs(self, sites: Sequence) -> np.ndarray:
+        """(n,) heuristic-baseline runtime per site."""
+        ...
+
+    def costs_batch(self, sites: Sequence, actions) -> np.ndarray:
+        """(n,) runtime under each action; ``inf`` = illegal."""
+        ...
+
+    def rewards_batch(self, sites: Sequence, actions) -> np.ndarray:
+        """(n,) paper eq. 2 rewards, the fail penalty for illegal."""
+        ...
+
+    def speedups_batch(self, sites: Sequence, actions) -> np.ndarray:
+        """(n,) t_baseline / t_action, clamped for illegal actions."""
+        ...
+
+    def cost_grid(self, sites: Sequence) -> np.ndarray:
+        """(n, max_n_actions) cost of every action (``inf`` pads illegal
+        tiles and columns past a kind's action count)."""
+        ...
+
+    def tiles_costs(self, sites: Sequence, tiles) -> np.ndarray:
+        """(n,) runtime under explicit tile values; ``inf`` = illegal."""
+        ...
 
 
 @runtime_checkable

@@ -20,7 +20,7 @@ import numpy as np
 
 from repro_torch.configs.neurovec import DEFAULT, NeuroVecConfig
 from repro_torch.core import costmodel, costmodel_vec
-from repro_torch.core.env import ActionSpace
+from repro_torch.core.env import ActionSpace, CostModelEnv
 from repro_torch.core.extractor import extract_sites
 from repro_torch.models import compute
 from repro_torch.models.compute import KernelSite
@@ -61,6 +61,16 @@ def tune(sites: List[KernelSite], agent, space: ActionSpace,
     actions = np.asarray(agent.act(sites, sample=False, legal=legal))
     return TileProgram({s.key(): tuple(int(t) for t in space.tiles(s.kind, a))
                         for s, a in zip(sites, actions)})
+
+
+def mask_env(oracle):
+    """The oracle whose finite prices give :func:`tune` its legal mask: for
+    a measuring oracle, the cost model under its config and legality (the
+    same legal set, and the mask times nothing); any other, itself."""
+    if getattr(oracle, "measure_fn", None) is not None and \
+            hasattr(oracle, "legality"):
+        return CostModelEnv(oracle.cfg, legality=oracle.legality)
+    return oracle
 
 
 def baseline_program(sites: List[KernelSite]) -> TileProgram:

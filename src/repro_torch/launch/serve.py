@@ -164,8 +164,8 @@ def _tile_plan(args, sites, device):
             print(f"[serve] measured oracle: transport=inproc "
                   f"reps={args.measure_reps} db={args.measure_db or '-'} "
                   f"({env.measure_fn.transport.backend_key})")
-        kw = {"device": str(device)} if args.autotune == "ppo" else {}
-        agent = make_agent(args.autotune, DEFAULT, seed=0, **kw)
+        agent = make_agent(args.autotune, DEFAULT, seed=0,
+                           device=str(device))
         t0 = time.perf_counter()
         agent.fit(sites, env, total_steps=args.autotune_steps)
         # the legal mask comes from the cost model under the same legality:

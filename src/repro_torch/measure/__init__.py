@@ -45,8 +45,8 @@ def make_transport(name: str = "inproc", *, db_path: Optional[str] = None,
     attaches the persistent timing store.  ``runner_kwargs`` build the
     :class:`MeasureRunner` (``reps=``, ``warmup=``, ``device=``)."""
     if name in ("pool", "socket"):
-        raise NotImplementedError(f"transport {name!r} is not ported yet; "
-                                  f"use 'inproc'")
+        raise NotImplementedError(f"transport {name!r} is not ported yet "
+                                  f"(ROADMAP queue 1 item 3); use 'inproc'")
     if name != "inproc":
         raise ValueError(f"unknown transport {name!r}; "
                          f"registered: {', '.join(TRANSPORT_NAMES)}")
@@ -60,24 +60,37 @@ def make_transport(name: str = "inproc", *, db_path: Optional[str] = None,
 
 def make_measured_env(cfg=None, db_path: Optional[str] = None,
                       runner: Optional[MeasureRunner] = None,
-                      transport: str = "inproc",
+                      seed: int = 0, transport="inproc",
                       legality: str = "h100",
                       prune_topk: Optional[int] = None, surrogate=None,
                       **runner_kwargs):
     """A :class:`~repro_torch.core.env.MeasuredEnv` wired to a measurement
-    stack: ``transport`` names it (only ``"inproc"`` is ported);
-    ``db_path`` enables the persistent timing DB (a second run against the
-    same path times nothing); ``legality`` is the env's (under ``"h100"``
-    no tile the kernels cannot launch is sent to the runner); extra kwargs
-    build the :class:`MeasureRunner` (``reps=``, ``device=``).  The
-    hook is ``env.measure_fn`` (``.transport``, ``.db``, ``.runner``)."""
+    stack: ``transport`` names it (only ``"inproc"`` is ported; ``None``
+    means it too) or is a pre-built
+    :class:`~repro_torch.core.protocols.MeasureTransport`, which carries
+    its own runner and DB; ``db_path`` enables the persistent timing DB (a
+    second run against the same path times nothing); ``legality`` is the
+    env's (under ``"h100"`` no tile the kernels cannot launch is sent to
+    the runner); extra kwargs build the :class:`MeasureRunner`
+    (``reps=``, ``warmup=``, ``device=``).  The hook is
+    ``env.measure_fn`` (``.transport``, ``.db``; ``.runner`` in
+    process)."""
     from repro_torch.configs.neurovec import DEFAULT
     from repro_torch.core.env import MeasuredEnv
 
     if prune_topk is not None or surrogate is not None:
         raise NotImplementedError("surrogate grid pruning (prune_topk=, "
-                                  "surrogate=) is not ported yet")
-    fn = CachedMeasureFn(make_transport(transport, db_path=db_path,
-                                        runner=runner, **runner_kwargs))
+                                  "surrogate=) is not ported yet (ROADMAP "
+                                  "queue 1 item 3)")
+    if transport is None or isinstance(transport, str):
+        t = make_transport(transport or "inproc", db_path=db_path,
+                           runner=runner, **runner_kwargs)
+    else:
+        if db_path is not None or runner is not None or runner_kwargs:
+            raise TypeError("a pre-built transport carries its own "
+                            "runner and db: drop the extra arguments")
+        t = transport
+    fn = (CachedMeasureFn(t) if isinstance(t, InProcessTransport)
+          else TransportMeasureFn(t))
     return MeasuredEnv(cfg if cfg is not None else DEFAULT, measure_fn=fn,
-                       legality=legality)
+                       seed=seed, legality=legality)

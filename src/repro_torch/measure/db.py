@@ -110,6 +110,6 @@ def open_measure_db(path: str, **kwargs) -> MeasureDB:
     ``fleet://host:port`` store is not ported yet."""
     if isinstance(path, str) and path.startswith("fleet://"):
         raise NotImplementedError(
-            f"{path}: the fleet artifact service is not ported yet; pass a "
-            f"local file path")
+            f"{path}: the fleet artifact service is not ported yet (ROADMAP "
+            f"queue 1 item 3); pass a local file path")
     return MeasureDB(path, **kwargs)

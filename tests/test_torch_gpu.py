@@ -604,3 +604,89 @@ def test_chunk_scan_library_holds_wgmma_and_tma_without_spills(cuda):
               if "spill" in ln]
     assert spills and all("0 bytes spill stores, 0 bytes spill loads" in ln
                           for ln in spills), spills
+
+
+# ---------------------------------------------------------------------------
+# the facade (repro_torch.api) on the card
+# ---------------------------------------------------------------------------
+
+def _facade_sites():
+    """Small bf16 sites the kernels launch: two matmuls and a prefill
+    attention at head dim 80."""
+    from repro_torch.models.compute import KernelSite
+    return [KernelSite(site="g.mm", kind="matmul", m=256, n=512, k=256),
+            KernelSite(site="g.mm2", kind="matmul", m=4, n=1024, k=512),
+            KernelSite(site="g.attn", kind="attention", m=256, n=80, k=256,
+                       batch=8, causal=True)]
+
+
+def test_facade_measured_brute_times_every_legal_pair_once(cuda, tmp_path):
+    from repro_torch.api import CostModelEnv, NeuroVecConfig, NeuroVectorizer
+    cfg = NeuroVecConfig()
+    sites = _facade_sites()
+    nv = NeuroVectorizer(cfg, agent="brute", oracle="measured",
+                         db_path=str(tmp_path / "m.jsonl"),
+                         oracle_kwargs={"reps": 1}, device="cuda")
+    prog = nv.fit(sites).tune_sites(sites)
+    st = nv.oracle.measure_fn.transport.stats()
+    env = CostModelEnv(cfg, legality="h100")
+    grid_pairs = int(np.isfinite(env.cost_grid(sites)).sum())
+    # every legal tile of the grid, plus a baseline tile off the grid
+    assert grid_pairs <= st["transport_timed_pairs_total"] <= \
+        grid_pairs + len(sites)
+    assert st["transport_failed_pairs_total"] == 0
+    assert st["transport_coalesced_total"] == 0 and nv.health() == "ok"
+    assert all(ops.tile_ok(s, prog.tiles[s.key()]) for s in sites)
+    timed = st["transport_timed_pairs_total"]
+    nv.tune_sites(sites)                      # every pair is known now
+    assert nv.oracle.measure_fn.transport.stats()[
+        "transport_timed_pairs_total"] == timed
+    assert np.isfinite(nv.speedup(prog, sites))
+    nv.close()
+
+
+def test_facade_inject_matches_eager_on_the_card(cuda):
+    from repro_torch.api import NeuroVecConfig, NeuroVectorizer
+    from repro_torch.models import compute
+    nv = NeuroVectorizer(NeuroVecConfig(), agent="polly", device="cuda")
+    x, w = _normal(11, 256, 256, device=cuda), _normal(12, 256, 512,
+                                                       device=cuda)
+    q = _normal(13, 2, 4, 256, 80, device=cuda)
+    k = _normal(14, 2, 4, 256, 80, device=cuda)
+    v = _normal(15, 2, 4, 256, 80, device=cuda)
+
+    def step(x, w, q, k, v):
+        return (compute.matmul(x, w, site="g.mm"),
+                compute.flash_attention(q, k, v, site="g.attn", causal=True))
+
+    meta = [torch.empty_like(t, device="meta") for t in (x, w, q, k, v)]
+    prog = nv.tune(step, meta)
+    assert len(prog.tiles) == 2
+    y_mm, y_att = step(x, w, q, k, v)
+    before = (kmm.launches, kfa.launches)
+    with nv.inject(prog):
+        t_mm, t_att = step(x, w, q, k, v)
+    torch.cuda.synchronize()
+    assert (kmm.launches, kfa.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel_err(t_mm, x.float() @ w.float()) < K1_REL_TOL
+    assert float((t_att.float() - y_att.float()).abs().max()) < K2_ABS_TOL
+    nv.close()
+
+
+def test_every_method_tunes_launchable_tiles_on_the_card(cuda):
+    from repro_torch.api import (AGENT_NAMES, CostModelEnv, NeuroVecConfig,
+                                 NeuroVectorizer, make_agent)
+    from repro_torch.core import dataset
+    cfg = NeuroVecConfig(train_batch=64, sgd_minibatch=32, ppo_epochs=2)
+    sites = _facade_sites()
+    corpus = dataset.generate(120, seed=0, base=sites)
+    env = CostModelEnv(cfg, legality="h100")
+    for name in AGENT_NAMES:
+        agent = make_agent(name, cfg, seed=0, device="cuda")
+        nv = NeuroVectorizer(cfg, agent=agent, oracle=env, device="cuda")
+        nv.fit(corpus, **({"total_steps": 128} if name == "ppo" else {}))
+        prog = nv.tune_sites(sites)
+        bad = [s.key() for s in sites
+               if not ops.tile_ok(s, prog.tiles[s.key()])]
+        assert not bad, (name, bad)
+        nv.close()

@@ -613,10 +613,10 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_the_port_imports_neither_jax_nor_the_jax_package(tmp_path):
-    """Every module of ``repro_torch`` and ``chip_smoke.py`` import in a
-    fresh interpreter that refuses ``jax``, ``repro`` and ``triton``
-    (Triton is imported only inside a launching function, never at
-    import time)."""
+    """Every module of ``repro_torch``, ``chip_smoke.py`` and
+    ``examples/torch_quickstart.py`` import in a fresh interpreter that
+    refuses ``jax``, ``repro`` and ``triton`` (Triton is imported only
+    inside a launching function, never at import time)."""
     import pathlib
     import subprocess
     import sys
@@ -634,6 +634,9 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 spec = importlib.util.spec_from_file_location(
     "chip_smoke", {str(root / 'chip_smoke.py')!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+spec = importlib.util.spec_from_file_location(
+    "torch_quickstart", {str(root / 'examples' / 'torch_quickstart.py')!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton")]
