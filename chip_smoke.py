@@ -90,7 +90,28 @@ Phases, each printed before the last line:
      tuned to tiles ops.tile_ok admits and priced by the facade's
      measured oracle (one line each: modelled and measured speedup, pairs
      timed anew); then examples/torch_quickstart.py's main on the card;
-  9. the last line: {"ok": true, "device": {...}}.
+  9. the transports on the card (run after phase 8, before phase 7):
+     phase 6's in-process brute-force DB is the reference.  serve
+     --transport pool --workers 2 (the same StableLM-3B run, a new DB)
+     must time the same keys, all finite, none failed or quarantined,
+     health ok, under the in-process backend key, with no launch in this
+     process during the fit (the workers' counters, written under
+     REPRO_TORCH_LAUNCH_DIR, show K1 and K2), and its injected prefill's
+     launches and logits as phase 6's; then --workers 1; each prints the
+     per-pair ratio of pool to in-process time (median, p10, p90), the
+     fit's wall and the spawn seconds.  K3 at xLSTM's chunk-scan site at
+     every legal chunk in a pool of 2, beside phase 5's in-process times.
+     A factory runner defined here triggers a device-side assert in a
+     worker at one marked pair: the pool must replace the worker and time
+     the pair finite on the retry; a ChaosRunner (crash, hang, torn frame,
+     noise) over the card's runner times StableLM pairs that draw each
+     fault once, and two that draw none: all finite, each key written
+     once, health ok.  The fleet: serve-worker (a pool of
+     2) and serve-artifacts daemons on ports the OS picks, serve
+     --transport socket with fleet:// DB and store meeting the pool run's
+     checks, a warm rerun that times 0 pairs and takes its program from
+     the store, then SIGTERM and exit code 0 for both daemons;
+ 10. the last line: {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -697,10 +718,14 @@ def per_pass_launches(cfg):
              "chunk_scan": 0})
 
 
-def measured_path(arch, params=None, prompts=None, agent="ppo", extra=()):
+def measured_path(arch, params=None, prompts=None, agent="ppo", extra=(),
+                  worker_dir=None):
     """serve --autotune ``agent`` --measured --inject at full width,
     counters zeroed just before and read just after; checked against eager
-    mode on the same prompts."""
+    mode on the same prompts.  With ``worker_dir`` the timings ran in
+    worker processes, which wrote their launch counters there: this
+    process must have launched nothing during the fit, and the workers
+    every kernel of the path's sites."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -745,8 +770,16 @@ def measured_path(arch, params=None, prompts=None, agent="ppo", extra=()):
     kinds = {s.kind for s in res.sites}
     need = {"matmul": "matmul", "attention": "flash_attention",
             "chunk_scan": "chunk_scan"}
+    fit_launches = tun["launches"]
+    if worker_dir is not None:
+        if any(tun["launches"].values()):
+            fail(f"{arch}: {tun['launches']} launches in this process "
+                 f"during a fit timed in workers")
+        fit_launches = worker_counts(worker_dir)
+        print(f"[measured:{arch}] launches in the workers during the fit: "
+              f"{fit_launches}", flush=True)
     for kind in kinds:
-        if tun["launches"][need[kind]] == 0:
+        if fit_launches[need[kind]] == 0:
             fail(f"{arch}: the {need[kind]} kernel never launched during "
                  f"the measured fit")
     if counts["matmul"] == 0 or ("attention" in kinds
@@ -784,6 +817,23 @@ def measured_path(arch, params=None, prompts=None, agent="ppo", extra=()):
         f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
         for s in res.sites), flush=True)
     return res, counts, eager.prefill_logits
+
+
+def worker_counts(worker_dir) -> dict:
+    """The kernel launches that measurement workers reported: the sum of
+    the ``worker-<pid>.json`` files they wrote under ``worker_dir``
+    (``REPRO_TORCH_LAUNCH_DIR``), K1's and K2's by variant too."""
+    total = {"matmul": 0, "flash_attention": 0, "chunk_scan": 0,
+             "matmul_by_variant": {}, "flash_attention_by_variant": {}}
+    for f in sorted(Path(worker_dir).glob("worker-*.json")):
+        c = json.loads(f.read_text())
+        for k, v in c.items():
+            if isinstance(v, dict):
+                for var, n in v.items():
+                    total[k][var] = total[k].get(var, 0) + n
+            else:
+                total[k] += v
+    return total
 
 
 def _f32(tree):
@@ -1131,7 +1181,7 @@ def stablelm_path(gen):
             "n_layers": cfg.n_layers, "modelled_speedup": sp,
             "ppo_measured_speedup": ppo_measured,
             "brute_measured_speedup": brute_sp, "brute_tiles": brute_tiles,
-            "breakdown": breakdown}
+            "breakdown": breakdown, "db": db}
 
 
 # ---------------------------------------------------------------------------
@@ -1361,6 +1411,419 @@ def facade_path():
     return acc, out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the transports on the card
+# ---------------------------------------------------------------------------
+
+LAUNCH_ENV = "REPRO_TORCH_LAUNCH_DIR"       # repro_torch.measure.worker's
+POOL_SPAWN_S, POOL_JOB_S = 300.0, 60.0      # the pools' timeouts here
+CHAOS_JOB_S = 10.0                          # a hang is killed after this
+
+
+class CardFaultRunner:
+    """The port's runner on the card that, the first time any worker sees
+    the pair ``$CHIP_SMOKE_MARK`` (``site key|tiles``), triggers a
+    device-side assert (an index out of range on a CUDA tensor), which
+    poisons its context; the sentinel file ``$CHIP_SMOKE_FIRED`` makes it
+    fire once across the pool.  Built in a worker by the pool's
+    ``factory`` seam."""
+
+    def __init__(self):
+        from repro_torch.measure.runner import MeasureRunner
+        self.base = MeasureRunner(reps=3, warmup=1, device="cuda")
+
+    backend_key = property(lambda self: self.base.backend_key)
+    device = property(lambda self: self.base.device)
+
+    def __call__(self, sites, tiles):
+        import torch
+        for site, t in zip(sites, tiles):
+            mark = f"{site.key()}|{tuple(int(x) for x in t)}"
+            if mark == os.environ["CHIP_SMOKE_MARK"] and _fire_once():
+                idx = torch.tensor([1 << 20], device="cuda")
+                torch.zeros(4, device="cuda")[idx].sum().item()
+        return self.base(sites, tiles)
+
+
+def _fire_once() -> bool:
+    try:
+        os.close(os.open(os.environ["CHIP_SMOKE_FIRED"],
+                         os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+    except FileExistsError:
+        return False
+    return True
+
+
+def card_assert_once():
+    return CardFaultRunner()
+
+
+def card_chaos():
+    """A ChaosRunner (crash, hang, torn frame, noise; seed 0) over the
+    port's runner on the card; one-shot sentinels in
+    ``$CHIP_SMOKE_CHAOS_STATE``."""
+    from repro_torch.measure.faults import ChaosRunner, FaultSchedule
+    from repro_torch.measure.runner import MeasureRunner
+    return ChaosRunner(MeasureRunner(reps=3, warmup=1, device="cuda"),
+                       FaultSchedule(0), os.environ["CHIP_SMOKE_CHAOS_STATE"],
+                       hang_s=3600.0)
+
+
+def fresh_dir(name: str) -> Path:
+    import shutil
+    d = ROOT / "build" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def read_db(path) -> tuple:
+    """``({key: seconds}, n_quarantined)`` of a timing DB file."""
+    from repro_torch.measure.db import MeasureDB
+    db = MeasureDB(str(path))
+    return {r.key: r.value for r in db.iter_records()}, db.n_quarantined
+
+
+def pair_keys(values: dict) -> set:
+    return {k.rsplit("|", 1)[0] for k in values}
+
+
+def check_like_inproc(label: str, values: dict, n_quar: int, ref: dict,
+                      res) -> None:
+    """Phase 9's check of a run whose timings left this process: the
+    in-process run's DB keys, every value finite, nothing failed or
+    quarantined, health ok, and the in-process runner's backend key."""
+    import numpy as np
+    st = res.tuning["stats"]
+    ref_backend = {k.rsplit("|", 1)[1] for k in ref}
+    backends = {k.rsplit("|", 1)[1] for k in values}
+    if pair_keys(values) != pair_keys(ref):
+        fail(f"{label}: DB keys differ from the in-process run's: "
+             f"{len(pair_keys(values) ^ pair_keys(ref))} pairs")
+    if not all(np.isfinite(v) for v in values.values()) or n_quar or \
+            st["transport_failed_pairs_total"]:
+        fail(f"{label}: failed or quarantined pairs ({n_quar} "
+             f"quarantined, stats {st})")
+    if res.tuning["health"] != "ok" or backends != ref_backend or \
+            res.tuning["backend_key"] not in ref_backend:
+        fail(f"{label}: health {res.tuning['health']}, backend "
+             f"{res.tuning['backend_key']} vs the in-process {ref_backend}")
+
+
+def ratio_line(label: str, values: dict, ref: dict) -> dict:
+    """Per-pair ratio of a run's times to the in-process run's."""
+    import numpy as np
+    r = np.array([values[k] / ref[k] for k in ref if k in values])
+    q = {"median": float(np.median(r)), "p10": float(np.quantile(r, 0.1)),
+         "p90": float(np.quantile(r, 0.9)), "pairs": int(r.size)}
+    print(f"[transports] {label}: time over in-process time, per pair: "
+          f"median {q['median']:.4f}, p10 {q['p10']:.4f}, p90 "
+          f"{q['p90']:.4f} over {q['pairs']} pairs", flush=True)
+    return q
+
+
+def start_daemon(args: list, env: dict) -> tuple:
+    """``python -m repro_torch.fleet <args>``, its output (and its
+    workers') to a log under build/; returns (process, log, address) once
+    the log holds the flushed ready line."""
+    log = ROOT / "build" / f"fleet_{args[0]}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.fleet",
+                                 *args], stdout=f, stderr=subprocess.STDOUT,
+                                env=env)
+    deadline = time.monotonic() + POOL_SPAWN_S
+    while time.monotonic() < deadline and proc.poll() is None:
+        for line in log.read_text().splitlines():
+            if "ready on" in line:
+                print(f"[fleet:{args[0]}] {line}", flush=True)
+                return proc, log, line.rsplit("ready on", 1)[1].strip()
+        time.sleep(0.2)
+    proc.kill()
+    proc.wait(timeout=30)
+    fail(f"{args[0]} printed no ready line: {log.read_text()[-2000:]}")
+
+
+def stop_daemon(proc, log, name: str) -> int:
+    """SIGTERM, then the exit code, which must be 0."""
+    import signal
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    tail = [ln for ln in log.read_text().splitlines() if "[fleet]" in ln]
+    print(f"[fleet:{name}] exit {rc}; " + " | ".join(tail), flush=True)
+    if rc != 0:
+        fail(f"{name} exited {rc} after SIGTERM: "
+             f"{log.read_text()[-2000:]}")
+    return rc
+
+
+def transports_path(ref_db, xl_scan, k3_inproc: dict):
+    """Phase 9: the measured oracle's transports on the card, each checked
+    against phase 6's in-process run (its timing DB ``ref_db``).  (1) serve
+    --transport pool --workers 2 on StableLM-3B: the in-process keys, all
+    finite, health ok, the same backend, no launch in this process during
+    the fit, the injected prefill's launches and logits as phase 6's;
+    (2) --workers 1, and the per-pair ratios to the in-process times with
+    the fits' wall and spawn seconds; (3) K3 at xLSTM's chunk-scan site,
+    every chunk, in a pool of 2; (4) a worker's device-side assert, and a
+    ChaosRunner over the card; (5) the fleet: serve-worker and
+    serve-artifacts daemons, serve --transport socket against them, and a
+    warm rerun that times nothing.  Returns the launch counts by path
+    (the workers' own) and the numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.env import ActionSpace
+    from repro_torch.core.costmodel_vec import action_tiles_grid
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.measure import WorkerPoolTransport, make_key
+    from repro_torch.models.lm import build_model
+    from repro_torch.configs import get_config
+    ref, ref_quar = read_db(ref_db)
+    if ref_quar or not ref:
+        fail(f"transports: the in-process DB {ref_db}: {len(ref)} pairs, "
+             f"{ref_quar} quarantined")
+    ref_backend = next(iter(ref)).rsplit("|", 1)[1]
+    print(f"[transports] in-process reference: phase 6's DB, {len(ref)} "
+          f"pairs ({ref_backend})", flush=True)
+    by_path, out = {}, {"ref_pairs": len(ref)}
+    build_dir = ROOT / "build"
+    env0 = dict(os.environ)
+
+    # (1, 2) serve through a pool of 2, then of 1
+    for workers in (2, 1):
+        wdir = fresh_dir(f"launches_pool{workers}")
+        db = build_dir / f"pool{workers}_measure.jsonl"
+        db.unlink(missing_ok=True)
+        extra = ("--transport", "pool", "--workers", str(workers),
+                 "--measure-db", str(db))
+        os.environ[LAUNCH_ENV] = str(wdir)
+        try:
+            if workers == 2:
+                res, counts, _ = measured_path(STABLELM, agent="brute",
+                                               extra=extra, worker_dir=wdir)
+            else:
+                argv = ["--arch", STABLELM, "--full", "--batch", str(BATCH),
+                        "--prompt-len", str(PROMPT), "--gen", str(GEN),
+                        "--autotune", "brute", "--measured", *extra]
+                zero_counts()
+                res = serve.run(serve.parse_args(argv))
+                if any(res.tuning["launches"].values()):
+                    fail(f"pool1: this process launched "
+                         f"{res.tuning['launches']} during the fit")
+        finally:
+            os.environ.pop(LAUNCH_ENV, None)
+        values, n_quar = read_db(db)
+        label = f"pool workers={workers}"
+        check_like_inproc(label, values, n_quar, ref, res)
+        wc = worker_counts(wdir)
+        st = res.tuning["stats"]
+        q = ratio_line(label, values, ref)
+        out[label] = {
+            "ratio": q, "fit_s": res.tuning["fit_s"],
+            "setup_s": res.tuning["oracle_setup_s"],
+            "spawn_s": st["pool_spawn_seconds_total"],
+            "timed": st["transport_timed_pairs_total"],
+            "restarts": st["pool_worker_restarts_total"],
+            "worker_launches": {k: wc[k] for k in
+                                ("matmul", "flash_attention", "chunk_scan")},
+            "measured_speedup": res.modelled_speedup}
+        print(f"[transports] {label}: {st['transport_timed_pairs_total']} "
+              f"pairs timed in the workers, fit and tune "
+              f"{res.tuning['fit_s']:.2f} s wall after the pool's start "
+              f"({res.tuning['oracle_setup_s']:.2f} s wall, "
+              f"{st['pool_spawn_seconds_total']:.2f} s of handshakes summed "
+              f"over the workers); {st['pool_worker_restarts_total']} "
+              f"restarts; worker launches {out[label]['worker_launches']}; "
+              f"measured speedup {res.modelled_speedup:.3f}x", flush=True)
+        by_path[f"stablelm_3b pool workers={workers}: workers"] = wc
+        if workers == 2:
+            by_path["stablelm_3b pool workers=2: serving process"] = counts
+        del res
+        torch.cuda.empty_cache()
+
+    # (3) K3 in workers: xLSTM's chunk-scan site at every chunk
+    chunks = sorted({int(t[0]) for t in
+                     action_tiles_grid(ActionSpace(DEFAULT), "chunk_scan")})
+    legal = [q for q in chunks if ops.tile_ok(xl_scan, (q, 1, 1))]
+    wdir = fresh_dir("launches_k3")
+    os.environ[LAUNCH_ENV] = str(wdir)
+    try:
+        with WorkerPoolTransport(workers=2,
+                                 runner_kwargs={"reps": 3, "device": "cuda"},
+                                 spawn_timeout=POOL_SPAWN_S,
+                                 job_timeout=POOL_JOB_S) as t:
+            zero_counts()
+            vals = [f.result() for f in t.submit(
+                [xl_scan] * len(legal), np.array([[q, 1, 1] for q in legal]))]
+            parent = read_counts()
+    finally:
+        os.environ.pop(LAUNCH_ENV, None)
+    wc = worker_counts(wdir)
+    if not all(np.isfinite(v) for v in vals) or wc["chunk_scan"] < len(legal) \
+            or any(parent.values()):
+        fail(f"K3 in workers: times {vals}, worker launches {wc}, this "
+             f"process's {parent}")
+    print("[transports] K3 at the xlstm_1_3b site in a pool of 2, ms by "
+          "chunk (pool / phase 5's in-process runner): " + ", ".join(
+              f"Q={q}: {v * 1e3:.4f} / "
+              + (f"{k3_inproc[q] * 1e3:.4f}" if q in k3_inproc else "-")
+              for q, v in zip(legal, vals)) + f"; worker launches {wc}",
+          flush=True)
+    by_path["xlstm_1_3b K3 pool workers=2: workers"] = wc
+    out["k3_pool_ms_by_chunk"] = {q: v * 1e3 for q, v in zip(legal, vals)}
+
+    # (4) isolation: a device-side assert in a worker, then chaos
+    sl_sites = extract_serve_sites(build_model(get_config(STABLELM)), BATCH,
+                                   PROMPT, GEN)
+    grid = {k: action_tiles_grid(ActionSpace(DEFAULT), k)
+            for k in ("matmul", "attention")}
+    legal = [(s, tuple(int(x) for x in t)) for s in sl_sites
+             if s.kind in grid and s.m > 1
+             and s.site in ("attn.q", "mlp.down", "attn.core")
+             for t in grid[s.kind] if ops.tile_ok(s, t)]
+    pairs = [p for i, p in enumerate(legal) if i % 16 == 0]
+    mark_site, mark_tiles = pairs[0]
+    os.environ.update(
+        CHIP_SMOKE_MARK=f"{mark_site.key()}|{mark_tiles}",
+        CHIP_SMOKE_FIRED=str(fresh_dir("card_fault") / "fired"),
+        CHIP_SMOKE_CHAOS_STATE=str(fresh_dir("card_chaos")))
+    t0 = time.perf_counter()
+    with WorkerPoolTransport(workers=2, factory="chip_smoke:card_assert_once",
+                             spawn_timeout=POOL_SPAWN_S,
+                             job_timeout=POOL_JOB_S) as t:
+        vals = [f.result() for f in t.submit([p[0] for p in pairs],
+                                             np.array([p[1] for p in pairs]))]
+        st = t.stats()
+        health = t.health()
+    fired = (build_dir / "card_fault" / "fired").exists()
+    print(f"[transports] device-side assert at {mark_site.site} "
+          f"{mark_tiles} in a worker (fired: {fired}): "
+          f"{st['pool_worker_restarts_total']} worker restarts, "
+          f"{st['transport_retries_total']} retries, the pair retried "
+          f"{vals[0] * 1e3:.4f} ms, {len(vals)} pairs all finite: "
+          f"{all(np.isfinite(v) for v in vals)}; health {health}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not fired or st["pool_worker_restarts_total"] < 1 or \
+            not all(np.isfinite(v) for v in vals) or health != "ok":
+        fail(f"transports: the poisoned worker was not replaced cleanly: "
+             f"{st}, {vals}")
+    out["assert"] = {"restarts": st["pool_worker_restarts_total"],
+                     "retries": st["transport_retries_total"],
+                     "retried_ms": vals[0] * 1e3,
+                     "wall_s": time.perf_counter() - t0}
+    # chaos: the first legal pairs that draw each fault of the schedule
+    # (seed 0) and two that draw none
+    from repro_torch.measure.faults import FaultSchedule
+    chaos_pairs, want = [], {"crash": 1, "torn": 1, "hang": 1, "noise": 1,
+                             None: 2}
+    for s_, t_ in legal:
+        f = FaultSchedule(0).draw(f"{s_.key()}|{t_}")
+        if want.get(f):
+            want[f] -= 1
+            chaos_pairs.append((s_, t_))
+    db = build_dir / "chaos_measure.jsonl"
+    db.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    with WorkerPoolTransport(workers=2, factory="chip_smoke:card_chaos",
+                             db=str(db), spawn_timeout=POOL_SPAWN_S,
+                             job_timeout=CHAOS_JOB_S) as t:
+        vals = [f.result() for f in t.submit(
+            [p[0] for p in chaos_pairs], np.array([p[1] for p in chaos_pairs]))]
+        st = t.stats()
+        health = t.health()
+        backend = t.backend_key
+    keys = [json.loads(x)["k"] for x in db.read_text().splitlines()]
+    faults = {}
+    for s_, t_ in chaos_pairs:
+        f = FaultSchedule(0).draw(f"{s_.key()}|{t_}")
+        faults[f] = faults.get(f, 0) + 1
+    print(f"[transports] chaos over the card ({faults}): "
+          f"{st['pool_worker_restarts_total']} restarts, "
+          f"{st['transport_retries_total']} retries, {len(vals)} pairs all "
+          f"finite: {all(np.isfinite(v) for v in vals)}, {len(keys)} DB "
+          f"lines for {len(set(keys))} keys; health {health}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want_keys = {make_key(s_.key(), t_, backend) for s_, t_ in chaos_pairs}
+    if not all(np.isfinite(v) for v in vals) or health != "ok" or \
+            sorted(keys) != sorted(want_keys):
+        fail(f"transports: chaos: {vals}, health {health}, keys {keys}")
+    out["chaos"] = {"faults": faults,
+                    "restarts": st["pool_worker_restarts_total"],
+                    "retries": st["transport_retries_total"],
+                    "wall_s": time.perf_counter() - t0}
+    for k in ("CHIP_SMOKE_MARK", "CHIP_SMOKE_FIRED", "CHIP_SMOKE_CHAOS_STATE"):
+        os.environ.pop(k, None)
+
+    # (5) the fleet on one host
+    wdir = fresh_dir("launches_fleet")
+    f_db, f_store = build_dir / "fleet_measure.jsonl", \
+        build_dir / "fleet_programs.jsonl"
+    for f in (f_db, f_store):
+        f.unlink(missing_ok=True)
+    env = dict(env0, PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    worker, w_log, w_addr = start_daemon(
+        ["serve-worker", "--host", "127.0.0.1", "--port", "0", "--transport",
+         "pool", "--workers", "2", "--reps", "3"],
+        dict(env, **{LAUNCH_ENV: str(wdir)}))
+    arts = None
+    try:
+        arts, a_log, a_addr = start_daemon(
+            ["serve-artifacts", "--host", "127.0.0.1", "--port", "0",
+             "--measure-db", str(f_db), "--program-store", str(f_store)],
+            env)
+        fleet_extra = ("--transport", "socket", "--hosts", w_addr,
+                       "--measure-db", f"fleet://{a_addr}",
+                       "--program-store", f"fleet://{a_addr}")
+        res, counts, _ = measured_path(STABLELM, agent="brute",
+                                       extra=fleet_extra, worker_dir=wdir)
+        values, n_quar = read_db(f_db)
+        check_like_inproc("fleet", values, n_quar, ref, res)
+        q = ratio_line("fleet (pool of 2 behind serve-worker)", values, ref)
+        st = res.tuning["stats"]
+        cold = {"timed": st["transport_timed_pairs_total"],
+                "fit_s": res.tuning["fit_s"],
+                "setup_s": res.tuning["oracle_setup_s"],
+                "store": res.tuning["store"], "ratio": q}
+        wc = worker_counts(wdir)
+        del res
+        argv = ["--arch", STABLELM, "--full", "--batch", str(BATCH),
+                "--prompt-len", str(PROMPT), "--gen", str(GEN),
+                "--autotune", "brute", "--measured", *fleet_extra]
+        zero_counts()
+        warm = serve.run(serve.parse_args(argv))
+        wst, store = warm.tuning["stats"], warm.tuning["store"]
+        print(f"[transports] fleet: cold run {cold['timed']} pairs timed on "
+              f"the serve-worker in {cold['fit_s']:.2f} s (setup "
+              f"{cold['setup_s']:.2f} s), worker launches {wc}; warm rerun "
+              f"{wst['transport_timed_pairs_total']} pairs timed, "
+              f"{wst['transport_hits_total']} DB hits, program store "
+              f"{store['hits']} hits / {store['misses']} misses, "
+              f"{warm.tuning['agent_inferences']} agent inferences, fit and "
+              f"tune {warm.tuning['fit_s']:.2f} s", flush=True)
+        if wst["transport_timed_pairs_total"] or store["hits"] != 1 or \
+                warm.tuning["agent_inferences"] or \
+                any(warm.tuning["launches"].values()):
+            fail(f"fleet: the warm rerun timed {wst}, store {store}")
+        out["fleet"] = {"cold": cold, "warm": {
+            "timed": wst["transport_timed_pairs_total"],
+            "hits": wst["transport_hits_total"], "store": store,
+            "fit_s": warm.tuning["fit_s"]}}
+        del warm
+    finally:
+        rcs = [stop_daemon(worker, w_log, "serve-worker")]
+        if arts is not None:
+            rcs.append(stop_daemon(arts, a_log, "serve-artifacts"))
+    wc = worker_counts(wdir)
+    print(f"[transports] fleet daemons exited {rcs} after SIGTERM; "
+          f"serve-worker's workers launched {wc}", flush=True)
+    by_path["stablelm_3b fleet: serve-worker's workers"] = wc
+    by_path["stablelm_3b fleet: serving process"] = counts
+    torch.cuda.empty_cache()
+    return by_path, out
+
+
 def sass_check() -> None:
     """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
     TMA load (UTMALDG) instructions, and K2's and K3's builds no spilled
@@ -1531,6 +1994,15 @@ def main() -> int:
     # count into the line's) ----
     by_path["stablelm_3b facade"], facade = facade_path()
     print("[facade] summary " + json.dumps(facade, default=str), flush=True)
+
+    # ---- phase 9: the transports on the card (before the kernels line:
+    # the launches its workers reported count into the line's) ----
+    t0 = time.perf_counter()
+    t_paths, transports = transports_path(sl["db"], xl_scan, by_q)
+    by_path.update(t_paths)
+    transports["wall_s"] = time.perf_counter() - t0
+    print("[transports] summary " + json.dumps(transports, default=str),
+          flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
 
@@ -1554,7 +2026,8 @@ def main() -> int:
         k1_dev = sum(k1_tuned[s]["device_ms"] * w
                      for s, w in per_site_launches.items())
     def by_variant(name):
-        return {v: sum(c[f"{name}_by_variant"][v] for c in by_path.values())
+        return {v: sum(c[f"{name}_by_variant"].get(v, 0)
+                       for c in by_path.values())
                 for v in by_path["qwen3_8b modelled"][f"{name}_by_variant"]}
     k2_tot, k2_b, k2_by = agg(k2, {t_att: n_layers})
     k2_dev, k2_lib_dev = ((k2[t_att][f] * n_layers if k2[t_att][f] else None)

@@ -22,10 +22,15 @@ reference's facade artifact and ``NeuroVectorizer.load(dir)`` re-assembles
 it; ``program_store=`` memoizes finished programs, so tuning a site set
 seen before is a lookup.
 
+Timings may run in this process, in a pool of subprocess workers
+(``transport="pool", workers=N``) or on remote ``serve-worker`` daemons
+(``transport="socket", hosts=[...]``); a ``fleet://host:port`` path for
+``db_path`` or ``program_store`` attaches the shared artifact service.
+
 The facade runs on the card unless ``device="cpu"`` is asked for; without
-CUDA it raises.  The reference's surrogate oracle, its pool and socket
-transports, ``fleet://`` stores, the tuning service and ``AsyncOracle``
-are not ported yet: each option naming one raises ``NotImplementedError``.
+CUDA it raises.  The reference's surrogate oracle and grid pruning, the
+tuning service and ``AsyncOracle`` are not ported yet: each option naming
+one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -101,29 +106,39 @@ class NeuroVectorizer:
                                                 (``legality="h100"``)
     ``"measured"``      ``None`` / "inproc"     the card's timings of the
                                                 kernels in this process
+    ``"measured"``      "pool", ``workers=N``   timings in N subprocess
+                                                workers, each with its own
+                                                CUDA context
+                                                (``WorkerPoolTransport``)
+    ``"measured"``      "socket", ``hosts=``    timings on remote
+                                                ``serve-worker`` hosts
+                                                (``SocketTransport``)
     ``"measured"``      a ``MeasureTransport``  timings through your
                                                 transport (borrowed)
     an ``Oracle``       (must be unset)         your oracle, verbatim
     ==================  ======================  ===========================
 
-    ``oracle="surrogate"``, ``transport="pool"`` or ``"socket"``,
-    ``workers=``, ``hosts=``, ``prune_topk=``, ``surrogate=`` and
-    ``fleet://`` paths raise ``NotImplementedError``.
+    ``oracle="surrogate"``, ``prune_topk=`` and ``surrogate=`` raise
+    ``NotImplementedError``.
 
     ``device`` (default ``"cuda"``) is where PPO's network, the default
-    embedder of ``nns``/``dtree`` and the measuring runner live; without
-    CUDA a ``"cuda"`` facade raises.  ``db_path`` keeps the measured
-    oracle's timings (a repeat run times nothing); ``oracle_kwargs`` are
-    :class:`~repro_torch.measure.MeasureRunner` options (``reps=``,
-    ``warmup=``).  ``program_store`` (a :class:`ProgramStore`, borrowed,
-    or a path, owned) memoizes finished programs per (site set, agent
-    state, oracle backend); ``agent_inferences`` / ``store_hits`` /
-    ``store_misses`` count what ran.  ``metrics`` / ``trace`` as in
+    embedder of ``nns``/``dtree`` and the measuring runner live (each pool
+    worker's too; a socket fleet's runners are configured on its hosts);
+    without CUDA a ``"cuda"`` facade raises.  ``db_path`` keeps the
+    measured oracle's timings (a repeat run times nothing; a
+    ``fleet://host:port`` path attaches the shared store);
+    ``oracle_kwargs`` are :class:`~repro_torch.measure.MeasureRunner`
+    options (``reps=``, ``warmup=``).  ``program_store`` (a
+    :class:`ProgramStore`, borrowed, or a path, owned; ``fleet://`` too)
+    memoizes finished programs per (site set, agent state, oracle
+    backend); ``agent_inferences`` / ``store_hits`` / ``store_misses``
+    count what ran.  ``metrics`` / ``trace`` as in
     :func:`repro_torch.obs.resolve_obs`.
 
     A facade that built a measured oracle owns its transport: :meth:`close`
-    (or the context manager) releases it and an owned store; a closed
-    facade raises ``RuntimeError`` on ``fit``/``tune``.
+    (or the context manager) releases it (a pool's workers with it) and an
+    owned store; a closed facade raises ``RuntimeError`` on
+    ``fit``/``tune``.
     """
 
     def __init__(self, cfg: NeuroVecConfig = DEFAULT,
@@ -147,15 +162,6 @@ class NeuroVectorizer:
         if surrogate is not None or prune_topk is not None:
             raise _not_ported("surrogate grid pruning (prune_topk=, "
                               "surrogate=)")
-        if transport in ("pool", "socket"):
-            raise _not_ported(f"transport={transport!r}")
-        if workers is not None or hosts is not None:
-            raise _not_ported("the pool and socket transports (workers=, "
-                              "hosts=)")
-        for what, path in (("db_path", db_path),
-                           ("program_store", program_store)):
-            if isinstance(path, str) and path.startswith("fleet://"):
-                raise _not_ported(f"a fleet:// {what}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._owns_oracle = False
@@ -164,20 +170,22 @@ class NeuroVectorizer:
             resolve_obs(metrics, trace)
         if oracle == "measured":
             runner_kwargs = dict(oracle_kwargs or {})
-            if transport is None or isinstance(transport, str):
-                # a built transport carries its own runner
+            if transport in (None, "inproc", "pool"):
+                # a built transport carries its own runner, a socket
+                # fleet's hosts theirs
                 runner_kwargs = {"device": str(self.device), **runner_kwargs}
             self.oracle: Oracle = make_measured_env(
                 cfg, db_path=db_path, seed=seed, transport=transport,
-                **runner_kwargs)
+                workers=workers, hosts=hosts, **runner_kwargs)
             # a borrowed MeasureTransport instance is not ours to close
             self._owns_oracle = transport is None or isinstance(transport,
                                                                 str)
         else:
             if db_path is not None or oracle_kwargs or \
-                    transport is not None:
-                raise ValueError("db_path/oracle_kwargs/transport apply "
-                                 "only to oracle='measured'")
+                    transport is not None or workers is not None or \
+                    hosts is not None:
+                raise ValueError("db_path/oracle_kwargs/transport/workers/"
+                                 "hosts apply only to oracle='measured'")
             if oracle is None or oracle == "model":
                 self.oracle = CostModelEnv(cfg, seed=seed)
             elif isinstance(oracle, str):
@@ -205,7 +213,8 @@ class NeuroVectorizer:
                        else "custom"),
             "transport": (transport if isinstance(transport, str)
                           or transport is None else "custom"),
-            "workers": None, "db_path": db_path, "hosts": None,
+            "workers": workers, "db_path": db_path,
+            "hosts": list(hosts) if hosts else None,
             "oracle_kwargs": dict(oracle_kwargs or {}), "seed": seed,
             "prune_topk": None, "surrogate": None,
         }
@@ -369,7 +378,7 @@ class NeuroVectorizer:
         measured recipe whose ``oracle_kwargs`` hold an option the port's
         runner lacks (the reference's ``interpret``, ``max_dim``) raises
         :class:`ArtifactError` naming it; a recipe that names an unported
-        layer (a pool, a surrogate) raises ``NotImplementedError``."""
+        layer (a surrogate) raises ``NotImplementedError``."""
         path = str(path)
         if not os.path.exists(os.path.join(path, "manifest.json")):
             raise ArtifactError(f"no restorable facade artifact at "
@@ -432,8 +441,9 @@ class NeuroVectorizer:
                 f"facade or NeuroVectorizer.load() a saved one")
 
     def close(self) -> None:
-        """Release the measured oracle's transport (and its DB file) and an
-        owned program store, and mark the facade closed.  Idempotent."""
+        """Release the measured oracle's transport (a pool's workers, the
+        DB file or connection) and an owned program store, and mark the
+        facade closed.  Idempotent."""
         if self._closed:
             return
         self._closed = True

@@ -15,8 +15,8 @@ oracle evaluations.  The key fingerprints all three coordinates:
 
 On disk it is JSON-lines, append-only: corrupt lines are skipped and
 counted (the store degrades to re-tuning), duplicate keys resolve
-last-wins on load.  The reference's shared ``fleet://`` store is not
-ported yet.
+last-wins on load.  A ``fleet://host:port`` path opens the shared store of
+a ``serve-artifacts`` daemon instead (:func:`open_program_store`).
 """
 from __future__ import annotations
 
@@ -157,6 +157,11 @@ class ProgramStore:
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
 
+    def flush(self) -> None:
+        with self._lock:
+            if self._fh is not None:
+                self._fh.flush()
+
     def close(self) -> None:
         with self._lock:
             if self._fh is not None:
@@ -209,14 +214,14 @@ class ProgramStore:
         self.close()
 
 
-def open_program_store(path: str) -> ProgramStore:
-    """A :class:`ProgramStore` on a local JSONL path.  The reference's
-    shared ``fleet://host:port`` store is not ported yet (ROADMAP queue 1
-    item 3) and raises ``NotImplementedError``."""
+def open_program_store(path: str):
+    """A :class:`ProgramStore` on a local JSONL path, or for a
+    ``fleet://host:port`` path a
+    :class:`~repro_torch.fleet.artifacts.RemoteProgramStore`: a live,
+    push-updated mirror of a ``serve-artifacts`` daemon's store."""
     if isinstance(path, str) and path.startswith("fleet://"):
-        raise NotImplementedError(
-            f"{path}: the fleet artifact service is not ported yet "
-            f"(ROADMAP queue 1 item 3); pass a local file path")
+        from repro_torch.fleet.artifacts import RemoteProgramStore
+        return RemoteProgramStore(path)
     return ProgramStore(path)
 
 

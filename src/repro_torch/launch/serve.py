@@ -25,7 +25,20 @@ eq. 2; ``repro_torch.measure``), on the card, or of their plain versions
 at capped shapes with ``--device cpu``; ``--autotune brute --measured``
 times every legal tile of every site and takes the fastest.
 ``--measure-db PATH`` keeps the timings, so a repeat run times nothing;
-``--measure-reps`` sets the timing repetitions per pair.
+``--measure-reps`` sets the timing repetitions per pair.  ``--transport
+pool --workers N`` times in N subprocess workers, each with its own CUDA
+context (a kernel that crashes or poisons its context costs a worker, not
+this process); ``--transport socket --hosts a:7761,b:7761`` ships the
+timings to ``python -m repro_torch.fleet serve-worker`` daemons, and a
+``fleet://host:port`` ``--measure-db`` or ``--program-store`` attaches
+the shared artifact service.
+
+Warm starts and telemetry: ``--agent-ckpt DIR`` restores a fitted agent
+saved by ``NeuroVectorizer.save`` or ``save_agent`` and skips the fit;
+``--program-store PATH`` memoizes finished tile programs (a site set seen
+before is a lookup, no agent inference); ``--trace-out`` appends the
+tuning span tree (session, fit, tune, submit/drain) to a JSONL trace and
+``--metrics-out`` writes the metrics registry's final snapshot.
 
 After one untimed pass, prefill ms is the median of ``PREFILL_REPS``
 timed prefills and decode tokens/s the median of ``DECODE_REPS`` timed
@@ -51,8 +64,7 @@ from repro_torch.core import costmodel_vec
 from repro_torch.core.env import ActionSpace, CostModelEnv
 from repro_torch.core.protocols import resolve_health
 from repro_torch.core.extractor import extract_serve_sites
-from repro_torch.core.vectorizer import (TileProgram, inject,
-                                         program_speedup, tune)
+from repro_torch.core.vectorizer import TileProgram, inject, program_speedup
 from repro_torch.device import resolve_device
 from repro_torch.kernels import chunk_scan as kcs
 from repro_torch.kernels import flash_attention as kfa
@@ -110,6 +122,29 @@ def parse_args(argv=None):
                          "against the same path time nothing)")
     ap.add_argument("--measure-reps", type=int, default=3,
                     help="timing repetitions per (site, tile) pair")
+    ap.add_argument("--transport", choices=("inproc", "pool", "socket"),
+                    default="inproc",
+                    help="how measurements execute: this process, a "
+                         "subprocess worker pool (repro_torch.measure), or "
+                         "a remote serve-worker fleet (repro_torch.fleet)")
+    ap.add_argument("--workers", type=int, default=2,
+                    help="pool size for --transport pool")
+    ap.add_argument("--hosts", default=None,
+                    help="comma-separated serve-worker host:port list for "
+                         "--transport socket (start them with `python -m "
+                         "repro_torch.fleet serve-worker`)")
+    ap.add_argument("--agent-ckpt", default=None,
+                    help="warm-start --autotune from a saved agent "
+                         "artifact directory (skips the fit)")
+    ap.add_argument("--program-store", default=None,
+                    help="persistent ProgramStore path (or fleet://host:"
+                         "port): a site set tuned before is a lookup")
+    ap.add_argument("--trace-out", default=None,
+                    help="append the tuning span tree to this JSONL trace "
+                         "file (repro_torch.obs)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the final metrics snapshot to this JSON "
+                         "file")
     ap.add_argument("--inject", action="store_true",
                     help="run the model through the kernels with the tiles")
     ap.add_argument("--device", default="cuda",
@@ -128,6 +163,20 @@ def parse_args(argv=None):
         ap.error(f"--measure-reps must be >= 1, got {args.measure_reps}")
     if args.measure_db and not args.measured:
         ap.error("--measure-db applies only to --measured tuning")
+    if (args.agent_ckpt or args.program_store) and not args.autotune:
+        ap.error("--agent-ckpt/--program-store warm-start the tuning "
+                 "pipeline: pass --autotune (they do not apply to --tiles, "
+                 "which loads a finished plan)")
+    if args.workers < 1:
+        ap.error(f"--workers must be >= 1, got {args.workers}")
+    if args.transport == "socket" and not args.hosts:
+        ap.error("--transport socket needs --hosts host:port[,host:port...] "
+                 "naming the serve-worker daemons")
+    if args.hosts and args.transport != "socket":
+        ap.error("--hosts applies only to --transport socket")
+    if args.trace_out and not args.autotune:
+        ap.error("--trace-out records the tuning span tree: pass "
+                 "--autotune (loading --tiles produces no spans)")
     return args
 
 
@@ -137,17 +186,43 @@ def legality_for(device) -> str:
     return "h100" if torch.device(device).type == "cuda" else "cpu"
 
 
+def _measured_env(args, device, legality):
+    """The measured oracle over ``args.transport``: the runner options are
+    this process's for ``inproc`` and ``pool``, the hosts' for
+    ``socket``."""
+    from repro_torch.measure import make_measured_env
+    runner_kw = {} if args.transport == "socket" else dict(
+        reps=args.measure_reps, device=str(device))
+    env = make_measured_env(
+        DEFAULT, db_path=args.measure_db, transport=args.transport,
+        workers=args.workers if args.transport == "pool" else None,
+        hosts=(args.hosts.split(",") if args.transport == "socket"
+               else None),
+        legality=legality, **runner_kw)
+    where = {"inproc": "-", "pool": f"workers={args.workers}",
+             "socket": f"hosts={args.hosts}"}[args.transport]
+    print(f"[serve] measured oracle: transport={args.transport} {where} "
+          f"reps={runner_kw.get('reps', '-')} db={args.measure_db or '-'} "
+          f"({env.measure_fn.transport.backend_key})", flush=True)
+    return env
+
+
 def _tile_plan(args, sites, device):
     """Tune (or load) a TileProgram for the serving sites.
 
-    Returns ``(prog, speedup, tuning)``: ``tuning`` holds the wall seconds
-    of the fit and the greedy tune (``fit_s``) and what the measured
-    oracle did (``measured``, ``stats``, ``health``, ``backend_key``,
-    ``failures``, ``breaker_open``, ``picks``: per site the pick, its
-    time, the fastest tile timed and every timed tile's seconds)."""
+    Tuning goes through the facade (``repro_torch.api``) with this
+    serve's oracle: the program store, the agent warm start, the trace and
+    the metrics are the facade's.  Returns ``(prog, speedup, tuning)``:
+    ``tuning`` holds the wall seconds of the fit and the greedy tune
+    (``fit_s``; building the measured oracle, a pool's spawn included, is
+    ``oracle_setup_s``), ``agent_inferences``, the program store's
+    ``store`` stats, and what the measured oracle did (``measured``,
+    ``stats``, ``health``, ``backend_key``, ``failures``,
+    ``breaker_open``, ``picks``: per site the pick, its time, the fastest
+    tile timed and every timed tile's seconds)."""
     legality = legality_for(device)
-    legal_env = CostModelEnv(DEFAULT, legality=legality)
-    env, tuning = legal_env, {"measured": bool(args.measured)}
+    env, nv = CostModelEnv(DEFAULT, legality=legality), None
+    tuning = {"measured": bool(args.measured)}
     if args.tiles:
         prog = TileProgram.load(args.tiles)
         missing = sorted({s.site for s in sites if s.key() not in prog.tiles})
@@ -155,59 +230,98 @@ def _tile_plan(args, sites, device):
             print(f"[serve] WARNING: the tile plan misses sites that run at "
                   f"baseline tiles: {', '.join(missing)}", file=sys.stderr)
     else:
-        from repro_torch.core.agents import make_agent
+        from repro_torch.api import NeuroVectorizer
+        from repro_torch.artifacts import load_agent
+        from repro_torch.core.agents import BruteForceAgent, make_agent
         if args.measured:
-            from repro_torch.measure import make_measured_env
-            env = make_measured_env(DEFAULT, db_path=args.measure_db,
-                                    reps=args.measure_reps,
-                                    device=str(device), legality=legality)
-            print(f"[serve] measured oracle: transport=inproc "
-                  f"reps={args.measure_reps} db={args.measure_db or '-'} "
-                  f"({env.measure_fn.transport.backend_key})")
+            t0 = time.perf_counter()
+            env = _measured_env(args, device, legality)
+            tuning["oracle_setup_s"] = time.perf_counter() - t0
         agent = make_agent(args.autotune, DEFAULT, seed=0,
                            device=str(device))
+        nv = NeuroVectorizer(DEFAULT, agent=agent, oracle=env,
+                             program_store=args.program_store,
+                             trace=args.trace_out, device=device)
         t0 = time.perf_counter()
-        agent.fit(sites, env, total_steps=args.autotune_steps)
-        # the legal mask comes from the cost model under the same legality:
-        # the measured env would time the whole grid for it (brute force
-        # times it all the same: its pick is the argmin of that grid)
-        prog = tune(sites, agent, env.space, legal_env)
+        if args.agent_ckpt:
+            load_agent(args.agent_ckpt, agent=agent)
+            if isinstance(agent, BruteForceAgent):
+                agent.oracle = env      # brute prices with a live oracle
+            print(f"[serve] agent warm-start: {args.agent_ckpt} (fit "
+                  f"skipped)")
+        else:
+            nv.fit(sites, total_steps=args.autotune_steps)
+        # the greedy pick over the tiles the oracle's legality admits; the
+        # mask comes from the cost model under the same legality (a
+        # measured env would time the whole grid for it)
+        prog = nv.tune_sites(sites)
         tuning["fit_s"] = time.perf_counter() - t0
         if args.save_tiles:
             prog.save(args.save_tiles)
+        tuning["agent_inferences"] = nv.agent_inferences
+        if args.program_store:
+            st = tuning["store"] = nv.program_store.stats()
+            print(f"[serve] program store: {st['hits']} hits, "
+                  f"{st['misses']} misses, {nv.agent_inferences} agent "
+                  f"inferences ({st['entries']} stored programs)")
     sp = program_speedup(prog, sites, env)
     if args.measured:
-        _report_measured(env, prog, sites, sp, tuning)
-        env.measure_fn.transport.close()        # the DB's file handle
+        _report_measured(args, env, prog, sites, sp, tuning)
+        env.measure_fn.transport.close()    # workers, DB handles
     else:
         print(f"[serve] tile plan: {len(prog.tiles)} tiles over "
               f"{len(sites)} sites, TPU-v5e-modelled speedup {sp:.3f}x "
               f"(cost model, not an H100 measurement)")
+    if nv is not None:
+        nv.close()                      # the store, the tracer
+        if args.trace_out:
+            print(f"[serve] trace: {nv.tracer.n_spans} spans + "
+                  f"{nv.tracer.n_events} events -> {args.trace_out}")
+    if args.metrics_out:
+        import json
+        from repro_torch.obs import get_registry
+        with open(args.metrics_out, "w") as f:
+            json.dump(get_registry().snapshot(), f, indent=1, default=str)
+        print(f"[serve] metrics snapshot -> {args.metrics_out}")
     return prog, sp, tuning
 
 
-def _report_measured(env, prog, sites, sp, tuning):
+def _report_measured(args, env, prog, sites, sp, tuning):
     """Print and keep what the measured oracle did: the measured speedup,
-    the transport's counters, health, every failure, and per site the
+    the transport's counters, health, every failure the runner kept (in
+    process only: a worker's runner keeps its own), and per site the
     agent's pick beside the fastest tile it timed."""
     t = env.measure_fn.transport
     st = t.stats()
-    runner = t.runner
-    where = (torch.cuda.get_device_name(runner.device)
-             if runner.device.type == "cuda" else "CPU plain-version")
+    runner = getattr(t, "runner", None)
+    if args.transport == "socket":
+        where = f"the serve-worker fleet's ({t.backend_key})"
+    elif torch.device(args.device).type == "cuda":
+        where = torch.cuda.get_device_name(torch.device(args.device))
+    else:
+        where = "CPU plain-version"
     tuning.update(stats=st, health=resolve_health(env, t),
-                  backend_key=t.backend_key, failures=list(runner.failures),
+                  backend_key=t.backend_key,
+                  failures=list(getattr(runner, "failures", ())),
                   breaker_open=env.breaker_open, picks={})
     print(f"[serve] tile plan: {len(prog.tiles)} tiles over {len(sites)} "
           f"sites, measured {where} time speedup {sp:.3f}x over the "
           f"baseline tiles (fit {tuning.get('fit_s', 0.0):.1f} s)")
+    extra = ""
+    if "pool_worker_restarts_total" in st:
+        extra = (f", {st['pool_worker_restarts_total']} worker restarts, "
+                 f"{st['pool_quarantined_total']} quarantined, spawn "
+                 f"{st['pool_spawn_seconds_total']:.1f} s")
+    elif "fleet_hosts_count" in st:
+        extra = (f", {st['fleet_hosts_live']}/{st['fleet_hosts_count']} "
+                 f"hosts live, {st['fleet_reconnects_total']} reconnects")
     print(f"[serve] measurements: {st['transport_timed_pairs_total']} timed, "
           f"{st['transport_failed_pairs_total']} failed, "
           f"{st['transport_hits_total']} DB hits, "
-          f"{st['transport_coalesced_total']} coalesced "
+          f"{st['transport_coalesced_total']} coalesced{extra} "
           f"({t.backend_key}); health: {tuning['health']}"
           + (f" ({env.degraded_reason})" if env.breaker_open else ""))
-    for key, tiles, err in runner.failures:
+    for key, tiles, err in tuning["failures"]:
         print(f"[serve] failed pair {key} {tiles}: {err}")
     for s in sites:
         pick = tuple(prog.tiles[s.key()])

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.site import KernelSite, SiteRecorder  # noqa: F401
+
 MODES = ("eager", "kernel")
 NEG_INF = -1e30
 
@@ -54,43 +56,6 @@ def dtype_name(dtype: torch.dtype) -> str:
     """The dtype's name as the JAX package writes it in site keys
     (``torch.bfloat16`` -> ``bfloat16``)."""
     return str(dtype).removeprefix("torch.")
-
-
-@dataclass(frozen=True)
-class KernelSite:
-    """A tunable kernel instance — the analogue of one extracted loop.
-    Keys are byte-identical to the JAX package's."""
-
-    site: str
-    kind: str            # "matmul" | "attention" | "chunk_scan"
-    m: int               # matmul M / attention q_len
-    n: int               # matmul N / attention head_dim
-    k: int               # matmul K / attention kv_len
-    batch: int = 1       # attention B*heads; matmul 1
-    dtype: str = "bfloat16"
-    transpose: str = "nn"
-    causal: bool = False
-    fused_ops: int = 0
-
-    def key(self) -> str:
-        k = self.__dict__.get("_key")
-        if k is None:
-            k = (f"{self.kind}:{self.site}:m{self.m}n{self.n}k{self.k}"
-                 f"b{self.batch}:{self.dtype}:{self.transpose}"
-                 f"{':c' if self.causal else ''}:f{self.fused_ops}")
-            object.__setattr__(self, "_key", k)
-        return k
-
-
-class SiteRecorder:
-    def __init__(self):
-        self.sites: dict[str, KernelSite] = {}
-
-    def record(self, s: KernelSite):
-        self.sites[s.key()] = s
-
-    def unique_sites(self) -> list[KernelSite]:
-        return list(self.sites.values())
 
 
 def _tiles_for(st: _ComputeState, site: KernelSite):

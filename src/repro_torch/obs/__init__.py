@@ -6,16 +6,17 @@ tuning stack.
   ``snapshot()`` and Prometheus ``render_prom()``.
 * :mod:`~repro_torch.obs.trace` — JSONL span tracing + ``to_chrome_trace()``.
 * :mod:`~repro_torch.obs.instrument` — wrap the live measured env, its
-  transport and DB, and the program store into a registry without
-  behavior change.
+  transport (in process, pool or fleet) and DB, and the program store into
+  a registry without behavior change.
 
 The facade wires all of this by default into the process-wide registry
 (:func:`get_registry`); tracing is opt-in (``NeuroVectorizer(trace=
 "t.jsonl")``).  The HTTP exporter (``MetricsServer``) is not ported yet.
 """
 from repro_torch.obs.instrument import (ObsHandle, instrument_db,
-                                        instrument_env,
+                                        instrument_env, instrument_fleet,
                                         instrument_oracle_stack,
+                                        instrument_pool,
                                         instrument_program_store,
                                         instrument_transport)
 from repro_torch.obs.metrics import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge,
@@ -29,7 +30,8 @@ __all__ = [
     "DEFAULT_LATENCY_BUCKETS",
     "Tracer", "NullTracer", "NULL_TRACER", "Span", "read_trace",
     "to_chrome_trace",
-    "ObsHandle", "instrument_transport", "instrument_db", "instrument_env",
+    "ObsHandle", "instrument_transport", "instrument_pool",
+    "instrument_fleet", "instrument_db", "instrument_env",
     "instrument_program_store", "instrument_oracle_stack",
     "resolve_obs",
 ]

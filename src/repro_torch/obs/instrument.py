@@ -1,8 +1,9 @@
 """Retrofit instrumentation for the tuning seams the facade reaches in the
 port — no behavior change, by construction; the port of
-``repro/obs/instrument.py`` for the in-process stack (the measured env,
-its transport and timing DB, and the program store).  The pool, fleet,
-serving and surrogate instrumentation comes with those layers.
+``repro/obs/instrument.py`` for the measured env, its transports (in
+process, the worker pool and the socket fleet) and timing DB, and the
+program store.  The serving and surrogate instrumentation comes with those
+layers.
 
 Every ``instrument_*`` function takes a *live instance* and wraps its
 methods on the instance (never the class: two transports can feed two
@@ -35,9 +36,9 @@ from typing import Callable, List, Optional
 from .metrics import MetricsRegistry
 from .trace import NULL_TRACER
 
-__all__ = ["ObsHandle", "instrument_transport", "instrument_db",
-           "instrument_env", "instrument_program_store",
-           "instrument_oracle_stack"]
+__all__ = ["ObsHandle", "instrument_transport", "instrument_pool",
+           "instrument_fleet", "instrument_db", "instrument_env",
+           "instrument_program_store", "instrument_oracle_stack"]
 
 _MARK = "_obs_instrumented"
 
@@ -176,8 +177,105 @@ def instrument_transport(transport, registry: MetricsRegistry,
         health.set(_HEALTH_CODE.get(s.get("health", "ok"), 0.0))
 
     h.add_collector(collect)
+    h.adopt(instrument_pool(transport, registry))
+    h.adopt(instrument_fleet(transport, registry))
     if getattr(transport, "db", None) is not None:
         h.adopt(instrument_db(transport.db, registry))
+    return h
+
+
+def instrument_pool(pool, registry: MetricsRegistry) -> Optional[ObsHandle]:
+    """WorkerPool metrics: queue depth, restarts, quarantine, and the
+    per-job queue-wait and in-flight split (the pool's ``job_observer``
+    seam feeds the two histograms)."""
+    if not hasattr(pool, "worker_restarts"):       # not a worker pool
+        return None
+    h = ObsHandle(registry)
+    qwait = registry.histogram("pool_queue_wait_seconds",
+                               "per-job time spent queued (incl. requeues)")
+    run = registry.histogram("pool_run_seconds",
+                             "per-job time in flight on a worker")
+    depth = registry.gauge("pool_queue_depth", "jobs waiting for a worker")
+    workers = registry.gauge("pool_workers_count", "configured pool size")
+    live = registry.gauge("pool_workers_live", "dispatchers still running")
+
+    def observer(queue_wait_s: float, run_s: float) -> None:
+        qwait.observe(queue_wait_s)
+        run.observe(run_s)
+    pool.job_observer = observer
+
+    sync = _delta_sync(registry, {
+        "pool_worker_restarts_total": "pool_worker_restarts_total",
+        "pool_quarantined_total": "pool_quarantined_total",
+    }, pool.stats, help_map={
+        "pool_worker_restarts_total": "worker respawns after a death",
+        "pool_quarantined_total": "poison pairs quarantined in the DB",
+    })
+
+    def collect() -> None:
+        sync()
+        with pool._cv:
+            depth.set(len(pool._pending))
+            live.set(pool._live)
+        workers.set(pool.workers)
+
+    h.add_collector(collect)
+    return h
+
+
+def instrument_fleet(transport, registry: MetricsRegistry
+                     ) -> Optional[ObsHandle]:
+    """:class:`~repro_torch.fleet.SocketTransport` metrics (gated on its
+    ``host_states`` seam): fleet-wide queue depth and live-host gauges,
+    and per-host labelled up, jobs and reconnects series, so a dashboard
+    can tell which serve-worker host is flapping."""
+    if not hasattr(transport, "host_states"):      # not a fleet transport
+        return None
+    h = ObsHandle(registry)
+    depth = registry.gauge("fleet_queue_depth",
+                           "jobs waiting for a serve-worker slot")
+    hosts_n = registry.gauge("fleet_hosts_count", "configured fleet size")
+    hosts_live = registry.gauge("fleet_hosts_live",
+                                "hosts currently connected")
+    host_up = registry.gauge("fleet_host_up",
+                             "1 while this serve-worker host is connected",
+                             labelnames=("host",))
+    host_jobs = registry.counter("fleet_host_jobs_total",
+                                 "results returned by this host",
+                                 labelnames=("host",))
+    host_reconn = registry.counter("fleet_host_reconnects_total",
+                                   "connections re-established to this host",
+                                   labelnames=("host",))
+    sync = _delta_sync(registry, {
+        "fleet_reconnects_total": "fleet_reconnects_total",
+        "fleet_quarantined_total": "fleet_quarantined_total",
+    }, transport.stats, help_map={
+        "fleet_reconnects_total": "connections re-established fleet-wide",
+        "fleet_quarantined_total": "poison pairs quarantined in the DB",
+    })
+    last = {}                                      # per-host counter floors
+
+    def collect() -> None:
+        sync()
+        try:
+            s = transport.stats()
+        except Exception:
+            return
+        depth.set(s.get("fleet_queue_depth", 0))
+        hosts_n.set(s.get("fleet_hosts_count", 0))
+        hosts_live.set(s.get("fleet_hosts_live", 0))
+        for name, hs in (s.get("hosts") or {}).items():
+            host_up.labels(host=name).set(
+                1.0 if hs.get("state") == "connected" else 0.0)
+            for src, ctr in (("jobs_done", host_jobs),
+                             ("reconnects", host_reconn)):
+                v = float(hs.get(src, 0) or 0)
+                prev = last.get((name, src), 0.0)
+                if v > prev:                       # clamped delta
+                    ctr.labels(host=name).inc(v - prev)
+                last[(name, src)] = v
+
+    h.add_collector(collect)
     return h
 
 
@@ -209,9 +307,8 @@ def instrument_db(db, registry: MetricsRegistry) -> Optional[ObsHandle]:
     db.get, db.put = get, put
 
     def read() -> dict:
-        # the port's DB keeps no quarantine records yet: the series stays 0
         return {"skipped_lines": db.skipped_lines,
-                "quarantined": getattr(db, "n_quarantined", 0)}
+                "quarantined": db.n_quarantined}
     h.add_collector(_delta_sync(registry, {
         "skipped_lines": "measuredb_corrupt_lines_total",
         "quarantined": "measuredb_quarantined_total",

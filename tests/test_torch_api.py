@@ -2,7 +2,8 @@
 the facade tests of ``tests/test_api.py:331-411`` carried over, the
 reference and port facades giving the same ``TileProgram`` with ``brute``
 and ``polly``, every option without a port layer raising
-``NotImplementedError``, and the port's quickstart at small steps.
+``NotImplementedError`` and the transport options reaching their
+transports, and the port's quickstart at small steps.
 
 On the CPU the facade runs with ``device="cpu"`` (its kernels' plain
 versions); its default oracle prices tiles under the Hopper kernels'
@@ -127,6 +128,9 @@ def test_facade_needs_the_card_unless_cpu_is_asked(monkeypatch):
         make_agent("nns", NV)
 
 
+FLEET = "fleet://{artifacts}"
+
+
 @pytest.mark.parametrize("kw", [
     {"oracle": "surrogate"},
     {"oracle": "measured", "surrogate": "ckpt/"},
@@ -135,27 +139,71 @@ def test_facade_needs_the_card_unless_cpu_is_asked(monkeypatch):
     {"oracle": "measured", "transport": "socket"},
     {"oracle": "measured", "workers": 2},
     {"oracle": "measured", "hosts": ["localhost:7000"]},
-    {"oracle": "measured", "db_path": "fleet://localhost:7000"},
-    {"program_store": "fleet://localhost:7000"},
+    {"oracle": "measured", "db_path": FLEET},
+    {"program_store": FLEET},
 ], ids=lambda kw: ",".join(kw))
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match=LATER):
-        NeuroVectorizer(NV, agent="polly", **kw, **CPU)
+def test_unported_options_raise(kw, tmp_path):
+    """The surrogate and grid pruning are not ported and raise.  The
+    transport options are: a pool of workers, and a ``fleet://`` DB or
+    store against a live ``serve-artifacts``; where the reference raises
+    for a combination (a socket fleet without hosts, ``workers=`` or
+    ``hosts=`` with the in-process transport), the port raises the same
+    class."""
+    from repro.api import NeuroVectorizer as JNeuroVectorizer
+    from repro_torch.fleet import (ArtifactServer, RemoteMeasureDB,
+                                   RemoteProgramStore)
+    from repro_torch.measure import WorkerPoolTransport
+    if "surrogate" in kw.values() or {"surrogate", "prune_topk"} & set(kw):
+        with pytest.raises(NotImplementedError, match=LATER):
+            NeuroVectorizer(NV, agent="polly", **kw, **CPU)
+        return
+    if "workers" in kw or "hosts" in kw or kw.get("transport") == "socket":
+        with pytest.raises(ValueError):
+            NeuroVectorizer(NV, agent="polly", **kw, **CPU)
+        with pytest.raises(ValueError):
+            JNeuroVectorizer(agent="polly", **kw)
+        return
+    with ArtifactServer(measure_db=str(tmp_path / "m.jsonl"),
+                        program_store=str(tmp_path / "p.jsonl")) as art:
+        art.start()
+        kw = {k: (v.format(artifacts=art.address) if isinstance(v, str)
+                  else v) for k, v in kw.items()}
+        with NeuroVectorizer(NV, agent="polly", **kw, **CPU) as nv:
+            if kw.get("transport") == "pool":
+                t = nv.oracle.measure_fn.transport
+                assert isinstance(t, WorkerPoolTransport)
+                assert t.workers == 2 and t.health() == "ok"
+                assert t.runner_kwargs == {"device": "cpu"}
+            elif "db_path" in kw:
+                assert isinstance(nv.oracle.measure_fn.db, RemoteMeasureDB)
+            else:
+                assert isinstance(nv.program_store, RemoteProgramStore)
+        if kw.get("transport") == "pool":
+            assert t.health() == "down"      # close() released the workers
 
 
 def test_unported_recipe_raises_on_load(tmp_path):
-    """A saved recipe naming a pool (the reference's ``transport="pool"``)
-    or a surrogate oracle raises on load rather than dropping it."""
+    """A saved recipe naming a surrogate oracle raises on load rather than
+    dropping it; one naming a pool (the reference's ``transport="pool"``)
+    loads into a pool of that many workers."""
     import json
+
+    from repro_torch.measure import WorkerPoolTransport
     art = tmp_path / "f"
     NeuroVectorizer(NV, agent="polly", **CPU).save(str(art))
     spec = json.loads((art / "facade.json").read_text())
-    for change in ({"oracle": "measured", "transport": "pool",
-                    "workers": 2},
-                   {"oracle": "surrogate"}):
-        (art / "facade.json").write_text(json.dumps({**spec, **change}))
-        with pytest.raises(NotImplementedError, match=LATER):
-            NeuroVectorizer.load(str(art), **CPU)
+    (art / "facade.json").write_text(json.dumps({**spec,
+                                                 "oracle": "surrogate"}))
+    with pytest.raises(NotImplementedError, match=LATER):
+        NeuroVectorizer.load(str(art), **CPU)
+    (art / "facade.json").write_text(json.dumps(
+        {**spec, "oracle": "measured", "transport": "pool", "workers": 1,
+         "oracle_kwargs": {"reps": 1}}))
+    with NeuroVectorizer.load(str(art), **CPU) as nv:
+        t = nv.oracle.measure_fn.transport
+        assert isinstance(t, WorkerPoolTransport) and t.workers == 1
+        assert t.runner_kwargs == {"device": "cpu", "reps": 1}
+        assert nv._spec["workers"] == 1
 
 
 @pytest.mark.parametrize("name", ("brute", "polly"))

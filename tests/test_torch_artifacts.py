@@ -267,9 +267,28 @@ def test_store_hit_performs_zero_inferences_and_zero_oracle_evals(tmp_path):
     store.close()
 
 
-def test_fleet_store_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        open_program_store("fleet://localhost:7000")
+def test_fleet_store_raises_not_ported(tmp_path):
+    """The fleet store is ported now: a ``fleet://`` path opens a mirror
+    of a ``serve-artifacts`` daemon's store, shared with a local writer
+    of its file; with no daemon listening it raises as the reference
+    does."""
+    import socket
+
+    from repro_torch.fleet import ArtifactServer, RemoteProgramStore
+    p = str(tmp_path / "p.jsonl")
+    with ArtifactServer(program_store=p) as art:
+        art.start()
+        store = open_program_store(f"fleet://{art.address}")
+        assert isinstance(store, RemoteProgramStore)
+        store.put("k", TileProgram({"s|1": (16, 128, 128)}))
+        store.close()
+    assert ProgramStore(p).get("k").tiles == {"s|1": (16, 128, 128)}
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with pytest.raises(ConnectionRefusedError):
+        open_program_store(f"fleet://127.0.0.1:{port}")
 
 
 # ---------------------------------------------------------------------------

@@ -690,3 +690,78 @@ def test_every_method_tunes_launchable_tiles_on_the_card(cuda):
                if not ops.tile_ok(s, prog.tiles[s.key()])]
         assert not bad, (name, bad)
         nv.close()
+
+
+# ---------------------------------------------------------------------------
+# the measured oracle's pool on the card: kernels timed in worker processes
+# ---------------------------------------------------------------------------
+
+POOL_SITES = [
+    dict(site="g.mm", kind="matmul", m=2048, n=2560, k=2560),
+    dict(site="g.attn", kind="attention", m=512, n=80, k=512, batch=128,
+         causal=True),
+    dict(site="g.scan", kind="chunk_scan", m=256, n=64, k=16, batch=64),
+]
+
+
+def _pool_sites():
+    from repro_torch.models.site import KernelSite
+    return [KernelSite(**d) for d in POOL_SITES]
+
+
+def test_pool_times_k1_k2_k3_in_its_workers(cuda, tmp_path, monkeypatch):
+    """Two workers, each with its own context, time one K1, K2 and K3
+    pair each finite; every launch happened in a worker (their counters,
+    written under ``REPRO_TORCH_LAUNCH_DIR``), none in this process."""
+    import json
+
+    from repro_torch.measure import WorkerPoolTransport
+    monkeypatch.setenv("REPRO_TORCH_LAUNCH_DIR", str(tmp_path))
+    before = (kmm.launches, kfa.launches, kcs.launches)
+    with WorkerPoolTransport(workers=2, runner_kwargs={"reps": 2},
+                             spawn_timeout=300.0, job_timeout=120.0) as t:
+        futs = t.submit(_pool_sites(), np.array([[128, 128, 512],
+                                                 [128, 128, 1],
+                                                 [256, 1, 1]]))
+        vals = [f.result() for f in futs]
+        st = t.stats()
+    assert all(np.isfinite(v) and v > 0 for v in vals), vals
+    assert st["health"] == "ok" and st["transport_failed_pairs_total"] == 0
+    assert (kmm.launches, kfa.launches, kcs.launches) == before
+    counts = [json.loads(p.read_text()) for p in tmp_path.glob("worker-*")]
+    for k in ("matmul", "flash_attention", "chunk_scan"):
+        assert sum(c[k] for c in counts) >= 1, (k, counts)
+
+
+def _fault_pool(tmp_path, monkeypatch, factory):
+    from repro_torch.measure import WorkerPoolTransport
+    monkeypatch.setenv("REPRO_TEST_CARD_FAULT_FILE", str(tmp_path / "fired"))
+    return WorkerPoolTransport(workers=2,
+                               factory=f"test_torch_pool_helpers:{factory}",
+                               spawn_timeout=300.0, job_timeout=20.0)
+
+
+@pytest.mark.parametrize("factory", ["card_assert_once", "card_hang_once"])
+def test_pool_replaces_a_poisoned_or_wedged_worker(cuda, tmp_path,
+                                                   monkeypatch, factory):
+    """A device-side assert (the context is dead) or a kernel that spins
+    past ``job_timeout`` (the worker is killed mid-kernel) costs one
+    worker: the pool respawns it, retries the pair finite, and every other
+    pair comes back finite from a working pool."""
+    from repro_torch.models.site import KernelSite
+    fault = KernelSite(site="fault", kind="matmul", m=512, n=512, k=512)
+    sites = [fault] + _pool_sites()
+    tiles = np.array([[128, 128, 512], [128, 128, 512], [128, 128, 1],
+                      [256, 1, 1]])
+    with _fault_pool(tmp_path, monkeypatch, factory) as t:
+        vals = [f.result() for f in t.submit(sites, tiles)]
+        st = t.stats()
+        assert (tmp_path / "fired").exists()
+        assert all(np.isfinite(v) and v > 0 for v in vals), vals
+        assert st["pool_worker_restarts_total"] >= 1
+        assert st["transport_retries_total"] >= 1
+        assert st["transport_failed_pairs_total"] == 0
+        again = t.submit([KernelSite(site="after", kind="matmul", m=256,
+                                     n=256, k=256)], tiles[:1])
+        assert np.isfinite(again[0].result())
+        assert t.health() == "ok"

@@ -281,14 +281,31 @@ def test_transport_coalesces_and_writes_through(tmp_path):
     assert t2.stats()["transport_timed_pairs_total"] == 0
 
 
-def test_unported_transports_and_pruning_raise():
-    for name in ("pool", "socket"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+def test_unported_transports_and_pruning_raise(tmp_path):
+    """Pruning is not ported and raises; the pool and socket transports
+    and ``fleet://`` DBs are (``tests/test_torch_transport.py``,
+    ``tests/test_torch_fleet.py``): a shared runner is refused by the pool
+    and a socket fleet needs hosts, the same classes the reference
+    raises, and a ``fleet://`` path opens the shared store."""
+    import repro.measure as jmeasure
+    from repro.measure.db import open_measure_db as jopen_measure_db
+    from repro_torch.fleet import ArtifactServer, RemoteMeasureDB
+    for name, err in (("pool", TypeError), ("socket", ValueError)):
+        with pytest.raises(err):
             make_transport(name, runner=SpyRunner())
+        with pytest.raises(err):
+            jmeasure.make_transport(name, runner=SpyRunner())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         make_measured_env(runner=SpyRunner(), prune_topk=4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        open_measure_db("fleet://localhost:7761")
+    with ArtifactServer(measure_db=str(tmp_path / "m.jsonl")) as art:
+        art.start()
+        db = open_measure_db(f"fleet://{art.address}")
+        assert isinstance(db, RemoteMeasureDB)
+        db.put("k|1x1x1|b", 0.5)
+        jdb = jopen_measure_db(f"fleet://{art.address}")
+        assert jdb.get("k|1x1x1|b") == 0.5
+        db.close()
+        jdb.close()
 
 
 def test_make_measured_env_and_health():
