@@ -61,7 +61,10 @@ Phases, each printed before the last line:
      it, and that f32 prefill must match the f32 decode recurrence fed the
      prompt token by token; then
      K1 at each of its shapes under the baseline and the tuned tile (every
-     K1 check prints how many outputs differ from torch.matmul at all);
+     K1 check prints how many outputs differ from torch.matmul at all).
+     Both fits keep their timings in build/phase5_measure.jsonl, phase
+     10's training corpus; Qwen3-8B's is held against phase 4's eager run
+     of the same weights and prompts;
   6. the paper's main-path loop (tests/test_system.py:22-55) on
      stablelm_3b at full width (32 layers, head dim 80, bf16, batch 4,
      prompt 512, 16 tokens): PPO fit on dataset.generate(400, seed=0,
@@ -71,7 +74,10 @@ Phases, each printed before the last line:
      every StableLM shape under the baseline and the tuned tile, then
      serve --autotune brute --measured --inject (its pick must be the
      fastest tile it timed at every site) and PPO's program priced from
-     the same timings: the two measured speedups side by side;
+     the same timings: the two measured speedups side by side.  The
+     --tiles run's eager pass (the same weights, from seed 0, and
+     prompts) is what every injected StableLM-3B serve of phases 6, 9
+     and 10 is held against;
   7. one JSON line describing each kernel of the paths (K1 and K2 with
      their launches by variant and their StableLM-3B numbers, K3 with its
      device ms by pass and chunk and the Mamba-2 head), printed last so
@@ -90,7 +96,9 @@ Phases, each printed before the last line:
      tuned to tiles ops.tile_ok admits and priced by the facade's
      measured oracle (one line each: modelled and measured speedup, pairs
      timed anew); then examples/torch_quickstart.py's main on the card;
-  9. the transports on the card (run after phase 8, before phase 7):
+  9. the transports on the card (run after phase 8, before phase 7),
+     every timing under the card's lock (repro_torch.measure.lock: one
+     timed call per card at a time across processes):
      phase 6's in-process brute-force DB is the reference.  serve
      --transport pool --workers 2 (the same StableLM-3B run, a new DB)
      must time the same keys, all finite, none failed or quarantined,
@@ -99,19 +107,37 @@ Phases, each printed before the last line:
      REPRO_TORCH_LAUNCH_DIR, show K1 and K2), and its injected prefill's
      launches and logits as phase 6's; then --workers 1; each prints the
      per-pair ratio of pool to in-process time (median, p10, p90), the
-     fit's wall and the spawn seconds.  K3 at xLSTM's chunk-scan site at
-     every legal chunk in a pool of 2, beside phase 5's in-process times.
+     fit's wall, the spawn seconds, the workers' lock wait and the brute
+     pick's measured speedup beside phase 6's; then the pool of 2 against
+     the pool of 1 (median ratio) and in process (speedup).  K3 at xLSTM's
+     chunk-scan site at every legal chunk in a pool of 2, beside phase 5's
+     in-process times.
      A factory runner defined here triggers a device-side assert in a
      worker at one marked pair: the pool must replace the worker and time
      the pair finite on the retry; a ChaosRunner (crash, hang, torn frame,
      noise) over the card's runner times StableLM pairs that draw each
      fault once, and two that draw none: all finite, each key written
-     once, health ok.  The fleet: serve-worker (a pool of
+     once, health ok.  One worker against this process on 14 StableLM
+     pairs: the runner's host-clock ms beside the device ms of one call
+     from torch.profiler, per pair and as ratios.  The fleet:
+     serve-worker (a pool of
      2) and serve-artifacts daemons on ports the OS picks, serve
      --transport socket with fleet:// DB and store meeting the pool run's
      checks, a warm rerun that times 0 pairs and takes its program from
      the store, then SIGTERM and exit code 0 for both daemons;
- 10. the last line: {"ok": true, "device": {...}}.
+ 10. the learned cost model (after phase 9, before phase 7): the
+     surrogate trained on the card from phase 5's DB (corpus pairs,
+     backend, ensemble, wall); per StableLM-3B site the Spearman rho of
+     its prices and of the analytic model's against phase 6's measured
+     grid, with their means; serve --autotune brute --measured
+     --prune-topk 4 --surrogate DIR --inject at full width (fewer pairs
+     timed than phase 6, at most 5 a site, the injected prefill's
+     launches and logits as phase 6's), its best tiles against full brute
+     force's, and both picks re-timed interleaved in this process; PPO
+     fitted against oracle="surrogate" with phase 6's settings, its
+     program priced by phase 6's timings beside PPO on the cost model;
+ 11. each phase's wall seconds, then the last line:
+     {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -624,21 +650,26 @@ def k3_check(inputs, Q, label):
 def device_ms_by_kernel(fn, reps: int = 5) -> dict:
     """Device ms of one launch of each kernel ``fn`` runs, from a
     ``torch.profiler`` trace of ``reps`` calls: each kernel's total over
-    the number of its launches the trace recorded (the trace may drop the
-    first launches of a window, so a total over ``reps`` would
-    undercount; a trace that recorded no device time at all is taken
-    again, up to three times).  Each kernel here launches once per call of
-    its wrapper."""
+    the number of its launches the trace recorded.  A trace may drop the
+    first launches after the profiler starts (all of them, for a few
+    short calls), so each trace records a warmup step of ``reps`` calls
+    that it discards before the step it keeps, and a trace that recorded
+    no device time at all is taken again, up to eight times.  Each kernel
+    here launches once per call of its wrapper."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
     tot, cnt = {}, {}
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         for e in prof.key_averages():
             if e.device_time_total > 0:
                 name = e.key.replace("(anonymous namespace)::", "")
@@ -719,13 +750,16 @@ def per_pass_launches(cfg):
 
 
 def measured_path(arch, params=None, prompts=None, agent="ppo", extra=(),
-                  worker_dir=None):
+                  worker_dir=None, eager=None):
     """serve --autotune ``agent`` --measured --inject at full width,
     counters zeroed just before and read just after; checked against eager
     mode on the same prompts.  With ``worker_dir`` the timings ran in
     worker processes, which wrote their launch counters there: this
     process must have launched nothing during the fit, and the workers
-    every kernel of the path's sites."""
+    every kernel of the path's sites.  ``eager``: an earlier eager run of
+    the same weights and prompts (this function's third result), which
+    then stands in for a new one.  Returns ``(result, counts, eager)``,
+    ``eager`` a dict of the eager run's logits, tokens and times."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -794,21 +828,30 @@ def measured_path(arch, params=None, prompts=None, agent="ppo", extra=(),
             not torch.isfinite(logits).all() or res.seq.shape != (BATCH, GEN):
         fail(f"{arch}: logits {tuple(logits.shape)} / tokens "
              f"{tuple(res.seq.shape)}")
-    eager = serve.run(serve.parse_args(argv[:argv.index("--autotune")]),
+    if eager is None:
+        e = serve.run(serve.parse_args(argv[:argv.index("--autotune")]),
                       params=res.params, prompts=res.prompts)
-    rel = float((logits - eager.prefill_logits).abs().max()
-                / eager.prefill_logits.abs().max())
-    agree = float((res.seq == eager.seq).float().mean())
+        eager = {"logits": e.prefill_logits, "seq": e.seq,
+                 "prefill_ms": e.prefill_ms,
+                 "prefill_ms_runs": e.prefill_ms_runs,
+                 "decode_tok_s": e.decode_tok_s,
+                 "decode_tok_s_runs": e.decode_tok_s_runs, "run": "this"}
+        del e
+    else:
+        eager = dict(eager, run="an earlier")
+    rel = float((logits - eager["logits"]).abs().max()
+                / eager["logits"].abs().max())
+    agree = float((res.seq == eager["seq"]).float().mean())
     print(f"[measured:{arch}] kernel vs eager prefill logits: relative "
           f"{rel:.4e} (tol {LOGIT_TOL}); greedy tokens agree "
           f"{agree * 100:.1f}%; kernels: prefill ms {res.prefill_ms:.2f} of "
           f"{[round(t, 2) for t in res.prefill_ms_runs]}, decode tok/s "
           f"{res.decode_tok_s:.2f} of "
-          f"{[round(t, 2) for t in res.decode_tok_s_runs]}; eager: prefill "
-          f"ms {eager.prefill_ms:.2f} of "
-          f"{[round(t, 2) for t in eager.prefill_ms_runs]}, decode tok/s "
-          f"{eager.decode_tok_s:.2f} of "
-          f"{[round(t, 2) for t in eager.decode_tok_s_runs]}; measured "
+          f"{[round(t, 2) for t in res.decode_tok_s_runs]}; eager "
+          f"({eager['run']} run): prefill ms {eager['prefill_ms']:.2f} of "
+          f"{[round(t, 2) for t in eager['prefill_ms_runs']]}, decode tok/s "
+          f"{eager['decode_tok_s']:.2f} of "
+          f"{[round(t, 2) for t in eager['decode_tok_s_runs']]}; measured "
           f"H100 speedup of the tuned program {res.modelled_speedup:.3f}x",
           flush=True)
     if rel >= LOGIT_TOL:
@@ -816,22 +859,25 @@ def measured_path(arch, params=None, prompts=None, agent="ppo", extra=(),
     print(f"[measured:{arch}] tuned tiles: " + ", ".join(
         f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
         for s in res.sites), flush=True)
-    return res, counts, eager.prefill_logits
+    return res, counts, eager
 
 
 def worker_counts(worker_dir) -> dict:
     """The kernel launches that measurement workers reported: the sum of
     the ``worker-<pid>.json`` files they wrote under ``worker_dir``
-    (``REPRO_TORCH_LAUNCH_DIR``), K1's and K2's by variant too."""
+    (``REPRO_TORCH_LAUNCH_DIR``), K1's and K2's by variant too, and their
+    use of the card's timing lock (acquisitions, seconds waited and
+    held)."""
     total = {"matmul": 0, "flash_attention": 0, "chunk_scan": 0,
-             "matmul_by_variant": {}, "flash_attention_by_variant": {}}
+             "matmul_by_variant": {}, "flash_attention_by_variant": {},
+             "timing_lock": {"acquires": 0, "wait_s": 0.0, "held_s": 0.0}}
     for f in sorted(Path(worker_dir).glob("worker-*.json")):
         c = json.loads(f.read_text())
         for k, v in c.items():
             if isinstance(v, dict):
                 for var, n in v.items():
                     total[k][var] = total[k].get(var, 0) + n
-            else:
+            elif isinstance(v, (int, float)):
                 total[k] += v
     return total
 
@@ -962,7 +1008,13 @@ def main_path():
     print(f"[main] tuned tiles: " + ", ".join(
         f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
         for s in res.sites), flush=True)
-    return res, counts
+    # phase 5's measured Qwen3-8B serve of these weights and prompts is
+    # held against this eager run
+    return res, counts, {"logits": eager.prefill_logits, "seq": eager.seq,
+                         "prefill_ms": eager.prefill_ms,
+                         "prefill_ms_runs": eager.prefill_ms_runs,
+                         "decode_tok_s": eager.decode_tok_s,
+                         "decode_tok_s_runs": eager.decode_tok_s_runs}
 
 
 def prefill_breakdown(model, params, prompts, prog, label):
@@ -1107,7 +1159,14 @@ def stablelm_path(gen):
         f"{s.site}@M={s.m}:{tuple(prog.tiles[s.key()])}" for s in sites),
         flush=True)
     params, prompts = res.params, res.prompts
-    del res, eager
+    # the eager run that the measured runs of these weights and prompts
+    # (here, phases 9 and 10) are held against
+    eager = {"logits": eager.prefill_logits, "seq": eager.seq,
+             "prefill_ms": eager.prefill_ms,
+             "prefill_ms_runs": eager.prefill_ms_runs,
+             "decode_tok_s": eager.decode_tok_s,
+             "decode_tok_s_runs": eager.decode_tok_s_runs}
+    del res
     # K1 at each StableLM shape under the baseline and the PPO tile (q, k,
     # v and o share a shape: each shape and tile is checked once)
     k1_tuned, k1_launches, seen = {}, {}, {}
@@ -1131,7 +1190,8 @@ def stablelm_path(gen):
         db.unlink()
     b_res, b_counts, _ = measured_path(STABLELM, params, prompts,
                                        agent="brute",
-                                       extra=("--measure-db", str(db)))
+                                       extra=("--measure-db", str(db)),
+                                       eager=eager)
     # brute force takes the fastest tile of the action space it timed (the
     # runner also timed each site's baseline tile, which may lie outside
     # the action space: bq = 8 at decode attention)
@@ -1167,6 +1227,7 @@ def stablelm_path(gen):
           f"timings: {st['transport_hits_total']} DB hits, "
           f"{st['transport_timed_pairs_total']} timed anew)", flush=True)
     brute_tiles, brute_sp = dict(b_res.prog.tiles), b_res.modelled_speedup
+    ref_pairs = b_res.tuning["stats"]["transport_timed_pairs_total"]
     # where a prefill's time goes, each program in turn, then eager
     breakdown = {}
     for label, p_ in (("PPO tiles", prog), ("brute tiles", b_res.prog),
@@ -1181,7 +1242,8 @@ def stablelm_path(gen):
             "n_layers": cfg.n_layers, "modelled_speedup": sp,
             "ppo_measured_speedup": ppo_measured,
             "brute_measured_speedup": brute_sp, "brute_tiles": brute_tiles,
-            "breakdown": breakdown, "db": db}
+            "breakdown": breakdown, "db": db, "ref_pairs": ref_pairs,
+            "eager": eager}
 
 
 # ---------------------------------------------------------------------------
@@ -1417,7 +1479,7 @@ def facade_path():
 
 LAUNCH_ENV = "REPRO_TORCH_LAUNCH_DIR"       # repro_torch.measure.worker's
 POOL_SPAWN_S, POOL_JOB_S = 300.0, 60.0      # the pools' timeouts here
-CHAOS_JOB_S = 10.0                          # a hang is killed after this
+CHAOS_JOB_S = 5.0                           # a hang is killed after this
 
 
 class CardFaultRunner:
@@ -1443,6 +1505,44 @@ class CardFaultRunner:
                 idx = torch.tensor([1 << 20], device="cuda")
                 torch.zeros(4, device="cuda")[idx].sum().item()
         return self.base(sites, tiles)
+
+
+class ProfilingRunner:
+    """The port's runner on the card that also takes, for every pair, the
+    device ms of one call from a ``torch.profiler`` trace (under the
+    card's lock, as the timing) and appends ``{"key", "host_ms",
+    "device_ms"}`` to the JSON-lines file ``$CHIP_SMOKE_PROFILE_OUT``:
+    the runner's host-clock median beside the kernels' own time.  Built
+    in a worker by the pool's ``factory`` seam, or in this process."""
+
+    def __init__(self):
+        from repro_torch.measure.runner import MeasureRunner
+        self.base = MeasureRunner(reps=3, warmup=1, device="cuda")
+
+    backend_key = property(lambda self: self.base.backend_key)
+    device = property(lambda self: self.base.device)
+
+    def __call__(self, sites, tiles):
+        import numpy as np
+        from repro_torch.measure import timing
+        out = []
+        for site, t in zip(sites, tiles):
+            fn = self.base._build(site, t)
+            host = timing.median_time(fn, reps=self.base.reps,
+                                      warmup=self.base.warmup,
+                                      device=self.device)
+            with timing.card_lock(self.device):
+                dev = sum(device_ms_by_kernel(fn).values())
+            with open(os.environ["CHIP_SMOKE_PROFILE_OUT"], "a") as f:
+                f.write(json.dumps({
+                    "key": f"{site.key()}|{tuple(int(x) for x in t)}",
+                    "host_ms": host * 1e3, "device_ms": dev}) + "\n")
+            out.append(host)
+        return np.array(out, np.float64)
+
+
+def profiling_runner():
+    return ProfilingRunner()
 
 
 def _fire_once() -> bool:
@@ -1556,19 +1656,23 @@ def stop_daemon(proc, log, name: str) -> int:
     return rc
 
 
-def transports_path(ref_db, xl_scan, k3_inproc: dict):
+def transports_path(ref_db, xl_scan, k3_inproc: dict, ref_speedup: float,
+                    eager: dict):
     """Phase 9: the measured oracle's transports on the card, each checked
-    against phase 6's in-process run (its timing DB ``ref_db``).  (1) serve
-    --transport pool --workers 2 on StableLM-3B: the in-process keys, all
-    finite, health ok, the same backend, no launch in this process during
-    the fit, the injected prefill's launches and logits as phase 6's;
-    (2) --workers 1, and the per-pair ratios to the in-process times with
-    the fits' wall and spawn seconds; (3) K3 at xLSTM's chunk-scan site,
-    every chunk, in a pool of 2; (4) a worker's device-side assert, and a
-    ChaosRunner over the card; (5) the fleet: serve-worker and
-    serve-artifacts daemons, serve --transport socket against them, and a
-    warm rerun that times nothing.  Returns the launch counts by path
-    (the workers' own) and the numbers."""
+    against phase 6's in-process run (its timing DB ``ref_db``, its brute
+    pick's measured speedup ``ref_speedup``, its eager run of the same
+    weights and prompts ``eager``); every timing holds the card's lock.  (1) serve --transport pool --workers 2 on StableLM-3B:
+    the in-process keys, all finite, health ok, the same backend, no
+    launch in this process during the fit, the injected prefill's
+    launches and logits as phase 6's; (2) --workers 1, and the per-pair
+    ratios to the in-process times with the fits' wall, spawn seconds and
+    the workers' lock wait; (3) K3 at xLSTM's chunk-scan site, every
+    chunk, in a pool of 2; (4) a worker's device-side assert, and a
+    ChaosRunner over the card; (5) one worker against this process on the
+    same pairs, host-clock ms beside profiled device ms; (6) the fleet:
+    serve-worker and serve-artifacts daemons, serve --transport socket
+    against them, and a warm rerun that times nothing.  Returns the
+    launch counts by path (the workers' own) and the numbers."""
     import numpy as np
     import torch
     from repro_torch.configs.neurovec import DEFAULT
@@ -1602,7 +1706,8 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
         try:
             if workers == 2:
                 res, counts, _ = measured_path(STABLELM, agent="brute",
-                                               extra=extra, worker_dir=wdir)
+                                               extra=extra, worker_dir=wdir,
+                                               eager=eager)
             else:
                 argv = ["--arch", STABLELM, "--full", "--batch", str(BATCH),
                         "--prompt-len", str(PROMPT), "--gen", str(GEN),
@@ -1628,6 +1733,7 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
             "restarts": st["pool_worker_restarts_total"],
             "worker_launches": {k: wc[k] for k in
                                 ("matmul", "flash_attention", "chunk_scan")},
+            "lock": wc["timing_lock"],
             "measured_speedup": res.modelled_speedup}
         print(f"[transports] {label}: {st['transport_timed_pairs_total']} "
               f"pairs timed in the workers, fit and tune "
@@ -1636,7 +1742,11 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
               f"{st['pool_spawn_seconds_total']:.2f} s of handshakes summed "
               f"over the workers); {st['pool_worker_restarts_total']} "
               f"restarts; worker launches {out[label]['worker_launches']}; "
-              f"measured speedup {res.modelled_speedup:.3f}x", flush=True)
+              f"the card's lock: {wc['timing_lock']['acquires']} timed "
+              f"calls, {wc['timing_lock']['wait_s']:.2f} s waited and "
+              f"{wc['timing_lock']['held_s']:.2f} s held, summed over the "
+              f"workers; measured speedup {res.modelled_speedup:.3f}x "
+              f"(in process {ref_speedup:.3f}x)", flush=True)
         by_path[f"stablelm_3b pool workers={workers}: workers"] = wc
         if workers == 2:
             by_path["stablelm_3b pool workers=2: serving process"] = counts
@@ -1673,6 +1783,18 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
           flush=True)
     by_path["xlstm_1_3b K3 pool workers=2: workers"] = wc
     out["k3_pool_ms_by_chunk"] = {q: v * 1e3 for q, v in zip(legal, vals)}
+    out["k3_pool_lock"] = wc["timing_lock"]
+    # the lock's verdict: a pool of 2 against a pool of 1 and in process
+    r2, r1 = (out[f"pool workers={w}"]["ratio"]["median"] for w in (2, 1))
+    sp2 = out["pool workers=2"]["measured_speedup"]
+    out["verdict"] = {"pool2_over_pool1_median": r2 / r1,
+                      "pool2_speedup_over_inproc": sp2 / ref_speedup}
+    print(f"[transports] under the lock: pool of 2 median ratio {r2:.4f} "
+          f"against the pool of 1's {r1:.4f} ({r2 / r1:.4f}x; the target "
+          f"is within 1.10x); the pool of 2's brute pick measures "
+          f"{sp2:.3f}x against {ref_speedup:.3f}x in process "
+          f"({sp2 / ref_speedup:.4f}; the target is within 10%)",
+          flush=True)
 
     # (4) isolation: a device-side assert in a worker, then chaos
     sl_sites = extract_serve_sites(build_model(get_config(STABLELM)), BATCH,
@@ -1756,6 +1878,67 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
     for k in ("CHIP_SMOKE_MARK", "CHIP_SMOKE_FIRED", "CHIP_SMOKE_CHAOS_STATE"):
         os.environ.pop(k, None)
 
+    # (5) one worker against this process: host-clock ms beside the
+    # profiled device ms of the same pairs
+    prof = fresh_dir("gap_profile")
+    gap_pairs = pairs[::max(1, len(pairs) // 12)]
+    gap = {}
+    for where in ("inproc", "worker"):
+        os.environ["CHIP_SMOKE_PROFILE_OUT"] = str(prof / f"{where}.jsonl")
+        try:
+            if where == "inproc":
+                ProfilingRunner()([p[0] for p in gap_pairs],
+                                  np.array([p[1] for p in gap_pairs]))
+            else:
+                with WorkerPoolTransport(
+                        workers=1, factory="chip_smoke:profiling_runner",
+                        spawn_timeout=POOL_SPAWN_S,
+                        job_timeout=POOL_JOB_S) as t:
+                    [f.result() for f in t.submit(
+                        [p[0] for p in gap_pairs],
+                        np.array([p[1] for p in gap_pairs]))]
+        finally:
+            os.environ.pop("CHIP_SMOKE_PROFILE_OUT", None)
+        gap[where] = {r["key"]: r for r in map(
+            json.loads, (prof / f"{where}.jsonl").read_text().splitlines())}
+    keys = sorted(gap["inproc"])
+    empty = [f"{w} {k}" for w in gap for k in keys
+             if gap[w][k]["device_ms"] <= 0]
+    if empty:
+        fail(f"transports: the profiler saw no device time for "
+             f"{len(empty)} pair(s): {empty}")
+    def ratios(f):
+        return np.array([gap["worker"][k][f] / gap["inproc"][k][f]
+                         for k in keys])
+    host_r, dev_r = ratios("host_ms"), ratios("device_ms")
+    host_gap = np.array([gap["inproc"][k]["host_ms"]
+                         - gap["inproc"][k]["device_ms"] for k in keys])
+    out["one_worker_gap"] = {
+        "pairs": len(keys), "host_ratio_median": float(np.median(host_r)),
+        "device_ratio_median": float(np.median(dev_r)),
+        "inproc_host_over_device_ms_median": float(np.median(host_gap)),
+        "worker_host_over_device_ms_median": float(np.median(
+            [gap["worker"][k]["host_ms"] - gap["worker"][k]["device_ms"]
+             for k in keys]))}
+    print(f"[transports] one worker against this process on {len(keys)} "
+          f"StableLM pairs: host-clock ms ratio median "
+          f"{np.median(host_r):.4f} (p10 {np.quantile(host_r, 0.1):.4f}, "
+          f"p90 {np.quantile(host_r, 0.9):.4f}); profiled device ms ratio "
+          f"median {np.median(dev_r):.4f} (p10 "
+          f"{np.quantile(dev_r, 0.1):.4f}, p90 "
+          f"{np.quantile(dev_r, 0.9):.4f}); host ms beyond the device ms, "
+          f"median: in process "
+          f"{out['one_worker_gap']['inproc_host_over_device_ms_median']:.4f}"
+          f", worker "
+          f"{out['one_worker_gap']['worker_host_over_device_ms_median']:.4f}"
+          + "; by pair (host / device ms, in process | worker): "
+          + ", ".join(f"{k.split(':')[1]}{k.rsplit('|', 1)[1]} "
+                      f"{gap['inproc'][k]['host_ms']:.4f}/"
+                      f"{gap['inproc'][k]['device_ms']:.4f} | "
+                      f"{gap['worker'][k]['host_ms']:.4f}/"
+                      f"{gap['worker'][k]['device_ms']:.4f}"
+                      for k in keys), flush=True)
+
     # (5) the fleet on one host
     wdir = fresh_dir("launches_fleet")
     f_db, f_store = build_dir / "fleet_measure.jsonl", \
@@ -1777,16 +1960,19 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
                        "--measure-db", f"fleet://{a_addr}",
                        "--program-store", f"fleet://{a_addr}")
         res, counts, _ = measured_path(STABLELM, agent="brute",
-                                       extra=fleet_extra, worker_dir=wdir)
+                                       extra=fleet_extra, worker_dir=wdir,
+                                       eager=eager)
         values, n_quar = read_db(f_db)
         check_like_inproc("fleet", values, n_quar, ref, res)
         q = ratio_line("fleet (pool of 2 behind serve-worker)", values, ref)
         st = res.tuning["stats"]
+        wc = worker_counts(wdir)
         cold = {"timed": st["transport_timed_pairs_total"],
                 "fit_s": res.tuning["fit_s"],
                 "setup_s": res.tuning["oracle_setup_s"],
-                "store": res.tuning["store"], "ratio": q}
-        wc = worker_counts(wdir)
+                "store": res.tuning["store"], "ratio": q,
+                "lock": wc["timing_lock"],
+                "measured_speedup": res.modelled_speedup}
         del res
         argv = ["--arch", STABLELM, "--full", "--batch", str(BATCH),
                 "--prompt-len", str(PROMPT), "--gen", str(GEN),
@@ -1796,7 +1982,9 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
         wst, store = warm.tuning["stats"], warm.tuning["store"]
         print(f"[transports] fleet: cold run {cold['timed']} pairs timed on "
               f"the serve-worker in {cold['fit_s']:.2f} s (setup "
-              f"{cold['setup_s']:.2f} s), worker launches {wc}; warm rerun "
+              f"{cold['setup_s']:.2f} s), measured speedup "
+              f"{cold['measured_speedup']:.3f}x, worker launches {wc}; warm "
+              f"rerun "
               f"{wst['transport_timed_pairs_total']} pairs timed, "
               f"{wst['transport_hits_total']} DB hits, program store "
               f"{store['hits']} hits / {store['misses']} misses, "
@@ -1822,6 +2010,225 @@ def transports_path(ref_db, xl_scan, k3_inproc: dict):
     by_path["stablelm_3b fleet: serving process"] = counts
     torch.cuda.empty_cache()
     return by_path, out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the learned cost model on the card
+# ---------------------------------------------------------------------------
+
+PRUNE_TOPK = 4
+RETIME_ROUNDS = 5
+
+
+def _avg_ranks(x):
+    import numpy as np
+    order = np.argsort(x, kind="stable")
+    ranks = np.empty(len(x), np.float64)
+    ranks[order] = np.arange(len(x), dtype=np.float64)
+    xs = x[order]
+    i = 0
+    while i < len(xs):          # ties share their mean rank
+        j = i
+        while j + 1 < len(xs) and xs[j + 1] == xs[i]:
+            j += 1
+        ranks[order[i:j + 1]] = (i + j) / 2.0
+        i = j + 1
+    return ranks
+
+
+def spearman(a, b) -> float:
+    """Spearman's rho over the entries finite in both, with tied entries
+    sharing their mean rank; nan below 3 such entries."""
+    import numpy as np
+    ok = np.isfinite(a) & np.isfinite(b)
+    if ok.sum() < 3:
+        return float("nan")
+    ra, rb = _avg_ranks(a[ok]), _avg_ranks(b[ok])
+    ra, rb = ra - ra.mean(), rb - rb.mean()
+    d = np.sqrt((ra ** 2).sum() * (rb ** 2).sum())
+    return float((ra * rb).sum() / d) if d else float("nan")
+
+
+def retime_programs(sites, programs: dict) -> dict:
+    """Each site's baseline tile and each program's tile, timed by one
+    runner in this process in ``RETIME_ROUNDS`` interleaved rounds (each
+    a median of 3 under the card's lock); per program the summed
+    baseline seconds over its summed seconds, as ``program_speedup``
+    aggregates."""
+    import numpy as np
+    from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.measure import timing
+    from repro_torch.measure.runner import MeasureRunner
+    runner = MeasureRunner(reps=3, warmup=1, device="cuda")
+    tot = {name: 0.0 for name in ("baseline", *programs)}
+    for s in sites:
+        want = {"baseline": tuple(baseline_tiles(s))}
+        want.update({n: tuple(p.tiles[s.key()]) for n, p in programs.items()})
+        want = {n: (t + (1, 1, 1))[:3] for n, t in want.items()}
+        fns = {t: runner._build(s, t) for t in set(want.values())}
+        for fn in fns.values():
+            timing.median_time(fn, reps=1, warmup=1, device=runner.device)
+        times = {t: [] for t in fns}
+        for _ in range(RETIME_ROUNDS):
+            for t, fn in fns.items():
+                times[t].append(timing.median_time(
+                    fn, reps=3, warmup=0, device=runner.device))
+        for n, t in want.items():
+            tot[n] += float(np.median(times[t]))
+    return {n: tot["baseline"] / tot[n] for n in programs}
+
+
+def surrogate_path(sl, p5_db):
+    """Phase 10: the learned cost model on the card.  (a) ``train_from_db``
+    on the in-process timings of phase 5's two measured fits (Qwen3-8B and
+    xLSTM-1.3B, K3's chunks among them); StableLM-3B's are held out.
+    (b) Per StableLM-3B site, Spearman's rho of the surrogate's and of
+    the analytic model's prices against phase 6's measured grid.  (c)
+    ``serve --autotune brute --measured --prune-topk 4 --surrogate DIR
+    --inject`` at full width: timed against phase 6's pairs, surrogate-
+    priced pairs, the fit's wall, best tiles matching full brute force,
+    the pruned and full picks re-timed interleaved in this process, and
+    the injected prefill against eager.  (d) PPO fitted against
+    ``oracle="surrogate"`` with phase 6's settings, its program priced by
+    phase 6's timings beside PPO's on the cost model.  Returns the pruned
+    serve's launch counts and the numbers."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from repro_torch.api import NeuroVectorizer
+    from repro_torch.configs import get_config
+    from repro_torch.configs.neurovec import DEFAULT, NeuroVecConfig
+    from repro_torch.core import costmodel_vec, dataset
+    from repro_torch.core.env import ActionSpace
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.core.vectorizer import TileProgram, program_speedup
+    from repro_torch.measure import make_key, make_measured_env
+    from repro_torch.models.lm import build_model
+    from repro_torch.surrogate import build_corpus, save_surrogate, \
+        train_from_db
+    out = {}
+    # (a) the corpus of phase 5, trained on the card
+    t0 = time.perf_counter()
+    model = train_from_db(str(p5_db), device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    if model is None:
+        fail(f"surrogate: phase 5's DB {p5_db} is too cold to train on")
+    corpus = build_corpus(str(p5_db), backend=model.backend)
+    kinds = dict(Counter(s.kind for s in corpus.sites))
+    if not kinds.get("chunk_scan") or not kinds.get("matmul"):
+        fail(f"surrogate: the corpus lacks K1 or K3 pairs: {kinds}")
+    ckpt = ROOT / "build" / "surrogate_ckpt"
+    save_surrogate(model, str(ckpt))
+    out["train"] = {"pairs": len(corpus.y), "by_kind": kinds,
+                    "backend": model.backend, "ensemble": model.ensemble,
+                    "hidden": model.hidden, "train_s": train_s}
+    print(f"[surrogate] corpus: {len(corpus.y)} pairs of phase 5's "
+          f"Qwen3-8B and xLSTM-1.3B fits ({kinds}), backend "
+          f"{model.backend}; ensemble of {model.ensemble} tanh MLPs "
+          f"{model.hidden} trained on {model.device} in {train_s:.2f} s "
+          f"(500 full-batch AdamW steps each); StableLM-3B held out",
+          flush=True)
+    # (b) rank agreement with phase 6's measured grid
+    sites = extract_serve_sites(build_model(get_config(STABLELM)), BATCH,
+                                PROMPT, GEN)
+    ref, _ = read_db(sl["db"])
+    backend = next(iter(ref)).rsplit("|", 1)[1]
+    space = ActionSpace(DEFAULT)
+    rho = {"surrogate": {}, "analytic": {}}
+    for s in sites:
+        grid = costmodel_vec.action_tiles_grid(space, s.kind)
+        meas = np.array([ref.get(make_key(s.key(), t, backend), np.inf)
+                         for t in grid])
+        label = f"{s.site}@m{s.m}"
+        rho["surrogate"][label] = spearman(meas, model.predict_seconds(
+            [s] * len(grid), grid, "h100"))
+        rho["analytic"][label] = spearman(meas, costmodel_vec.costs_for_tiles(
+            [s] * len(grid), grid, "h100"))
+    means = {k: float(np.nanmean(list(v.values()))) for k, v in rho.items()}
+    out["spearman"] = {"per_site": rho, "mean": means}
+    print(f"[surrogate] Spearman rho against phase 6's measured grid, "
+          f"StableLM-3B, per site (surrogate / analytic): " + ", ".join(
+              f"{k} {rho['surrogate'][k]:.3f}/{rho['analytic'][k]:.3f}"
+              for k in rho["surrogate"]) + f"; mean surrogate "
+          f"{means['surrogate']:.4f}, analytic {means['analytic']:.4f}",
+          flush=True)
+    # (c) the pruned brute-force fit at full width
+    db = ROOT / "build" / "pruned_measure.jsonl"
+    db.unlink(missing_ok=True)
+    res, counts, _ = measured_path(
+        STABLELM, agent="brute",
+        extra=("--measure-db", str(db), "--prune-topk", str(PRUNE_TOPK),
+               "--surrogate", str(ckpt)), eager=sl["eager"])
+    tun = res.tuning
+    timed = tun["stats"]["transport_timed_pairs_total"]
+    over = {k: p["n_timed"] for k, p in tun["picks"].items()
+            if p["n_timed"] > PRUNE_TOPK + 1}
+    if timed >= sl["ref_pairs"] or tun["pruned_pairs"] == 0 or over:
+        fail(f"surrogate: the pruned fit timed {timed} pairs (full "
+             f"{sl['ref_pairs']}), priced {tun['pruned_pairs']}, sites "
+             f"over {PRUNE_TOPK + 1}: {over}")
+    full = TileProgram(dict(sl["brute_tiles"]))
+    match = {f"{s.site}@m{s.m}": tuple(res.prog.tiles[s.key()])
+             == tuple(full.tiles[s.key()]) for s in sites}
+    eager_logits = sl["eager"]["logits"]
+    rel = float((res.prefill_logits - eager_logits).abs().max()
+                / eager_logits.abs().max())
+    retimed = retime_programs(sites, {"full": full, "pruned": res.prog})
+    out["pruned"] = {
+        "topk": PRUNE_TOPK, "timed": timed, "full_timed": sl["ref_pairs"],
+        "priced": tun["pruned_pairs"], "fit_s": tun["fit_s"],
+        "setup_s": tun["oracle_setup_s"], "best_tile_matches": sum(
+            match.values()), "sites": len(sites), "match_by_site": match,
+        "speedup_own_timings": res.modelled_speedup,
+        "retimed_speedup": retimed, "prefill_ms": res.prefill_ms,
+        "prefill_ms_runs": res.prefill_ms_runs, "logits_rel": rel}
+    print(f"[surrogate] pruned brute force (top-{PRUNE_TOPK}): {timed} "
+          f"pairs timed against phase 6's {sl['ref_pairs']}, "
+          f"{tun['pruned_pairs']} surrogate-priced, fit and tune "
+          f"{tun['fit_s']:.2f} s (oracle setup {tun['oracle_setup_s']:.2f} "
+          f"s); best tile as full brute force's at {sum(match.values())} "
+          f"of {len(sites)} sites; re-timed interleaved in this process "
+          f"({RETIME_ROUNDS} rounds): pruned pick {retimed['pruned']:.3f}x, "
+          f"full pick {retimed['full']:.3f}x over the baseline tiles "
+          f"(by its own timings {res.modelled_speedup:.3f}x); injected "
+          f"prefill {res.prefill_ms:.2f} ms, logits {rel:.4e} off eager "
+          f"(tol {LOGIT_TOL})", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    # (d) PPO against the surrogate oracle, priced by phase 6's timings
+    corpus_sites = dataset.generate(LOOP_CORPUS, seed=0, base=sites)
+    t0 = time.perf_counter()
+    with NeuroVectorizer(NeuroVecConfig(**LOOP_NV), agent="ppo",
+                         oracle="surrogate", surrogate=str(ckpt),
+                         lr=LOOP_LR, seed=0) as nv:
+        nv.fit(corpus_sites, total_steps=LOOP_STEPS)
+        prog = nv.tune_sites(sites)
+        sur_sp = nv.speedup(prog, sites)
+    fit_s = time.perf_counter() - t0
+    menv = make_measured_env(DEFAULT, db_path=str(sl["db"]), device="cuda",
+                             legality="h100")
+    ppo_sp = program_speedup(prog, sites, menv)
+    st = menv.measure_fn.transport.stats()
+    menv.measure_fn.transport.close()
+    out["ppo_surrogate"] = {
+        "fit_s": fit_s, "surrogate_speedup": sur_sp,
+        "measured_speedup": ppo_sp,
+        "ppo_cost_model_measured_speedup": sl["ppo_measured_speedup"],
+        "brute_measured_speedup": sl["brute_measured_speedup"],
+        "timed_anew": st["transport_timed_pairs_total"]}
+    print(f"[surrogate] PPO ({LOOP_STEPS} steps on the corpus) against "
+          f"oracle='surrogate': fit and tune {fit_s:.1f} s, surrogate-"
+          f"priced speedup {sur_sp:.3f}x; measured on the H100 (phase 6's "
+          f"timings, {st['transport_timed_pairs_total']} pairs timed anew) "
+          f"{ppo_sp:.3f}x, beside PPO on the cost model "
+          f"{sl['ppo_measured_speedup']:.3f}x and brute force "
+          f"{sl['brute_measured_speedup']:.3f}x; tiles: " + ", ".join(
+              f"{s.site}@M={s.m}:{tuple(prog.tiles[s.key()])}"
+              for s in sites), flush=True)
+    torch.cuda.empty_cache()
+    return counts, out
 
 
 def sass_check() -> None:
@@ -1882,6 +2289,14 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.models.lm import build_model
 
+    walls, t_phase = {}, time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        walls[name] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        print(f"[timing] phase {name}: {walls[name]:.1f} s", flush=True)
+
     # ---- phase 1: device ----
     smi, kind, count = _device_info()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1902,6 +2317,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build:{name}] {line.strip()}")
     sass_check()
+    phase_done("1-2 device and build")
 
     # ---- phase 3: kernels vs plain ----
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1920,9 +2336,10 @@ def main() -> int:
                                    PROMPT, GEN)
     xl_scan = next(s for s in xl_sites if s.kind == "chunk_scan")
     k3, k3_mamba = k3_checks(xl_scan, gen)
+    phase_done("3 kernels")
 
     # ---- phase 4: the modelled main path ----
-    res, counts = main_path()
+    res, counts, q_eager = main_path()
     prog = res.prog.tiles
     k1_tuned, per_site_launches = {}, {}
     for s in res.sites:          # each matmul site at its own tuned tile
@@ -1942,15 +2359,21 @@ def main() -> int:
     params, prompts = res.params, res.prompts
     del res, model
     torch.cuda.empty_cache()
+    phase_done("4 modelled path")
 
-    # ---- phase 5: the measured main paths ----
+    # ---- phase 5: the measured main paths (their timings kept in one DB,
+    # phase 10's training corpus) ----
+    p5_db = ROOT / "build" / "phase5_measure.jsonl"
+    p5_db.unlink(missing_ok=True)
+    p5_extra = ("--measure-db", str(p5_db))
     by_path = {"qwen3_8b modelled": counts}
-    q_res, by_path["qwen3_8b measured"], _ = measured_path(ARCH, params,
-                                                           prompts)
-    del q_res, params, prompts
+    q_res, by_path["qwen3_8b measured"], _ = measured_path(
+        ARCH, params, prompts, extra=p5_extra, eager=q_eager)
+    del q_res, params, prompts, q_eager
     torch.cuda.empty_cache()
-    x_res, by_path["xlstm_1_3b measured"], x_eager = measured_path(XLSTM)
-    xlstm_model_checks(x_res, x_eager)
+    x_res, by_path["xlstm_1_3b measured"], x_eager = measured_path(
+        XLSTM, extra=p5_extra)
+    xlstm_model_checks(x_res, x_eager["logits"])
     del x_eager
     # K1 at each xLSTM shape it runs (the mLSTM q/k/v einsums never reach
     # it), under the baseline and the tuned tile
@@ -1981,6 +2404,7 @@ def main() -> int:
           flush=True)
     del x_res
     torch.cuda.empty_cache()
+    phase_done("5 measured paths")
 
     # ---- phase 6: the main-path loop on StableLM-3B ----
     sl = stablelm_path(gen)
@@ -1989,20 +2413,33 @@ def main() -> int:
     if sl["t_att"] not in k2_d80:
         fail(f"StableLM's tuned attention tile {sl['t_att']} was not "
              f"checked at D = 80")
+    phase_done("6 StableLM loop")
 
     # ---- phase 8: the facade (before the kernels line: its launches
     # count into the line's) ----
     by_path["stablelm_3b facade"], facade = facade_path()
     print("[facade] summary " + json.dumps(facade, default=str), flush=True)
+    phase_done("8 facade")
 
     # ---- phase 9: the transports on the card (before the kernels line:
     # the launches its workers reported count into the line's) ----
     t0 = time.perf_counter()
-    t_paths, transports = transports_path(sl["db"], xl_scan, by_q)
+    t_paths, transports = transports_path(sl["db"], xl_scan, by_q,
+                                          sl["brute_measured_speedup"],
+                                          sl["eager"])
     by_path.update(t_paths)
     transports["wall_s"] = time.perf_counter() - t0
     print("[transports] summary " + json.dumps(transports, default=str),
           flush=True)
+    phase_done("9 transports")
+
+    # ---- phase 10: the learned cost model (before the kernels line: the
+    # pruned serve's launches count into the line's) ----
+    by_path["stablelm_3b pruned brute measured"], sur = surrogate_path(
+        sl, p5_db)
+    print("[surrogate] summary " + json.dumps(sur, default=str), flush=True)
+    phase_done("10 surrogate")
+    print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
 

@@ -17,10 +17,13 @@ behind the :class:`Oracle` protocol::
 Swap ``agent="ppo"`` for any registry name (``dtree`` / ``nns`` /
 ``brute`` / ``random`` / ``polly`` / ``baseline``), or the default
 cost-model oracle for ``oracle="measured"``: rewards then come from the
-card's timings of the kernels themselves.  ``nv.save(dir)`` writes the
-reference's facade artifact and ``NeuroVectorizer.load(dir)`` re-assembles
-it; ``program_store=`` memoizes finished programs, so tuning a site set
-seen before is a lookup.
+card's timings of the kernels themselves; ``prune_topk=N`` times only
+the top-N tiles a learned cost model ranks (``repro_torch.surrogate``),
+and ``oracle="surrogate"`` prices every query with that model.
+``nv.save(dir)`` writes the reference's facade artifact and
+``NeuroVectorizer.load(dir)`` re-assembles it; ``program_store=``
+memoizes finished programs, so tuning a site set seen before is a
+lookup.
 
 Timings may run in this process, in a pool of subprocess workers
 (``transport="pool", workers=N``) or on remote ``serve-worker`` daemons
@@ -28,9 +31,8 @@ Timings may run in this process, in a pool of subprocess workers
 ``db_path`` or ``program_store`` attaches the shared artifact service.
 
 The facade runs on the card unless ``device="cpu"`` is asked for; without
-CUDA it raises.  The reference's surrogate oracle and grid pruning, the
-tuning service and ``AsyncOracle`` are not ported yet: each option naming
-one raises ``NotImplementedError``.
+CUDA it raises.  The reference's tuning service and ``AsyncOracle`` are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -59,11 +61,15 @@ from repro_torch.core.vectorizer import (TileProgram, baseline_program,
                                          inject, program_speedup)
 from repro_torch.device import resolve_device
 from repro_torch.measure import (TRANSPORT_NAMES, MeasureRunner,
-                                 make_measured_env, make_transport)
+                                 make_measured_env, make_transport,
+                                 open_measure_db, resolve_surrogate)
 from repro_torch.obs import (MetricsRegistry, ObsHandle, Tracer,
                              get_registry, instrument_oracle_stack,
                              instrument_program_store, resolve_obs,
                              to_chrome_trace)
+from repro_torch.surrogate import (SurrogateModel, SurrogateOracle,
+                                   load_surrogate, save_surrogate,
+                                   train_from_db)
 
 __all__ = [
     "NeuroVectorizer",
@@ -77,14 +83,11 @@ __all__ = [
     "ArtifactError", "save_agent", "load_agent", "agent_fingerprint",
     "ProgramStore", "program_key",
     "MetricsRegistry", "get_registry", "Tracer", "to_chrome_trace",
+    "SurrogateModel", "SurrogateOracle", "train_from_db",
+    "save_surrogate", "load_surrogate", "resolve_surrogate",
 ]
 
 _FACADE_FORMAT = "neurovectorizer-facade"
-_LATER = "ROADMAP queue 1 item 3"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({_LATER})")
 
 
 def _runner_options() -> set:
@@ -115,15 +118,26 @@ class NeuroVectorizer:
                                                 (``SocketTransport``)
     ``"measured"``      a ``MeasureTransport``  timings through your
                                                 transport (borrowed)
+    ``"surrogate"``     (must be unset)         the learned cost model
+                                                (``SurrogateOracle``),
+                                                trained from ``db_path``
+                                                or loaded via
+                                                ``surrogate=``
     an ``Oracle``       (must be unset)         your oracle, verbatim
     ==================  ======================  ===========================
 
-    ``oracle="surrogate"``, ``prune_topk=`` and ``surrogate=`` raise
-    ``NotImplementedError``.
+    ``oracle="measured"`` also takes ``prune_topk=N`` and ``surrogate=``
+    (a trained ``SurrogateModel``, a checkpoint dir, or ``None`` to train
+    one from the DB): the surrogate ranks each site's legal grid, only the
+    top-N candidates and the baseline tile are timed, and the rest are
+    priced by the surrogate (``oracle.pruned_pairs`` counts them).  The
+    surrogate oracle and the pruner refuse tiles under the port's launch
+    rule (``legality="h100"``), as the default oracle does.
 
     ``device`` (default ``"cuda"``) is where PPO's network, the default
-    embedder of ``nns``/``dtree`` and the measuring runner live (each pool
-    worker's too; a socket fleet's runners are configured on its hosts);
+    embedder of ``nns``/``dtree``, the surrogate and the measuring runner
+    live (each pool worker's too; a socket fleet's runners are configured
+    on its hosts);
     without CUDA a ``"cuda"`` facade raises.  ``db_path`` keeps the
     measured oracle's timings (a repeat run times nothing; a
     ``fleet://host:port`` path attaches the shared store);
@@ -156,12 +170,6 @@ class NeuroVectorizer:
                  trace: Union[str, Tracer, None] = None,
                  device="cuda",
                  **agent_kwargs):
-        # the options whose layers the port lacks fail loudly, first
-        if oracle == "surrogate":
-            raise _not_ported("oracle='surrogate' (the learned cost model)")
-        if surrogate is not None or prune_topk is not None:
-            raise _not_ported("surrogate grid pruning (prune_topk=, "
-                              "surrogate=)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._owns_oracle = False
@@ -176,21 +184,49 @@ class NeuroVectorizer:
                 runner_kwargs = {"device": str(self.device), **runner_kwargs}
             self.oracle: Oracle = make_measured_env(
                 cfg, db_path=db_path, seed=seed, transport=transport,
-                workers=workers, hosts=hosts, **runner_kwargs)
+                workers=workers, hosts=hosts, prune_topk=prune_topk,
+                surrogate=surrogate, surrogate_device=str(self.device),
+                **runner_kwargs)
             # a borrowed MeasureTransport instance is not ours to close
             self._owns_oracle = transport is None or isinstance(transport,
                                                                 str)
+        elif oracle == "surrogate":
+            if oracle_kwargs or transport is not None or \
+                    workers is not None or hosts is not None:
+                raise ValueError("oracle_kwargs/transport/workers/hosts "
+                                 "apply only to oracle='measured'")
+            if prune_topk is not None:
+                raise ValueError("prune_topk applies only to "
+                                 "oracle='measured' (a surrogate oracle "
+                                 "performs no measurements to prune)")
+            db = open_measure_db(db_path) if db_path else None
+            try:
+                model = resolve_surrogate(surrogate, db=db,
+                                          device=str(self.device))
+            finally:
+                if db is not None:
+                    db.close()
+            if model is None:
+                raise ValueError(
+                    "oracle='surrogate' needs a trained model: pass "
+                    "surrogate= (a SurrogateModel or checkpoint dir) or "
+                    "db_path= pointing at a MeasureDB with enough finite "
+                    "records to train from")
+            self.oracle = SurrogateOracle(cfg, model, seed=seed)
         else:
             if db_path is not None or oracle_kwargs or \
                     transport is not None or workers is not None or \
                     hosts is not None:
                 raise ValueError("db_path/oracle_kwargs/transport/workers/"
                                  "hosts apply only to oracle='measured'")
+            if prune_topk is not None or surrogate is not None:
+                raise ValueError("prune_topk/surrogate apply only to "
+                                 "oracle='measured' or oracle='surrogate'")
             if oracle is None or oracle == "model":
                 self.oracle = CostModelEnv(cfg, seed=seed)
             elif isinstance(oracle, str):
                 raise ValueError(f"unknown oracle {oracle!r}: expected "
-                                 f"'model' or 'measured'")
+                                 f"'model', 'measured', or 'surrogate'")
             else:
                 self.oracle = oracle
         self.agent: Agent = (make_agent(agent, cfg, seed=seed,
@@ -216,7 +252,12 @@ class NeuroVectorizer:
             "workers": workers, "db_path": db_path,
             "hosts": list(hosts) if hosts else None,
             "oracle_kwargs": dict(oracle_kwargs or {}), "seed": seed,
-            "prune_topk": None, "surrogate": None,
+            "prune_topk": prune_topk,
+            # a live SurrogateModel is not serializable: a measured facade
+            # retrains from the DB on load, a surrogate facade needs
+            # surrogate= passed again
+            "surrogate": (surrogate if isinstance(surrogate, str)
+                          or surrogate is None else "custom"),
         }
         self._obs = ObsHandle(self.registry)
         self._obs.adopt(instrument_oracle_stack(self.oracle, self.registry,
@@ -377,8 +418,10 @@ class NeuroVectorizer:
         saver's were hand-built.  ``device`` is this process's.  A
         measured recipe whose ``oracle_kwargs`` hold an option the port's
         runner lacks (the reference's ``interpret``, ``max_dim``) raises
-        :class:`ArtifactError` naming it; a recipe that names an unported
-        layer (a surrogate) raises ``NotImplementedError``."""
+        :class:`ArtifactError` naming it.  A recipe saved around a live
+        ``SurrogateModel`` (``"custom"``) retrains from the DB under
+        ``oracle="measured"``, and needs ``surrogate=`` under
+        ``oracle="surrogate"``."""
         path = str(path)
         if not os.path.exists(os.path.join(path, "manifest.json")):
             raise ArtifactError(f"no restorable facade artifact at "
@@ -419,6 +462,15 @@ class NeuroVectorizer:
                   "oracle_kwargs": spec["oracle_kwargs"] or None,
                   "prune_topk": (spec.get("prune_topk")
                                  if prune_topk is None else prune_topk),
+                  "surrogate": surrogate}
+        elif oracle == "surrogate":
+            if spec_sur == "custom" and surrogate is None:
+                raise ArtifactError(
+                    "this artifact was saved around a live SurrogateModel "
+                    "instance, which cannot be re-assembled automatically "
+                    "— pass surrogate= (a model or checkpoint dir) to "
+                    "load()")
+            kw = {"db_path": spec["db_path"] if db_path is None else db_path,
                   "surrogate": surrogate}
         merged_kwargs = {**spec["agent_kwargs"], **agent_kwargs}
         nv = cls(cfg, agent=spec["agent"] if agent is None else agent,

@@ -7,7 +7,10 @@ same structure: each period slot's leaves stacked along a leading layer
 axis (``repro/models/lm.py:44-58``), every matmul weight ``w(K, N)`` with
 the same meaning.  So the map is exact: the same numbers, no transposes.
 ``embedder_from_jax(np_params)`` does the same for the code2vec
-embedder's four leaves.
+embedder's four leaves, and ``surrogate_from_jax(state)`` for a trained
+surrogate: the reference's ``SurrogateModel.state_dict()`` (its weights
+``w(in, out)`` as the port stores them) becomes a port model computing
+the same function.
 """
 from __future__ import annotations
 
@@ -62,3 +65,16 @@ def params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
     dev = resolve_device(device)
     ref = build_model(cfg).init(device="meta")
     return _map(ref, np_params, "params", dev)
+
+
+def surrogate_from_jax(state: dict, device="cuda"):
+    """A :class:`~repro_torch.surrogate.model.SurrogateModel` holding the
+    numbers of a reference ``SurrogateModel.state_dict()`` (numpy arrays;
+    weights f32, normalization statistics f64), on the card unless
+    ``device="cpu"`` is asked for."""
+    from repro_torch.surrogate.model import SurrogateModel
+    state = dict(state)
+    state["params"] = [[{"w": np.asarray(l["w"], np.float32),
+                         "b": np.asarray(l["b"], np.float32)}
+                        for l in member] for member in state["params"]]
+    return SurrogateModel.from_state(state, device=device)

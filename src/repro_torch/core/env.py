@@ -210,13 +210,22 @@ class MeasuredEnv(CostModelEnv):
     ``"tpu_v5e"`` the reference's VMEM rule filters, as in the reference.
     With ``measure_fn=None`` every query is priced by the cost model.
 
+    Grid pruning (``prune_topk`` and ``surrogate``): with a trained
+    surrogate attached, each site's tile grid, legal under ``legality``,
+    is ranked by predicted runtime once, and only the top-k candidates,
+    plus the heuristic baseline tile (eq. 2 stays measured against
+    measured), are ever sent to the hook; every other pair is priced by
+    the surrogate (``surrogate.predict_seconds(sites, tiles, legality)``,
+    see :mod:`repro_torch.surrogate`).  Surrogate-priced values never
+    reach the hook, so they are never written to a timing DB, and
+    :meth:`timed_tiles` leaves them out.  ``pruned_pairs`` counts them.
+
     Circuit breaker: when the hook raises, or ``BREAKER_THRESHOLD``
     consecutive batches come back with every pair failed, the breaker
     opens and the oracle prices with the cost model instead of feeding
     all-penalty rewards into training; ``health()`` is ``"degraded"``
     while it is open, and cached failures from the collapse are purged.
-    It stays open until :meth:`reset_breaker`.  (The reference's surrogate
-    grid pruning is not ported yet.)
+    It stays open until :meth:`reset_breaker`.
     """
 
     #: a down transport degrades this oracle rather than stopping tuning
@@ -227,9 +236,16 @@ class MeasuredEnv(CostModelEnv):
 
     def __init__(self, nv_cfg: NeuroVecConfig, measure_fn=None,
                  seed: int = 0,
-                 legality: str = costmodel.DEFAULT_LEGALITY):
+                 legality: str = costmodel.DEFAULT_LEGALITY,
+                 prune_topk: Optional[int] = None, surrogate=None):
         super().__init__(nv_cfg, seed=seed, legality=legality)
+        if prune_topk is not None and prune_topk < 1:
+            raise ValueError(f"prune_topk must be >= 1, got {prune_topk}")
         self.measure_fn = measure_fn
+        self.prune_topk = prune_topk
+        self.surrogate = surrogate
+        self._allowed_cache: Dict[str, frozenset] = {}
+        self._priced: set = set()       # keys priced by the surrogate
         self.breaker_open = False
         self.degraded_reason: Optional[str] = None
         self._consec_failed_batches = 0
@@ -237,9 +253,11 @@ class MeasuredEnv(CostModelEnv):
                                  float] = {}
         self.measure_calls = 0          # hook invocations
         self.measured_pairs = 0         # (site, tile) pairs sent to the hook
+        self.pruned_pairs = 0           # pairs priced by the surrogate
 
     def clear_result_cache(self) -> None:
         self._result_cache.clear()
+        self._priced.clear()
 
     def health(self) -> str:
         return "degraded" if self.breaker_open else "ok"
@@ -261,10 +279,42 @@ class MeasuredEnv(CostModelEnv):
 
     def timed_tiles(self, site: KernelSite) -> Dict[Tuple[int, ...], float]:
         """Every tile of ``site`` this oracle holds a finite price for
-        (measured, or modelled while degraded), with its seconds."""
+        (measured, or modelled while degraded; not surrogate-priced), with
+        its seconds."""
         key = site.key()
         return {t: v for (k, t), v in self._result_cache.items()
-                if k == key and math.isfinite(v)}
+                if k == key and math.isfinite(v)
+                and (k, t) not in self._priced}
+
+    # -- surrogate grid pruning ---------------------------------------------
+    @property
+    def prune_active(self) -> bool:
+        """Pruning needs a budget, a trained surrogate and a measurement
+        path to save work on."""
+        return (self.prune_topk is not None and self.surrogate is not None
+                and self.measure_fn is not None)
+
+    def _allowed_tiles(self, site: KernelSite) -> frozenset:
+        """The measurable tile set of ``site``: the surrogate's top-k of
+        the action grid legal under this env's ``legality`` (the
+        reference ranks the grid legal under the TPU rule; here a slot
+        never goes to a tile the kernels cannot launch), plus the
+        heuristic baseline tile.  Ranked once per site."""
+        key = site.key()
+        allowed = self._allowed_cache.get(key)
+        if allowed is None:
+            grid = costmodel_vec.action_tiles_grid(self.space, site.kind)
+            legal = np.flatnonzero(np.isfinite(costmodel_vec.costs_for_tiles(
+                [site] * len(grid), grid, self.legality)))
+            pred = np.asarray(self.surrogate.predict_seconds(
+                [site] * len(legal), grid[legal], self.legality), np.float64)
+            top = legal[np.argsort(pred, kind="stable")[:self.prune_topk]]
+            base = costmodel_vec.baseline_tiles_batch([site])[0]
+            allowed = frozenset(
+                [tuple(int(x) for x in grid[i]) for i in top]
+                + [tuple(int(x) for x in base)])
+            self._allowed_cache[key] = allowed
+        return allowed
 
     # -- the measured cost of explicit tiles --------------------------------
     def _measured_costs(self, sites, tiles) -> np.ndarray:
@@ -287,6 +337,21 @@ class MeasuredEnv(CostModelEnv):
                                                  self.legality)
             if self.measure_fn is not None and not self.breaker_open:
                 legal = np.flatnonzero(np.isfinite(vals))
+                if len(legal) and self.prune_active:
+                    # only each site's top-k candidates (and its baseline
+                    # tile) reach the hook; the surrogate prices the rest
+                    keep = np.array(
+                        [tuple(int(x) for x in m_tiles[j])
+                         in self._allowed_tiles(m_sites[j])
+                         for j in legal], bool)
+                    pruned = legal[~keep]
+                    if len(pruned):
+                        vals[pruned] = self.surrogate.predict_seconds(
+                            [m_sites[j] for j in pruned], m_tiles[pruned],
+                            self.legality)
+                        self.pruned_pairs += len(pruned)
+                        self._priced.update(keys[miss[j]] for j in pruned)
+                    legal = legal[keep]
                 if len(legal):
                     try:
                         raw = self.measure_fn(

@@ -157,8 +157,10 @@ class FrameServer:
                                      args=(stream,),
                                      name=f"fleet-conn-{self.port}",
                                      daemon=True)
+                # started under the lock, so close() never joins a
+                # thread it finds listed before it has started
+                t.start()
                 self._threads.append(t)
-            t.start()
 
     def _run_handler(self, stream: SocketStream) -> None:
         try:

@@ -25,7 +25,12 @@ eq. 2; ``repro_torch.measure``), on the card, or of their plain versions
 at capped shapes with ``--device cpu``; ``--autotune brute --measured``
 times every legal tile of every site and takes the fastest.
 ``--measure-db PATH`` keeps the timings, so a repeat run times nothing;
-``--measure-reps`` sets the timing repetitions per pair.  ``--transport
+``--measure-reps`` sets the timing repetitions per pair.  ``--prune-topk
+N`` times only each site's N tiles a learned cost model ranks fastest
+(and its baseline tile) and prices the rest with that model
+(``repro_torch.surrogate``): the model is ``--surrogate DIR``, or is
+trained from ``--measure-db``'s records (too few, and pruning stays
+inactive).  ``--transport
 pool --workers N`` times in N subprocess workers, each with its own CUDA
 context (a kernel that crashes or poisons its context costs a worker, not
 this process); ``--transport socket --hosts a:7761,b:7761`` ships the
@@ -122,6 +127,15 @@ def parse_args(argv=None):
                          "against the same path time nothing)")
     ap.add_argument("--measure-reps", type=int, default=3,
                     help="timing repetitions per (site, tile) pair")
+    ap.add_argument("--prune-topk", type=int, default=None,
+                    help="with --measured: only each site's top-K "
+                         "surrogate-ranked tile candidates are timed; the "
+                         "rest are priced by the learned cost model "
+                         "(repro_torch.surrogate, trained from "
+                         "--measure-db)")
+    ap.add_argument("--surrogate", default=None,
+                    help="surrogate checkpoint directory for --prune-topk "
+                         "(default: train from the measurement DB)")
     ap.add_argument("--transport", choices=("inproc", "pool", "socket"),
                     default="inproc",
                     help="how measurements execute: this process, a "
@@ -163,6 +177,12 @@ def parse_args(argv=None):
         ap.error(f"--measure-reps must be >= 1, got {args.measure_reps}")
     if args.measure_db and not args.measured:
         ap.error("--measure-db applies only to --measured tuning")
+    if args.prune_topk is not None and not args.measured:
+        ap.error("--prune-topk applies only to --measured tuning")
+    if args.prune_topk is not None and args.prune_topk < 1:
+        ap.error(f"--prune-topk must be >= 1, got {args.prune_topk}")
+    if args.surrogate and args.prune_topk is None:
+        ap.error("--surrogate applies only with --prune-topk")
     if (args.agent_ckpt or args.program_store) and not args.autotune:
         ap.error("--agent-ckpt/--program-store warm-start the tuning "
                  "pipeline: pass --autotune (they do not apply to --tiles, "
@@ -198,12 +218,18 @@ def _measured_env(args, device, legality):
         workers=args.workers if args.transport == "pool" else None,
         hosts=(args.hosts.split(",") if args.transport == "socket"
                else None),
-        legality=legality, **runner_kw)
+        legality=legality, prune_topk=args.prune_topk,
+        surrogate=args.surrogate, surrogate_device=str(device), **runner_kw)
     where = {"inproc": "-", "pool": f"workers={args.workers}",
              "socket": f"hosts={args.hosts}"}[args.transport]
+    sur = ""
+    if env.prune_active:
+        m = env.surrogate
+        sur = (f" surrogate={args.surrogate or 'trained from the DB'} "
+               f"(ensemble {m.ensemble}, backend {m.backend or '-'})")
     print(f"[serve] measured oracle: transport={args.transport} {where} "
           f"reps={runner_kw.get('reps', '-')} db={args.measure_db or '-'} "
-          f"({env.measure_fn.transport.backend_key})", flush=True)
+          f"({env.measure_fn.transport.backend_key}){sur}", flush=True)
     return env
 
 
@@ -218,8 +244,9 @@ def _tile_plan(args, sites, device):
     ``oracle_setup_s``), ``agent_inferences``, the program store's
     ``store`` stats, and what the measured oracle did (``measured``,
     ``stats``, ``health``, ``backend_key``, ``failures``,
-    ``breaker_open``, ``picks``: per site the pick, its time, the fastest
-    tile timed and every timed tile's seconds)."""
+    ``breaker_open``, ``pruned_pairs``: the pairs the surrogate priced
+    instead, ``picks``: per site the pick, its price, the fastest tile
+    timed and every timed tile's seconds)."""
     legality = legality_for(device)
     env, nv = CostModelEnv(DEFAULT, legality=legality), None
     tuning = {"measured": bool(args.measured)}
@@ -321,6 +348,12 @@ def _report_measured(args, env, prog, sites, sp, tuning):
           f"{st['transport_coalesced_total']} coalesced{extra} "
           f"({t.backend_key}); health: {tuning['health']}"
           + (f" ({env.degraded_reason})" if env.breaker_open else ""))
+    tuning["pruned_pairs"] = env.pruned_pairs
+    if args.prune_topk is not None:
+        state = "active" if env.prune_active else \
+            "inactive (DB too cold to train the surrogate)"
+        print(f"[serve] pruning top-{args.prune_topk}: {state}, "
+              f"{env.pruned_pairs} pairs surrogate-priced")
     for key, tiles, err in tuning["failures"]:
         print(f"[serve] failed pair {key} {tiles}: {err}")
     for s in sites:

@@ -24,8 +24,8 @@ of the Hopper kernels (eq. 2) instead of the analytic stand-in.
 
 :func:`make_transport` builds a transport by name and
 :func:`make_measured_env` assembles a ready
-:class:`~repro_torch.core.env.MeasuredEnv`.  Surrogate grid pruning is not
-ported yet.
+:class:`~repro_torch.core.env.MeasuredEnv`, with surrogate grid pruning
+(``prune_topk=``; :func:`resolve_surrogate`) when asked for.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ TRANSPORT_NAMES = ("inproc", "pool", "socket")
 __all__ = ["MeasureRunner", "MeasureDB", "CachedMeasureFn", "make_key",
            "open_measure_db", "InProcessTransport", "WorkerPoolTransport",
            "TransportMeasureFn", "TRANSPORT_NAMES", "make_transport",
-           "make_measured_env", "timing", "FaultInjectionTransport",
+           "make_measured_env", "resolve_surrogate", "timing",
+           "FaultInjectionTransport",
            "ChaosRunner", "FaultSchedule", "respawn_backoff"]
 
 
@@ -125,7 +126,7 @@ def make_measured_env(cfg=None, db_path: Optional[str] = None, runner=None,
                       workers: Optional[int] = None, hosts=None,
                       legality: str = "h100",
                       prune_topk: Optional[int] = None, surrogate=None,
-                      **runner_kwargs):
+                      surrogate_device=None, **runner_kwargs):
     """A :class:`~repro_torch.core.env.MeasuredEnv` wired to a measurement
     stack.
 
@@ -139,14 +140,19 @@ def make_measured_env(cfg=None, db_path: Optional[str] = None, runner=None,
     extra kwargs build the :class:`MeasureRunner` (``reps=``, ``warmup=``,
     ``device=``), one per worker under the pool.  The hook is
     ``env.measure_fn`` (``.transport``, ``.db``; ``.runner`` in
-    process)."""
+    process).
+
+    ``prune_topk=N`` enables surrogate grid pruning: only each site's
+    top-N predicted candidates, legal under ``legality``, and its baseline
+    tile are timed.  ``surrogate`` is a trained
+    :class:`~repro_torch.surrogate.model.SurrogateModel`, a checkpoint
+    directory, or ``None`` to train one from the attached DB's records
+    (a DB too cold to train leaves pruning inactive for this run).  A
+    loaded or trained surrogate lives on ``surrogate_device`` (by default
+    the runner's ``device=``, else the card)."""
     from repro_torch.configs.neurovec import DEFAULT
     from repro_torch.core.env import MeasuredEnv
 
-    if prune_topk is not None or surrogate is not None:
-        raise NotImplementedError("surrogate grid pruning (prune_topk=, "
-                                  "surrogate=) is not ported yet (ROADMAP "
-                                  "queue 1 item 3)")
     if transport is None or isinstance(transport, str):
         t = make_transport(transport or "inproc", db_path=db_path,
                            runner=runner, workers=workers, hosts=hosts,
@@ -160,5 +166,25 @@ def make_measured_env(cfg=None, db_path: Optional[str] = None, runner=None,
         t = transport
     fn = (CachedMeasureFn(t) if isinstance(t, InProcessTransport)
           else TransportMeasureFn(t))
+    if prune_topk is not None:
+        surrogate = resolve_surrogate(
+            surrogate, db=getattr(t, "db", None),
+            device=surrogate_device or runner_kwargs.get("device", "cuda"))
     return MeasuredEnv(cfg if cfg is not None else DEFAULT, measure_fn=fn,
-                       seed=seed, legality=legality)
+                       seed=seed, legality=legality, prune_topk=prune_topk,
+                       surrogate=surrogate)
+
+
+def resolve_surrogate(surrogate, db=None, device="cuda"):
+    """The facade's and serve's ``surrogate=`` argument as a model: a
+    trained model passes through, a string loads that checkpoint
+    directory onto ``device``, and ``None`` trains one on ``device`` from
+    ``db`` (``None`` again when the DB is too cold: pruning stays
+    inactive)."""
+    if surrogate is None:
+        from repro_torch.surrogate.model import train_from_db
+        return train_from_db(db, device=device)
+    if isinstance(surrogate, str):
+        from repro_torch.surrogate.model import load_surrogate
+        return load_surrogate(surrogate, device=device)
+    return surrogate

@@ -33,6 +33,15 @@ When the workers' runner measures on the card, the pool builds the kernel
 libraries once in this process before it spawns, so N workers starting
 together do not each run ``nvcc``.
 
+Workers on one card share it through the card's timing lock
+(:mod:`repro_torch.measure.lock`, taken by
+:mod:`repro_torch.measure.timing`): each pair's warmup and timed
+repetitions run while no other process times on that card, so a
+worker's host-clock time never takes in another worker's kernels.  What
+the lock serialises is only that: building a pair's inputs, answering
+the parent and the parent's dispatch overlap across workers; the timed
+calls of N workers on one card run one after another.
+
 One dispatcher thread per worker feeds its worker one job at a time and
 reads the result, so a worker's death is seen where the job is known.
 """

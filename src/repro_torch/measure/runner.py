@@ -141,7 +141,8 @@ class MeasureRunner:
         """Seconds for one (site, tile) pair; ``inf`` on any failure."""
         try:
             fn = self._build(site, tiles)
-            s = timing.median_time(fn, reps=self.reps, warmup=self.warmup)
+            s = timing.median_time(fn, reps=self.reps, warmup=self.warmup,
+                                  device=self.device)
         except Exception as e:         # fail closed, keep what went wrong
             self.failed_pairs += 1
             if len(self.failures) < MAX_FAILURES_KEPT:

@@ -42,7 +42,11 @@ torch only for a runner that needs it, so such a worker starts at once.
 With ``REPRO_TORCH_LAUNCH_DIR`` set, the worker writes its kernel launch
 counters (K1, K2 and K3, and K1's and K2's by variant) to
 ``<dir>/worker-<pid>.json`` after every job, so a caller can see which
-kernels ran in its workers: the counters are per process.
+kernels ran in its workers: the counters are per process.  The file also
+holds what the worker's timings did with the card's lock
+(:mod:`repro_torch.measure.lock`): ``timing_lock`` (acquisitions, seconds
+waited and held) and ``timing_lock_spans`` (the last ``(enter, exit)``
+times on the host's monotonic clock).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ import json
 import os
 import sys
 
+from repro_torch.measure import lock
 from repro_torch.measure.wire import read_frame, write_frame
 
 #: exit code of a worker whose CUDA context is dead
@@ -105,7 +110,9 @@ def _write_launches(launch_dir: str) -> None:
               "chunk_scan": chunk_scan.launches,
               "matmul_by_variant": dict(matmul.launches_by_variant),
               "flash_attention_by_variant":
-                  dict(flash_attention.launches_by_variant)}
+                  dict(flash_attention.launches_by_variant),
+              "timing_lock": lock.stats.as_dict(),
+              "timing_lock_spans": [list(s) for s in lock.stats.spans]}
     path = os.path.join(launch_dir, f"worker-{os.getpid()}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(counts, f)

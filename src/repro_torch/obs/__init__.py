@@ -6,8 +6,8 @@ tuning stack.
   ``snapshot()`` and Prometheus ``render_prom()``.
 * :mod:`~repro_torch.obs.trace` — JSONL span tracing + ``to_chrome_trace()``.
 * :mod:`~repro_torch.obs.instrument` — wrap the live measured env, its
-  transport (in process, pool or fleet) and DB, and the program store into
-  a registry without behavior change.
+  surrogate, its transport (in process, pool or fleet) and DB, and the
+  program store into a registry without behavior change.
 
 The facade wires all of this by default into the process-wide registry
 (:func:`get_registry`); tracing is opt-in (``NeuroVectorizer(trace=
@@ -18,6 +18,7 @@ from repro_torch.obs.instrument import (ObsHandle, instrument_db,
                                         instrument_oracle_stack,
                                         instrument_pool,
                                         instrument_program_store,
+                                        instrument_surrogate,
                                         instrument_transport)
 from repro_torch.obs.metrics import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge,
                                      Histogram, MetricsRegistry,
@@ -32,7 +33,8 @@ __all__ = [
     "to_chrome_trace",
     "ObsHandle", "instrument_transport", "instrument_pool",
     "instrument_fleet", "instrument_db", "instrument_env",
-    "instrument_program_store", "instrument_oracle_stack",
+    "instrument_surrogate", "instrument_program_store",
+    "instrument_oracle_stack",
     "resolve_obs",
 ]
 

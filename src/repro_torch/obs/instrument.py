@@ -1,9 +1,9 @@
 """Retrofit instrumentation for the tuning seams the facade reaches in the
 port — no behavior change, by construction; the port of
-``repro/obs/instrument.py`` for the measured env, its transports (in
-process, the worker pool and the socket fleet) and timing DB, and the
-program store.  The serving and surrogate instrumentation comes with those
-layers.
+``repro/obs/instrument.py`` for the measured env, its surrogate, its
+transports (in process, the worker pool and the socket fleet) and timing
+DB, and the program store.  The serving instrumentation comes with that
+layer.
 
 Every ``instrument_*`` function takes a *live instance* and wraps its
 methods on the instance (never the class: two transports can feed two
@@ -38,7 +38,8 @@ from .trace import NULL_TRACER
 
 __all__ = ["ObsHandle", "instrument_transport", "instrument_pool",
            "instrument_fleet", "instrument_db", "instrument_env",
-           "instrument_program_store", "instrument_oracle_stack"]
+           "instrument_surrogate", "instrument_program_store",
+           "instrument_oracle_stack"]
 
 _MARK = "_obs_instrumented"
 
@@ -350,9 +351,9 @@ def instrument_program_store(store, registry: MetricsRegistry
 # -- oracles ------------------------------------------------------------------
 def instrument_env(env, registry: MetricsRegistry,
                    tracer=NULL_TRACER) -> Optional[ObsHandle]:
-    """:class:`~repro_torch.core.env.MeasuredEnv`: measured-pair mirror
-    (the surrogate-priced series stays 0 until grid pruning is ported),
-    breaker state gauge, measure-batch latency histogram."""
+    """:class:`~repro_torch.core.env.MeasuredEnv`: measured-vs-surrogate-
+    priced pair mirror, breaker state gauge, measure-batch latency
+    histogram."""
     if not hasattr(env, "breaker_open") or _marked(env, registry):
         return None
     h = ObsHandle(registry)
@@ -374,7 +375,7 @@ def instrument_env(env, registry: MetricsRegistry,
     def read() -> dict:
         return {"measure_calls": env.measure_calls,
                 "measured_pairs": env.measured_pairs,
-                "pruned_pairs": getattr(env, "pruned_pairs", 0)}
+                "pruned_pairs": env.pruned_pairs}
     sync = _delta_sync(registry, {
         "measure_calls": "env_measure_calls_total",
         "measured_pairs": "env_measured_pairs_total",
@@ -393,13 +394,51 @@ def instrument_env(env, registry: MetricsRegistry,
     return h
 
 
+def instrument_surrogate(oracle, registry: MetricsRegistry
+                         ) -> Optional[ObsHandle]:
+    """:class:`~repro_torch.surrogate.SurrogateOracle`: pricing-call
+    latency and result-cache hit counters, from the cache-size delta
+    around each ``_surrogate_costs`` call."""
+    if not hasattr(oracle, "_surrogate_costs") or _marked(oracle, registry):
+        return None
+    h = ObsHandle(registry)
+    predict_hist = registry.histogram("surrogate_predict_seconds",
+                                      "surrogate pricing-call latency")
+    predicted = registry.counter("surrogate_predicted_pairs_total",
+                                 "pairs priced by a fresh model prediction")
+    cache_hits = registry.counter("surrogate_cache_hits_total",
+                                  "pairs served from the result cache")
+
+    orig = oracle._surrogate_costs
+
+    def _surrogate_costs(sites, tiles):
+        before = len(oracle._result_cache)
+        t0 = time.monotonic()
+        out = orig(sites, tiles)
+        predict_hist.observe(time.monotonic() - t0)
+        fresh = len(oracle._result_cache) - before
+        if fresh > 0:
+            predicted.inc(fresh)
+        served = len(sites) - max(fresh, 0)
+        if served > 0:
+            cache_hits.inc(served)
+        return out
+    oracle._surrogate_costs = _surrogate_costs
+    return h
+
+
 def instrument_oracle_stack(oracle, registry: MetricsRegistry,
                             tracer=NULL_TRACER) -> ObsHandle:
-    """Walk one oracle's dependency stack — env, its measure transport
-    and DB — and instrument whatever is present.  Safe on any oracle (a
-    plain :class:`CostModelEnv` yields an empty handle)."""
+    """Walk one oracle's dependency stack — env, its surrogate, its
+    measure transport and DB — and instrument whatever is present.  Safe
+    on any oracle (a plain :class:`CostModelEnv` yields an empty
+    handle)."""
     h = ObsHandle(registry)
     h.adopt(instrument_env(oracle, registry, tracer))
+    h.adopt(instrument_surrogate(oracle, registry))
+    sur = getattr(oracle, "surrogate", None)
+    if sur is not None and hasattr(sur, "_surrogate_costs"):
+        h.adopt(instrument_surrogate(sur, registry))
     fn = getattr(oracle, "measure_fn", None)
     transport = getattr(fn, "transport", None)
     if transport is not None:

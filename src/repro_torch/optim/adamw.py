@@ -1,0 +1,111 @@
+"""AdamW with global-norm clipping and a warmup-then-cosine schedule, as
+functions on trees of tensors (the port of ``repro/optim/adamw.py``).
+
+A tree is a tensor, or a dict, list or tuple of trees.  Moments are f32
+whatever the parameters' dtype.  Weight decay is decoupled and applies to
+tensors with ``ndim >= 2`` only, as the reference's does
+(``torch.optim.AdamW`` decays every tensor, 1-D ones too, and so is not
+used).  ``update`` returns new tensors and never writes into its
+arguments; a caller holding ``nn.Parameter``s copies the result in.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+
+
+def _leaves(tree) -> list:
+    """The tensors of ``tree`` in the reference's order (dict keys
+    sorted, as ``jax.tree_util`` flattens them)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _unflatten(like, leaves):
+    """``like``'s structure with its leaves taken in order from the
+    iterator ``leaves``."""
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, leaves) for v in like)
+    return next(leaves)
+
+
+def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """The learning rate at ``step`` (an int or a tensor): linear warmup
+    over ``warmup_steps``, then cosine down to ``min_lr_frac * lr`` at
+    ``total_steps``; an f32 tensor, computed as the reference computes
+    it in f32."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init(params) -> dict:
+    """Zero f32 moments shaped like ``params``, and step 0."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    leaves = _leaves(params)
+    dev = leaves[0].device if leaves else None
+    return {"m": _unflatten(params, iter([zeros(p) for p in leaves])),
+            "v": _unflatten(params, iter([zeros(p) for p in leaves])),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The l2 norm over every leaf of ``tree``, in f32."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in _leaves(tree)))
+
+
+def update(cfg: AdamWConfig, grads, state: dict, params):
+    """One AdamW step: ``(new_params, new_state, metrics)`` with metrics
+    ``{"grad_norm", "lr"}``.  ``grads`` has ``params``' structure."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    step = state["step"] + 1
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    bc1 = 1 - b1 ** step.to(torch.float32)
+    bc2 = 1 - b2 ** step.to(torch.float32)
+
+    def upd(p, g, m, v):
+        g = g.float() * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if p.ndim >= 2:     # decoupled weight decay on matrices only
+            u = u + cfg.weight_decay * p.float()
+        return (p.float() - lr * u).to(p.dtype), m, v
+
+    res = [upd(p, g, m, v) for p, g, m, v in
+           zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
+               _leaves(state["v"]))]
+    return (_unflatten(params, iter([r[0] for r in res])),
+            {"m": _unflatten(params, iter([r[1] for r in res])),
+             "v": _unflatten(params, iter([r[2] for r in res])),
+             "step": step},
+            {"grad_norm": gnorm, "lr": lr})

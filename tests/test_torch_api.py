@@ -2,8 +2,8 @@
 the facade tests of ``tests/test_api.py:331-411`` carried over, the
 reference and port facades giving the same ``TileProgram`` with ``brute``
 and ``polly``, every option without a port layer raising
-``NotImplementedError`` and the transport options reaching their
-transports, and the port's quickstart at small steps.
+the surrogate and transport options reaching their layers, and the
+port's quickstart at small steps.
 
 On the CPU the facade runs with ``device="cpu"`` (its kernels' plain
 versions); its default oracle prices tiles under the Hopper kernels'
@@ -27,7 +27,6 @@ from repro_torch.models.compute import KernelSite
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NV = NeuroVecConfig(train_batch=64, sgd_minibatch=32, ppo_epochs=2)
 CPU = {"device": "cpu"}
-LATER = "queue 1 item 3"
 
 
 def launchable(n, seed):
@@ -143,19 +142,34 @@ FLEET = "fleet://{artifacts}"
     {"program_store": FLEET},
 ], ids=lambda kw: ",".join(kw))
 def test_unported_options_raise(kw, tmp_path):
-    """The surrogate and grid pruning are not ported and raise.  The
-    transport options are: a pool of workers, and a ``fleet://`` DB or
-    store against a live ``serve-artifacts``; where the reference raises
-    for a combination (a socket fleet without hosts, ``workers=`` or
-    ``hosts=`` with the in-process transport), the port raises the same
-    class."""
+    """Options the port once lacked reach their layers.  The surrogate
+    and grid pruning (``tests/test_torch_surrogate.py``) act as the
+    reference's: a surrogate oracle with no model and no DB raises the
+    reference's ``ValueError``; under ``oracle="measured"`` a surrogate
+    path without ``prune_topk`` is recorded and unused, and
+    ``prune_topk`` without a DB leaves pruning inactive.  The transport
+    options: a pool of workers, and a ``fleet://`` DB or store against a
+    live ``serve-artifacts``; where the reference raises for a
+    combination (a socket fleet without hosts, ``workers=`` or ``hosts=``
+    with the in-process transport), the port raises the same class."""
     from repro.api import NeuroVectorizer as JNeuroVectorizer
     from repro_torch.fleet import (ArtifactServer, RemoteMeasureDB,
                                    RemoteProgramStore)
     from repro_torch.measure import WorkerPoolTransport
-    if "surrogate" in kw.values() or {"surrogate", "prune_topk"} & set(kw):
-        with pytest.raises(NotImplementedError, match=LATER):
+    if kw.get("oracle") == "surrogate":
+        with pytest.raises(ValueError, match="needs a trained model"):
             NeuroVectorizer(NV, agent="polly", **kw, **CPU)
+        with pytest.raises(ValueError, match="needs a trained model"):
+            JNeuroVectorizer(agent="polly", **kw)
+        return
+    if {"surrogate", "prune_topk"} & set(kw):
+        with NeuroVectorizer(NV, agent="polly", **kw, **CPU) as nv:
+            jnv = JNeuroVectorizer(agent="polly", **kw)
+            assert nv.oracle.prune_topk == jnv.oracle.prune_topk
+            assert not nv.oracle.prune_active and \
+                not jnv.oracle.prune_active
+            assert nv._spec["surrogate"] == jnv._spec["surrogate"]
+            jnv.close()
         return
     if "workers" in kw or "hosts" in kw or kw.get("transport") == "socket":
         with pytest.raises(ValueError):
@@ -183,19 +197,39 @@ def test_unported_options_raise(kw, tmp_path):
 
 
 def test_unported_recipe_raises_on_load(tmp_path):
-    """A saved recipe naming a surrogate oracle raises on load rather than
-    dropping it; one naming a pool (the reference's ``transport="pool"``)
-    loads into a pool of that many workers."""
+    """A saved recipe naming a surrogate oracle loads as the reference's
+    does: without a model or a DB it raises the reference's errors (a
+    live model recorded as ``"custom"`` needs ``surrogate=``), with a
+    checkpoint it loads into a ``SurrogateOracle``.  One naming a pool
+    (the reference's ``transport="pool"``) loads into a pool of that many
+    workers."""
     import json
 
-    from repro_torch.measure import WorkerPoolTransport
+    from repro_torch.api import (ArtifactError, SurrogateOracle,
+                                 save_surrogate, train_from_db)
+    from repro_torch.measure import MeasureDB, WorkerPoolTransport, make_key
     art = tmp_path / "f"
     NeuroVectorizer(NV, agent="polly", **CPU).save(str(art))
     spec = json.loads((art / "facade.json").read_text())
     (art / "facade.json").write_text(json.dumps({**spec,
                                                  "oracle": "surrogate"}))
-    with pytest.raises(NotImplementedError, match=LATER):
+    with pytest.raises(ValueError, match="needs a trained model"):
         NeuroVectorizer.load(str(art), **CPU)
+    (art / "facade.json").write_text(json.dumps(
+        {**spec, "oracle": "surrogate", "surrogate": "custom"}))
+    with pytest.raises(ArtifactError, match="pass surrogate="):
+        NeuroVectorizer.load(str(art), **CPU)
+    db = MeasureDB(str(tmp_path / "m.jsonl"))
+    for i, t0 in enumerate((8, 16, 32, 64) * 3):
+        site = KernelSite(f"m{i}", "matmul", m=64 * (1 + i % 3), n=128,
+                          k=128)
+        db.put(make_key(site.key(), (t0, 128, 128), "b"), 1e-4 * (i + t0))
+    db.close()
+    ck = str(tmp_path / "ck")
+    save_surrogate(train_from_db(str(tmp_path / "m.jsonl"), hidden=(8,),
+                                 ensemble=1, steps=20, **CPU), ck)
+    with NeuroVectorizer.load(str(art), surrogate=ck, **CPU) as nv:
+        assert isinstance(nv.oracle, SurrogateOracle)
     (art / "facade.json").write_text(json.dumps(
         {**spec, "oracle": "measured", "transport": "pool", "workers": 1,
          "oracle_kwargs": {"reps": 1}}))

@@ -765,3 +765,113 @@ def test_pool_replaces_a_poisoned_or_wedged_worker(cuda, tmp_path,
                                      n=256, k=256)], tiles[:1])
         assert np.isfinite(again[0].result())
         assert t.health() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# the card's timing lock, and the learned cost model on the card
+# ---------------------------------------------------------------------------
+
+def test_two_workers_timed_calls_do_not_overlap(cuda, tmp_path, monkeypatch):
+    """A pool of 2 on one card: every timed call (warmup and repetitions)
+    of one worker lies outside every timed call of the other, by the
+    lock's own log of enter and exit times (``timing_lock_spans``)."""
+    import json
+
+    from repro_torch.measure import WorkerPoolTransport
+    from repro_torch.models.site import KernelSite
+    monkeypatch.setenv("REPRO_TORCH_LAUNCH_DIR", str(tmp_path))
+    site = KernelSite(site="g.mm", kind="matmul", m=1024, n=1024, k=1024)
+    tiles = np.array([[bm, bn, bk] for bm in (64, 128) for bn in (128, 256)
+                      for bk in (128, 256, 512)])
+    with WorkerPoolTransport(workers=2, runner_kwargs={"reps": 3},
+                             spawn_timeout=300.0, job_timeout=120.0) as t:
+        vals = [f.result() for f in t.submit([site] * len(tiles), tiles)]
+    assert all(np.isfinite(v) and v > 0 for v in vals), vals
+    recs = [json.loads(p.read_text()) for p in tmp_path.glob("worker-*")]
+    assert len(recs) == 2
+    spans = [[tuple(s) for s in r["timing_lock_spans"]] for r in recs]
+    assert all(spans) and sum(map(len, spans)) == len(tiles)
+    assert sum(r["timing_lock"]["acquires"] for r in recs) == len(tiles)
+    for a in spans[0]:
+        for b in spans[1]:
+            assert a[1] <= b[0] or b[1] <= a[0], (a, b)
+
+
+def _surrogate_corpus():
+    from repro_torch.core import costmodel_vec, dataset
+    from repro_torch.core.env import ActionSpace
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.surrogate import Corpus
+    rng = np.random.default_rng(0)
+    sites, tiles = [], []
+    for s in dataset.generate(60, seed=1):
+        g = costmodel_vec.action_tiles_grid(ActionSpace(DEFAULT), s.kind)
+        for i in rng.choice(len(g), size=min(6, len(g)), replace=False):
+            sites.append(s)
+            tiles.append(g[i])
+    tiles = np.array(tiles)
+    y = np.log(costmodel_vec.costs_for_tiles(sites, tiles, "tpu_v5e"))
+    ok = np.isfinite(y)
+    return Corpus(sites=tuple(s for s, k in zip(sites, ok) if k),
+                  tiles=tiles[ok], y=y[ok] + rng.normal(0, 0.2, ok.sum()),
+                  backends=("synthetic",) * int(ok.sum()))
+
+
+def test_surrogate_trains_on_the_card_and_predicts_as_on_the_cpu(cuda):
+    """Trained on the card, the ensemble's predictions match the same
+    weights' on the CPU within 1e-5 log-seconds, TF32 kept off even when
+    the caller turned it on."""
+    from repro_torch.surrogate import SurrogateModel, featurize
+    from repro_torch.surrogate import train_surrogate
+    corpus = _surrogate_corpus()
+    m = train_surrogate(corpus, steps=200, device="cuda")
+    assert m.device.type == "cuda"
+    assert all(p.is_cuda for mem in m.members for p in mem.parameters())
+    cpu = SurrogateModel.from_state(m.state_dict(), device="cpu")
+    X = featurize(corpus.sites, corpus.tiles)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = m.predict_log_seconds(X)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    np.testing.assert_allclose(got, cpu.predict_log_seconds(X), rtol=0,
+                               atol=1e-5)
+    # it learned the ranking it was shown
+    r = np.corrcoef(got, corpus.y)[0, 1]
+    assert r > 0.9, r
+
+
+def test_pruned_measured_fit_times_at_most_k_plus_1_pairs_a_site(cuda):
+    """K1, K2 and K3 sites under ``prune_topk=2``: each site times at
+    most its 2 top-ranked tiles and its baseline on the card; the rest
+    are surrogate-priced, and a brute-force pick is made over all."""
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.agents import BruteForceAgent
+    from repro_torch.core.vectorizer import tune
+    from repro_torch.measure import make_measured_env
+    from repro_torch.models.site import KernelSite
+    from repro_torch.surrogate import train_surrogate
+    model = train_surrogate(_surrogate_corpus(), steps=100, device="cuda")
+    sites = [KernelSite(site="p.mm", kind="matmul", m=512, n=512, k=512),
+             KernelSite(site="p.attn", kind="attention", m=256, n=64,
+                        k=256, batch=8, causal=True),
+             KernelSite(site="p.scan", kind="chunk_scan", m=128, n=64,
+                        k=16, batch=8)]
+    env = make_measured_env(DEFAULT, device="cuda", reps=2, prune_topk=2,
+                            surrogate=model)
+    grid = env.cost_grid(sites)
+    runner = env.measure_fn.transport.runner
+    assert env.prune_active and env.pruned_pairs > 0
+    assert runner.failed_pairs == 0
+    for i, s in enumerate(sites):
+        timed = env.timed_tiles(s)
+        assert 1 <= len(timed) <= 3, (s.key(), timed)
+        assert all(ops.tile_ok(s, t) for t in timed)
+        assert np.isfinite(grid[i]).sum() >= len(timed)
+    assert runner.timed_pairs <= 3 * len(sites)
+    agent = BruteForceAgent(DEFAULT)
+    agent.fit(sites, env)
+    prog = tune(sites, agent, env.space, env)
+    assert all(ops.tile_ok(s, prog.tiles[s.key()]) for s in sites)
+    env.measure_fn.transport.close()

@@ -282,11 +282,13 @@ def test_transport_coalesces_and_writes_through(tmp_path):
 
 
 def test_unported_transports_and_pruning_raise(tmp_path):
-    """Pruning is not ported and raises; the pool and socket transports
-    and ``fleet://`` DBs are (``tests/test_torch_transport.py``,
-    ``tests/test_torch_fleet.py``): a shared runner is refused by the pool
-    and a socket fleet needs hosts, the same classes the reference
-    raises, and a ``fleet://`` path opens the shared store."""
+    """Pruning is ported (``tests/test_torch_surrogate.py``): without a
+    DB to train a surrogate from it stays inactive, as the reference's.
+    The pool and socket transports and ``fleet://`` DBs are ported
+    (``tests/test_torch_transport.py``, ``tests/test_torch_fleet.py``): a
+    shared runner is refused by the pool and a socket fleet needs hosts,
+    the same classes the reference raises, and a ``fleet://`` path opens
+    the shared store."""
     import repro.measure as jmeasure
     from repro.measure.db import open_measure_db as jopen_measure_db
     from repro_torch.fleet import ArtifactServer, RemoteMeasureDB
@@ -295,8 +297,13 @@ def test_unported_transports_and_pruning_raise(tmp_path):
             make_transport(name, runner=SpyRunner())
         with pytest.raises(err):
             jmeasure.make_transport(name, runner=SpyRunner())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_measured_env(runner=SpyRunner(), prune_topk=4)
+    env = make_measured_env(runner=SpyRunner(), prune_topk=4)
+    jenv = jmeasure.make_measured_env(runner=SpyRunner(), prune_topk=4)
+    assert env.prune_topk == jenv.prune_topk == 4
+    assert env.surrogate is None and not env.prune_active
+    assert not jenv.prune_active
+    with pytest.raises(ValueError, match="prune_topk"):
+        make_measured_env(runner=SpyRunner(), prune_topk=0)
     with ArtifactServer(measure_db=str(tmp_path / "m.jsonl")) as art:
         art.start()
         db = open_measure_db(f"fleet://{art.address}")
