@@ -79,9 +79,10 @@ Phases, each printed before the last line:
      prompts) is what every injected StableLM-3B serve of phases 6, 9
      and 10 is held against;
   7. one JSON line describing each kernel of the paths (K1 and K2 with
-     their launches by variant and their StableLM-3B numbers, K3 with its
-     device ms by pass and chunk and the Mamba-2 head), printed last so
-     that phase 8's launches count in it;
+     their launches by variant and their StableLM-3B numbers, K1 also at
+     the train lm_head, K3 with its device ms by pass and chunk and the
+     Mamba-2 head), printed last so that the launches of phases 8-11
+     count in it;
   8. the facade (run between phases 6 and 7): the full-width StableLM-3B
      through repro_torch.api only.  A brute-force NeuroVectorizer against
      the measured oracle, with a fresh timing DB and program store under
@@ -136,7 +137,21 @@ Phases, each printed before the last line:
      force's, and both picks re-timed interleaved in this process; PPO
      fitted against oracle="surrogate" with phase 6's settings, its
      program priced by phase 6's timings beside PPO on the cost model;
- 11. each phase's wall seconds, then the last line:
+ 11. the train path (after phase 10, before phase 7) on the full-width
+     StableLM-3B: its train sites at batch 4, seq 512 tuned by brute force
+     against phase 6's timing DB; the program injected into train_loss
+     under no_grad (K1's and K2's launches by variant, the loss within
+     5e-3 of eager mode's, K1 at the train lm_head 2048x50304x2560 against
+     its bound and torch.matmul); kernel mode under autograd must raise;
+     python -m repro_torch.launch.train --full --batch 4 --seq 512 for 5
+     steps (ms a step from CUDA events, forward + backward and optimizer
+     apart, tokens/s, losses, finite grad norms, peak memory, one more
+     step's device busy and idle share under torch.profiler); at full
+     width and depth 2, 6 steps with a checkpoint every 2, the steps above
+     4 dropped and a resume whose losses match within 1e-4 (one save's
+     bytes and seconds; the directory deleted), and accum 2 against
+     accum 1;
+ 12. each phase's wall seconds, then the last line:
      {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
@@ -146,6 +161,7 @@ result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -1017,6 +1033,20 @@ def main_path():
                          "decode_tok_s_runs": eager.decode_tok_s_runs}
 
 
+def busy_by_kernel(prof, n_top: int = 6):
+    """The device's busy ms in a ``torch.profiler`` trace and the
+    ``n_top`` kernels that took the most of it, as (name, ms)."""
+    by = {}
+    for e in prof.key_averages():       # kernels only: an operator's
+        # device time is its kernels', which would count twice
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and \
+                e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0].split("::")[-1][:40]
+            by[name] = by.get(name, 0.0) + e.self_device_time_total / 1e3
+    return sum(by.values()), sorted(by.items(), key=lambda kv: -kv[1])[:n_top]
+
+
 def prefill_breakdown(model, params, prompts, prog, label):
     """One prefill under ``prog`` (eager mode for ``None``): the wall ms
     (median of 3, after a warm pass), and from a ``torch.profiler`` trace
@@ -1043,16 +1073,7 @@ def prefill_breakdown(model, params, prompts, prog, label):
             model.prefill(params, {"tokens": prompts}, cache)
             torch.cuda.synchronize()
     wall = statistics.median(walls[1:])
-    by = {}
-    for e in prof.key_averages():       # kernels only: an operator's
-        # device time is its kernels', which would count twice
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and \
-                e.self_device_time_total > 0:
-            name = e.key.replace("(anonymous namespace)::", "")
-            name = name.split("<")[0].split("(")[0].split("::")[-1][:40]
-            by[name] = by.get(name, 0.0) + e.self_device_time_total / 1e3
-    busy = sum(by.values())
-    top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    busy, top = busy_by_kernel(prof)
     print(f"[stablelm:breakdown] {label}: prefill wall {wall:.2f} ms (median "
           f"of 3), device busy {busy:.2f} ms, idle "
           f"{max(0.0, 1 - busy / wall) * 100:.1f}% of the wall; top device "
@@ -2231,6 +2252,345 @@ def surrogate_path(sl, p5_db):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the train path
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 5             # launch.train --full steps at batch 4, seq 512
+TRAIN_LOSS_RTOL = 5e-3      # injected vs eager train loss, the reference's
+                            # tolerance (tests/test_system.py) for bf16
+RESTART_RTOL = 1e-4         # resumed vs uninterrupted losses (the
+                            # reference's test_trainer_restart_reproduces_loss)
+RESTART_LAYERS = 2          # depth of the restart and accum runs: full
+                            # width, about 4.2 GB a checkpoint
+TRAIN_LOGIT_TOL = LOGIT_TOL  # injected vs eager logits of the train
+                            # forward over max |eager logit|, every position
+ACCUM_RTOL = 1e-4           # accum 2 vs accum 1, one step at depth
+ACCUM_GNORM_RTOL = 1e-3     # RESTART_LAYERS: the loss, the grad norm, and
+ACCUM_GRAD_RTOL = 2e-2      # each leaf's ||g2 - g1|| / ||g1||: accum 1's
+                            # gradients are bf16, accum 2's two bf16 halves
+                            # summed in f32; a step that saw half the
+                            # batch is off by O(1)
+
+
+def _train_argv(*extra):
+    return ["--arch", STABLELM, "--full", "--batch", str(BATCH), "--seq",
+            str(PROMPT), *extra]
+
+
+def _cut_depth(n_layers):
+    """StableLM-3B at its published widths with ``n_layers`` layers."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(STABLELM), n_layers=n_layers)
+
+
+def _step_dir(ckpt, step):
+    """A checkpoint's directory in ``CheckpointManager``'s on-disk layout."""
+    return ckpt / f"step_{step:09d}"
+
+
+def accum_check(cfg, batch):
+    """One train step of ``cfg`` from the same weights (seed 0) at accum 1
+    and at accum 2: the loss, the grad norm, and the gradients the
+    optimizer gets, taken where the compressor hooks in."""
+    import torch
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import AdamWConfig, _leaves
+    from repro_torch.train.steps import make_train_state, make_train_step
+    runs = {}
+    for accum in (1, 2):        # one at a time: a run's peak is its own
+        held = torch.cuda.memory_allocated()    # the other run's gradients
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg)
+        state = make_train_state(model, 0, AdamWConfig(), device="cuda")
+        kept = {}
+
+        def keep(grads):
+            kept["grads"] = grads
+            return grads, {}
+        _, m = make_train_step(model, AdamWConfig(), accum=accum,
+                               compression=keep)(state, batch)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        runs[accum] = (float(m["loss"]), float(m["grad_norm"]),
+                       [g.float() for g in _leaves(kept["grads"])], peak)
+        del model, state, kept, m
+        torch.cuda.empty_cache()
+    (l1, g1, gs1, m1), (l2, g2, gs2, m2) = runs[1], runs[2]
+    leaf_rel = [float((b - a).norm() / a.norm()) for a, b in zip(gs1, gs2)]
+    worst = max(range(len(leaf_rel)), key=leaf_rel.__getitem__)
+    rec = {"loss_rel": abs(l2 - l1) / abs(l1), "gnorm_rel": abs(g2 - g1) / g1,
+           "grad_rel_max": leaf_rel[worst], "grad_rel_worst_leaf": worst,
+           "grad_rel_median": sorted(leaf_rel)[len(leaf_rel) // 2],
+           "peak_gib": {1: m1, 2: m2}}
+    print(f"[train] accum 2 vs 1 at depth {cfg.n_layers}: loss {l2:.6f} vs "
+          f"{l1:.6f} (relative {rec['loss_rel']:.2e}, tol {ACCUM_RTOL}); "
+          f"grad norm {g2:.6f} vs {g1:.6f} (relative {rec['gnorm_rel']:.2e}, "
+          f"tol {ACCUM_GNORM_RTOL}); gradients, ||g2 - g1|| / ||g1|| by "
+          f"leaf: largest {rec['grad_rel_max']:.2e} (leaf {worst} of "
+          f"{len(leaf_rel)}), median {rec['grad_rel_median']:.2e} (tol "
+          f"{ACCUM_GRAD_RTOL}); peak memory {m2:.2f} / {m1:.2f} GiB",
+          flush=True)
+    if rec["loss_rel"] >= ACCUM_RTOL or rec["gnorm_rel"] >= ACCUM_GNORM_RTOL \
+            or not rec["grad_rel_max"] < ACCUM_GRAD_RTOL:
+        fail(f"train: accum 2 vs accum 1: {rec}")
+    return rec
+
+
+def attention_backward_ms(cfg, gen):
+    """One layer's memory-efficient attention at the train shape (batch 4,
+    seq 512, causal, bf16), the port's autograd ``Function`` (plain
+    PyTorch in the reference's op order; no kernel has a backward): the
+    forward's ms and the forward and backward's, beside one
+    ``scaled_dot_product_attention`` call's (a yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import compute
+    shape = (BATCH, cfg.n_heads, PROMPT, cfg.head_dim)
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    qkv = [t.requires_grad_(True) for t in (q, k, v)]
+    scale = cfg.head_dim ** -0.5
+
+    def mea():
+        return compute._mem_efficient_attention(*qkv, causal=True,
+                                                scale=scale, bq=PROMPT,
+                                                bkv=PROMPT)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*qkv, is_causal=True)
+
+    rec = {}
+    for name, fn in (("plain", mea), ("sdpa", sdpa)):
+        with torch.no_grad():
+            rec[f"{name}_fwd_ms"] = time_ms_over(fn, [()], reps=5, calls=10)
+        rec[f"{name}_fwd_bwd_ms"] = time_ms_over(
+            lambda: torch.autograd.grad(fn(), qkv, do), [()], reps=5,
+            calls=10)
+    rec["layers"] = cfg.n_layers
+    print(f"[train] attention at the train shape {shape}, causal, one "
+          f"layer: the port's Function forward {rec['plain_fwd_ms']:.3f} ms, "
+          f"forward+backward {rec['plain_fwd_bwd_ms']:.3f} ms; SDPA forward "
+          f"{rec['sdpa_fwd_ms']:.3f} ms, forward+backward "
+          f"{rec['sdpa_fwd_bwd_ms']:.3f} ms; x {cfg.n_layers} layers: "
+          f"{rec['plain_fwd_bwd_ms'] * cfg.n_layers:.1f} ms against SDPA's "
+          f"{rec['sdpa_fwd_bwd_ms'] * cfg.n_layers:.1f}", flush=True)
+    return rec
+
+
+def train_path(sl, gen):
+    """The train path on the full-width StableLM-3B (32 layers, bf16): (a)
+    its train sites at batch 4, seq 512 tuned by brute force against phase
+    6's timing DB (pairs it lacks timed now); (b) the program injected
+    into ``train_loss`` under ``no_grad`` (counters zeroed just before,
+    read just after): K1's and K2's launches by variant, the loss within
+    TRAIN_LOSS_RTOL of eager mode's, the forward's logits at every
+    position within TRAIN_LOGIT_TOL of eager's, and K1 at the train
+    ``lm_head`` (2048x50304x2560, ``head.T``) against its bound and
+    ``torch.matmul``; (c) kernel mode with grad must raise; (d)
+    ``launch.train --full`` for TRAIN_STEPS steps: ms a step (CUDA events,
+    forward + backward and optimizer apart), tokens/s, the losses, finite
+    grad norms, peak memory, and one more step's device busy and idle
+    share under ``torch.profiler``; (e) at depth RESTART_LAYERS: 6 steps
+    with a checkpoint every 2, the steps above 4 dropped, a resume whose
+    losses match within RESTART_RTOL, one save's bytes and seconds; accum
+    2 against accum 1 (``accum_check``).  Returns the injected forward's
+    counts and the record for the kernels line and the summary."""
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.agents import BruteForceAgent
+    from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.core.extractor import extract_arch_sites
+    from repro_torch.core.vectorizer import (baseline_program, inject,
+                                             program_speedup, tune)
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.launch import train
+    from repro_torch.measure import make_measured_env
+    from repro_torch.models import compute
+    from repro_torch.models.lm import build_model, decoder_forward
+    from repro_torch.optim.adamw import AdamWConfig, _leaves
+    from repro_torch.train.steps import make_train_step
+    out = {}
+    torch.cuda.empty_cache()
+    print(f"[train] resident before the phase: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # (a) the train sites, tuned by brute force against phase 6's DB (the
+    # baseline tiles where there is none)
+    sites = extract_arch_sites(STABLELM, batch=BATCH, seq=PROMPT)
+    if Path(sl["db"]).exists():
+        menv = make_measured_env(DEFAULT, db_path=str(sl["db"]),
+                                 device="cuda", legality="h100")
+        t0 = time.perf_counter()
+        prog = tune(sites, BruteForceAgent().fit(sites, menv), menv.space,
+                    menv)
+        st = menv.measure_fn.transport.stats()
+        out["tune_s"] = time.perf_counter() - t0
+        out["measured_speedup"] = program_speedup(prog, sites, menv)
+        menv.measure_fn.transport.close()
+        out["db_hits"] = st["transport_hits_total"]
+        out["timed_pairs"] = st["transport_timed_pairs_total"]
+        how = (f"brute force against phase 6's DB: {out['db_hits']} DB "
+               f"hits, {out['timed_pairs']} pairs timed anew, "
+               f"{out['tune_s']:.1f} s; measured speedup over the baseline "
+               f"tiles {out['measured_speedup']:.3f}x")
+    else:
+        prog, how = baseline_program(sites), f"no DB at {sl['db']}: baseline"
+    print(f"[train] {len(sites)} train sites at batch {BATCH}, seq {PROMPT}; "
+          f"{how}; tiles: " + ", ".join(
+              f"{x.site}@M={x.m}:{tuple(prog.tiles[x.key()])}"
+              for x in sites), flush=True)
+
+    # (b) the program injected into the forward of train_loss
+    cfg = get_config(STABLELM)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    pipe = SyntheticPipeline(cfg, ShapeConfig("t", PROMPT, BATCH, "train"),
+                             DataConfig(seed=0), device="cuda")
+    batch = pipe.batch_at(0)
+    with torch.no_grad():
+        eager, _ = model.train_loss(params, batch)
+        zero_counts()
+        with inject(prog):
+            tuned, _ = model.train_loss(params, batch)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    want = {"matmul": 1 + 7 * cfg.n_layers, "flash_attention": cfg.n_layers,
+            "chunk_scan": 0}
+    rel = abs(float(tuned) - float(eager)) / abs(float(eager))
+    print(f"[train] injected train_loss (no_grad): launches {counts} "
+          f"(want {want}); loss {float(tuned):.6f} against eager "
+          f"{float(eager):.6f}, relative {rel:.3e} (tol "
+          f"{TRAIN_LOSS_RTOL})", flush=True)
+    if counts != want or not torch.isfinite(tuned) or \
+            rel >= TRAIN_LOSS_RTOL:
+        fail(f"train: injected loss {float(tuned)} vs eager "
+             f"{float(eager)} ({rel:.3e}), launches {counts} != {want}")
+    path_variants("train:injected", counts)
+    out["loss_rel_err"] = rel
+
+    def logits():       # the train forward's, at every position
+        x = decoder_forward(cfg, params, batch["tokens"])
+        return compute.matmul(x, params["head"].T, site="lm_head").float()
+    with torch.no_grad():
+        eager_logits = logits()
+        with inject(prog):
+            tuned_logits = logits()
+        lrel = float((tuned_logits - eager_logits).abs().max()
+                     / eager_logits.abs().max())
+        finite = bool(torch.isfinite(tuned_logits).all())
+    del eager_logits, tuned_logits
+    print(f"[train] injected train forward's logits "
+          f"{(BATCH, PROMPT, cfg.vocab_size)} against eager: max "
+          f"|difference| over max |eager logit| "
+          f"{lrel:.4e} (tol {TRAIN_LOGIT_TOL})", flush=True)
+    if not finite or lrel >= TRAIN_LOGIT_TOL:
+        fail(f"train: injected forward's logits differ from eager's: "
+             f"{lrel:.3e}")
+    out["logits_rel_err"] = lrel
+
+    # (c) kernel mode refuses autograd on the card
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    try:
+        with inject(prog):
+            model.train_loss(params, batch)
+        fail("train: kernel mode under autograd did not raise")
+    except NotImplementedError as e:
+        print(f"[train] kernel mode under autograd raises: {e}", flush=True)
+    del params, batch, eager, tuned
+    torch.cuda.empty_cache()
+    out["attention"] = attention_backward_ms(cfg, gen)
+    head = next(x for x in sites if x.site == "lm_head")
+    shape = (head.m, head.n, head.k, True)
+    out["lm_head"] = {"baseline": k1_check(shape, baseline_tiles(head),
+                                           "train baseline:lm_head", gen),
+                      "tuned": k1_check(shape, prog.tiles[head.key()],
+                                        "train tuned:lm_head", gen)}
+
+    # (d) launch.train at full depth
+    argv = _train_argv("--steps", str(TRAIN_STEPS))
+    print(f"[train] launch.train.run({argv}) (full depth: {cfg.n_layers} "
+          f"layers)", flush=True)
+    res = train.run(train.parse_args(argv))
+    if len(res.losses) != TRAIN_STEPS or not all(
+            map(math.isfinite, res.losses + res.grad_norms)):
+        fail(f"train: losses {res.losses}, grad norms {res.grad_norms}")
+    fb, opt = res.fwd_bwd_ms, res.optimizer_ms
+    out.update(steps=TRAIN_STEPS, losses=res.losses,
+               grad_norms=res.grad_norms, step_ms=res.step_ms,
+               fwd_bwd_ms=fb, optimizer_ms=opt,
+               tokens_s=BATCH * PROMPT / ((fb + opt) / 1e3),
+               peak_gib=res.peak_bytes / 2**30)
+    # one more step on the trained state (the optimizer's settings do not
+    # change its work)
+    step_fn = make_train_step(model, AdamWConfig())
+    batch = pipe.batch_at(TRAIN_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(res.state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, top = busy_by_kernel(prof, 8)
+    out.update(profiled_wall_ms=wall, busy_ms=busy,
+               idle_share=max(0.0, 1 - busy / wall), top=top)
+    print(f"[train] full width: ms a step (median of {len(res.step_ms) - 1} "
+          f"after the first, CUDA events): forward+backward {fb:.2f}, "
+          f"optimizer {opt:.2f}; {out['tokens_s']:.0f} tokens/s; losses "
+          f"{[round(x, 4) for x in res.losses]}; grad norms "
+          f"{[round(x, 4) for x in res.grad_norms]}; peak memory "
+          f"{out['peak_gib']:.2f} GiB; profiled step: wall {wall:.2f} ms, "
+          f"device busy {busy:.2f} ms, idle "
+          f"{out['idle_share'] * 100:.1f}%; top device ms: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in top), flush=True)
+    del res, batch, prof, step_fn
+    torch.cuda.empty_cache()
+
+    # (e) restart and accumulation at full width, depth RESTART_LAYERS
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = _train_argv("--steps", "6", "--ckpt-dir", str(ckpt),
+                       "--ckpt-every", "2")
+    cut = _cut_depth(RESTART_LAYERS)
+    full = train.run(train.parse_args(argv), cfg=cut).losses
+    mgr = CheckpointManager(str(ckpt))
+    for step in mgr.complete_steps():
+        if step > 4:
+            shutil.rmtree(_step_dir(ckpt, step))
+    resumed = train.run(train.parse_args(argv), cfg=cut)
+    if resumed.start_step != 4 or len(resumed.losses) != 2 or any(
+            abs(a - b) > RESTART_RTOL * abs(b)
+            for a, b in zip(resumed.losses, full[4:])):
+        fail(f"train: resumed at {resumed.start_step} with "
+             f"{resumed.losses}, uninterrupted {full[4:]}")
+    t0 = time.perf_counter()
+    mgr.save(resumed.state, 99)
+    save_s = time.perf_counter() - t0
+    sdir = _step_dir(ckpt, 99)
+    save_bytes = sum(f.stat().st_size for f in sdir.iterdir())
+    shutil.rmtree(ckpt)
+    print(f"[train] restart at depth {RESTART_LAYERS}: losses "
+          f"{[round(x, 6) for x in full]}, resumed from step 4 "
+          f"{[round(x, 6) for x in resumed.losses]} (rtol {RESTART_RTOL}); "
+          f"a save: {save_bytes / 1e9:.3f} GB in {save_s:.2f} s "
+          f"(host copy and write)", flush=True)
+    out.update(restart_losses=full, resumed_losses=resumed.losses,
+               save_bytes=save_bytes, save_s=save_s)
+    del resumed
+    torch.cuda.empty_cache()
+    out["accum"] = accum_check(
+        cut, SyntheticPipeline(cut, ShapeConfig("t", PROMPT, BATCH, "train"),
+                               DataConfig(seed=0), device="cuda").batch_at(0))
+    return counts, out
+
+
 def sass_check() -> None:
     """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
     TMA load (UTMALDG) instructions, and K2's and K3's builds no spilled
@@ -2439,6 +2799,12 @@ def main() -> int:
         sl, p5_db)
     print("[surrogate] summary " + json.dumps(sur, default=str), flush=True)
     phase_done("10 surrogate")
+
+    # ---- phase 11: the train path (before the kernels line: the
+    # injected forward's launches count into the line's) ----
+    by_path["stablelm_3b train (injected forward)"], tr = train_path(sl, gen)
+    print("[train] summary " + json.dumps(tr, default=str), flush=True)
+    phase_done("11 train path")
     print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
@@ -2481,8 +2847,10 @@ def main() -> int:
          "launches_by_path": path_counts("matmul"),
          "launches_by_variant": by_variant("matmul"),
          "launches_by_variant_by_path": path_counts("matmul_by_variant"),
-         "max_abs_err": max(r["err"] for r in k1_tuned.values()),
-         "max_rel_err": max(r["rel"] for r in k1_tuned.values()),
+         "max_abs_err": max([r["err"] for r in k1_tuned.values()]
+                            + [r["err"] for r in tr["lm_head"].values()]),
+         "max_rel_err": max([r["rel"] for r in k1_tuned.values()]
+                            + [r["rel"] for r in tr["lm_head"].values()]),
          "tolerance": f"rel {K1_TOL} vs f32 matmul",
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
          "bound_ms": k1_b * 1e3, "bound_by": k1_by,
@@ -2497,7 +2865,14 @@ def main() -> int:
              "library_ms": sl_k1["lib_ms"],
              "max_abs_err": max(r["err"] for r in sl["k1_tuned"].values()),
              "work": "one prefill + one decode step of stablelm_3b at the "
-                     "PPO (corpus) tiles"}},
+                     "PPO (corpus) tiles"},
+         "stablelm_3b_train_lm_head": {
+             k: {"ms": r["ms"], "device_ms": r["device_ms"],
+                 "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
+                 "bound_ms": r["bound_s"] * 1e3,
+                 "bound_by": bound_s(r["flops"], r["bytes"])[1],
+                 "variant": r["variant"], "max_abs_err": r["err"]}
+             for k, r in tr["lm_head"].items()}},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",

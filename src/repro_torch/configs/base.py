@@ -128,6 +128,24 @@ class ModelConfig:
         return dataclasses.replace(self, **small)
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape (a copy of the reference's)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
 def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in PORTED_ARCHS:

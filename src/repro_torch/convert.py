@@ -1,7 +1,8 @@
 """Carry weights across from the JAX package.
 
 ``params_from_jax(np_params, cfg)`` maps the reference's parameter tree
-(the dense decoder's or the xLSTM stack's),
+(the dense decoder's or the xLSTM stack's), and
+``train_state_from_jax(np_state, cfg)`` its whole train state,
 with its leaves as numpy arrays, onto the port's.  The two trees have the
 same structure: each period slot's leaves stacked along a leading layer
 axis (``repro/models/lm.py:44-58``), every matmul weight ``w(K, N)`` with
@@ -65,6 +66,36 @@ def params_from_jax(np_params, cfg: ModelConfig, device="cuda") -> dict:
     dev = resolve_device(device)
     ref = build_model(cfg).init(device="meta")
     return _map(ref, np_params, "params", dev)
+
+
+def train_state_from_jax(np_state, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's train state (``train.steps.make_train_state``'s tree)
+    holding the numbers of the reference's ``{"params", "opt": {"m", "v",
+    "step"}, "step"}`` with numpy leaves, mapped one to one as
+    :func:`params_from_jax` maps the parameters; the moments f32."""
+    dev = resolve_device(device)
+    ref = build_model(cfg).init(device="meta")
+    moments = _map_tree(ref, lambda t: torch.empty(t.shape,
+                                                   dtype=torch.float32,
+                                                   device="meta"))
+    opt = np_state["opt"]
+
+    def step(a, path):
+        return _map(torch.empty((), dtype=torch.int32, device="meta"),
+                    np.asarray(a, np.int32), path, dev)
+    return {"params": _map(ref, np_state["params"], "params", dev),
+            "opt": {"m": _map(moments, opt["m"], "opt/m", dev),
+                    "v": _map(moments, opt["v"], "opt/v", dev),
+                    "step": step(opt["step"], "opt/step")},
+            "step": step(np_state["step"], "step")}
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map_tree(v, fn) for v in tree)
+    return fn(tree)
 
 
 def surrogate_from_jax(state: dict, device="cuda"):

@@ -408,9 +408,31 @@ def _route(t: torch.Tensor) -> str:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+# each kernel, and the reference's Pallas kernel it replaces
+_PALLAS = {"K1 (tiled matmul)": "repro/kernels/matmul.py:matmul_pallas",
+           "K2 (flash attention forward)":
+               "repro/kernels/flash_attention.py:flash_attention_pallas",
+           "K3 (SSD chunk scan)": "repro/kernels/chunk_scan.py:chunk_scan_pallas"}
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when autograd would record a call of
+    ``kernel``: it has no backward, so its output would silently cut the
+    gradient of every input behind it.  Under ``torch.no_grad`` or
+    ``inference_mode`` (serving, measurement) it never raises."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward, nor has the reference's Pallas "
+            f"kernel ({_PALLAS[kernel]}): kernel mode (an injected tile "
+            f"program) runs only without gradients; train in eager mode, "
+            f"or call the kernel under torch.no_grad()")
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor,
            tiles: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
-    """``x(M,K) @ w(K,N)`` through K1 (CUDA) or its plain version (CPU)."""
+    """``x(M,K) @ w(K,N)`` through K1 (CUDA) or its plain version (CPU).
+    Refuses autograd (:func:`refuse_grad`)."""
+    refuse_grad("K1 (tiled matmul)", x, w)
     M, K = x.shape
     N = w.shape[1]
     bm, bn, bk = (tiles[:3] if tiles is not None
@@ -425,7 +447,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     tiles: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
     """Attention forward through K2 (CUDA) or its plain version (CPU).
     ``tiles`` carries the unified 3-head action; attention uses the first
-    two factors.  k and v keep their Hkv heads (GQA)."""
+    two factors.  k and v keep their Hkv heads (GQA).  Refuses autograd
+    (:func:`refuse_grad`)."""
+    refuse_grad("K2 (flash attention forward)", q, k, v)
     Sq, Skv = q.shape[2], k.shape[2]
     bq, bkv = (tiles[:2] if tiles is not None
                else _default_attn_tiles(Sq, Skv))
@@ -439,7 +463,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def chunk_scan(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                la: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     """The SSD chunk scan through K3 (CUDA) or its plain version (CPU).
-    x (G,S,P); Bm/Cm (G,S,N); la (G,S) log-decay; ``chunk`` the tuned Q."""
+    x (G,S,P); Bm/Cm (G,S,N); la (G,S) log-decay; ``chunk`` the tuned Q.
+    Refuses autograd (:func:`refuse_grad`)."""
+    refuse_grad("K3 (SSD chunk scan)", x, Bm, Cm, la)
     if _route(x) == "cuda":
         return kcs.chunk_scan_cuda(x, Bm, Cm, la, chunk=chunk)
     return kcs.chunk_scan_plain(x, Bm, Cm, la, chunk=chunk)

@@ -1,0 +1,193 @@
+"""Training driver: data pipeline -> train step -> checkpoints, with
+fault-tolerance wiring (auto-resume, preemption checkpointing, straggler
+monitor); the port of ``repro/launch/train.py``.  Runs on the GPU unless
+``--device cpu`` is given::
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_3b \\
+      --steps 50 --ckpt-dir /tmp/ckpt --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_3b \\
+      --full --batch 4 --seq 512 --steps 5
+
+Training is eager: no kernel has a backward (nor has any Pallas kernel of
+the reference), so ``--tune prog.json`` injects the tile program and the
+first step raises ``NotImplementedError`` (``kernels.ops.refuse_grad``),
+as the reference's does.  One card: ``--model-parallel`` above 1 raises.
+On the card it also prints, before its last line, the median ms
+of a step after the first from CUDA events (forward and backward, and
+the optimizer, apart), tokens/s and the peak of
+``torch.cuda.max_memory_allocated``.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+
+from repro_torch.checkpoint.checkpoint import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+from repro_torch.device import resolve_device
+from repro_torch.ft.monitor import PreemptionHandler, StepMonitor
+from repro_torch.models.lm import build_model
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.steps import make_train_state, make_train_step
+
+
+@dataclass
+class TrainResult:
+    """What one training run produced, for callers that check it."""
+    losses: list
+    grad_norms: list
+    state: dict
+    start_step: int = 0
+    # (forward + backward ms, optimizer ms) a step from CUDA events, and
+    # their medians after the first step; empty and None on the CPU
+    step_ms: list = field(default_factory=list)
+    fwd_bwd_ms: Optional[float] = None
+    optimizer_ms: Optional[float] = None
+    peak_bytes: Optional[int] = None     # torch.cuda.max_memory_allocated
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="qwen3_8b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths and depth (default: the "
+                         "reduced test config)")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--tune", default="",
+                    help="TileProgram json from repro_torch.core.vectorizer; "
+                         "routes hot ops through the tuned kernels, which "
+                         "have no backward: the first step raises")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def _median_step_ms(step_ms: list) -> tuple:
+    """Median forward + backward and optimizer ms after the first step
+    (which includes the allocator's warmup); the one step if that is all."""
+    rest = step_ms[1:] or step_ms
+    return (statistics.median(fb for fb, _ in rest),
+            statistics.median(opt for _, opt in rest))
+
+
+def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
+    """Train as ``args`` say; ``cfg``, when given, is the model in place
+    of the one ``--arch`` and ``--full`` name (a published width at a cut
+    depth, say)."""
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            f"--model-parallel {args.model_parallel}: the port trains on "
+            f"one card (the reference's mesh and sharding are not ported)")
+    device = resolve_device(args.device)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if not args.full:
+            cfg = cfg.reduced()
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    model = build_model(cfg)
+    opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
+                          warmup_steps=max(1, args.steps // 10))
+    pipe = SyntheticPipeline(cfg, shape, DataConfig(seed=0), device=device)
+    step_fn = make_train_step(model, opt_cfg, accum=args.accum)
+
+    state = make_train_state(model, 0, opt_cfg, device=device)
+    start_step = 0
+    mgr = None
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        state, restored = mgr.restore(state)
+        if restored is not None:
+            start_step = restored
+            print(f"[train] resumed from step {restored}")
+
+    tune_ctx = None
+    if args.tune:
+        from repro_torch.core.vectorizer import TileProgram, inject
+        prog = TileProgram.load(args.tune)
+        tune_ctx = inject(prog)
+        tune_ctx.__enter__()
+        print(f"[tune] injected {len(prog.tiles)} kernel-site tile choices")
+
+    cuda = device.type == "cuda"
+    marks, step_ms = {}, []
+
+    def mark(label):
+        marks[label] = torch.cuda.Event(enable_timing=True)
+        marks[label].record()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    monitor = StepMonitor()
+    preempt = PreemptionHandler()
+    losses, gnorms = [], []
+    try:
+        for step in range(start_step, args.steps):
+            batch = pipe.batch_at(step)
+            monitor.start()
+            state, metrics = step_fn(state, batch, mark if cuda else None)
+            loss = float(metrics["loss"])
+            ev = monitor.stop(step)
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            if cuda:
+                marks["end"].synchronize()
+                step_ms.append((marks["start"].elapsed_time(marks["grads"]),
+                                marks["grads"].elapsed_time(marks["end"])))
+            if ev:
+                print(f"[ft] straggler flagged: {ev}")
+            if step % 10 == 0 or step == args.steps - 1:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {gnorms[-1]:.3f} "
+                      f"lr {float(metrics['lr']):.2e}")
+            if mgr and ((step + 1) % args.ckpt_every == 0):
+                mgr.save_async(state, step + 1)
+            if preempt.should_stop:
+                print("[ft] preemption signal — checkpointing and exiting")
+                if mgr:
+                    mgr.save(state, step + 1)
+                break
+        if mgr:
+            mgr.wait()
+    finally:
+        preempt.restore()
+        if tune_ctx is not None:
+            tune_ctx.__exit__(None, None, None)
+    peak = fb = opt = None
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(device)
+        if step_ms:
+            fb, opt = _median_step_ms(step_ms)
+            tok_s = args.batch * args.seq / ((fb + opt) / 1e3)
+            print(f"[train] ms a step (CUDA events, median of "
+                  f"{max(1, len(step_ms) - 1)} after the first): forward+"
+                  f"backward {fb:.2f}, optimizer {opt:.2f}, total "
+                  f"{fb + opt:.2f}; {tok_s:.0f} tokens/s; peak memory "
+                  f"{peak / 2**30:.2f} GiB "
+                  f"(torch.cuda.max_memory_allocated)")
+    print(f"[train] done: first loss {losses[0]:.4f} -> last "
+          f"{losses[-1]:.4f}")
+    return TrainResult(losses=losses, grad_norms=gnorms, state=state,
+                       start_step=start_step, step_ms=step_ms,
+                       fwd_bwd_ms=fb, optimizer_ms=opt, peak_bytes=peak)
+
+
+def main(argv=None) -> list:
+    """The reference's entry point: the losses of the steps run."""
+    return run(parse_args(argv)).losses
+
+
+if __name__ == "__main__":
+    main()

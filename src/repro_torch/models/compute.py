@@ -161,21 +161,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _mem_efficient_attention(q, k, v, *, causal, scale, bq, bkv):
-    """Forward of the reference's ``_mem_efficient_attention``: the flash
-    algorithm over (bq, bkv) chunks, in the reference's op order."""
+    """The reference's ``_mem_efficient_attention``: the flash algorithm
+    over (bq, bkv) chunks, whose backward saves only ``(q, k, v, o, lse)``
+    and recomputes each probability block (an autograd ``Function``, as
+    the reference's is a ``jax.custom_vjp``)."""
+    return _MemEfficientAttention.apply(q, k, v, causal, scale, bq, bkv)
+
+
+def _acc_dtype(q: torch.Tensor) -> torch.dtype:
+    """f32 accumulators, as the reference's; f64 for f64 inputs (gradcheck)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _mea_fwd(q, k, v, causal, scale, bq, bkv):
+    """Forward of the reference's ``_mea_fwd_impl`` in its op order:
+    ``(o, lse)``, ``lse`` (B, H, Sq) in the accumulators' dtype."""
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     Dv = v.shape[-1]
+    f = dict(dtype=_acc_dtype(q), device=q.device)
     out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), **f)
     for i0 in range(0, Sq, bq):
         qi = q[:, :, i0:i0 + bq]
+        # bottom-right aligned causal offset, as the reference's
         q_pos = i0 + torch.arange(bq, device=q.device) + (Skv - Sq)
-        m = torch.full((B, H, bq), NEG_INF, device=q.device)
-        l = torch.zeros((B, H, bq), device=q.device)
-        acc = torch.zeros((B, H, bq, Dv), device=q.device)
+        m = torch.full((B, H, bq), NEG_INF, **f)
+        l = torch.zeros((B, H, bq), **f)
+        acc = torch.zeros((B, H, bq, Dv), **f)
         for j0 in range(0, Skv, bkv):
             kj, vj = k[:, :, j0:j0 + bkv], v[:, :, j0:j0 + bkv]
-            s = (qi @ kj.transpose(-1, -2)).float() * scale
+            s = (qi @ kj.transpose(-1, -2)).to(f["dtype"]) * scale
             if causal:
                 k_pos = j0 + torch.arange(bkv, device=q.device)
                 s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
@@ -183,8 +199,65 @@ def _mem_efficient_attention(q, k, v, *, causal, scale, bq, bkv):
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + (p.to(vj.dtype) @ vj).float()
+            acc = acc * corr[..., None] + (p.to(vj.dtype) @ vj).to(f["dtype"])
             m = m_new
         l = torch.clamp(l, min=1e-30)
         out[:, :, i0:i0 + bq] = (acc / l[..., None]).to(q.dtype)
-    return out
+        lse[:, :, i0:i0 + bq] = m + torch.log(l)
+    return out, lse
+
+
+def _mea_bwd(q, k, v, o, lse, do, causal, scale, bq, bkv):
+    """The reference's ``_mea_bwd`` in its op order: ``delta = sum(do·o)``,
+    then for each kv block the q blocks in turn, each probability block
+    recomputed as ``exp(s - lse)``; ``dq``, ``dk`` and ``dv`` accumulate
+    in f32 and are cast back to their inputs' dtypes."""
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    Dv = v.shape[-1]
+    acc = _acc_dtype(q)
+    f = dict(dtype=acc, device=q.device)
+    delta = (do.to(acc) * o.to(acc)).sum(-1)                    # (B,H,Sq)
+    dq = torch.zeros((B, H, Sq, D), **f)
+    dk = torch.empty((B, H, Skv, D), **f)
+    dv = torch.empty((B, H, Skv, Dv), **f)
+    for j0 in range(0, Skv, bkv):
+        kj, vj = k[:, :, j0:j0 + bkv], v[:, :, j0:j0 + bkv]
+        kjf, vjf = kj.to(acc), vj.to(acc)
+        k_pos = j0 + torch.arange(bkv, device=q.device)
+        dkj = torch.zeros((B, H, bkv, D), **f)
+        dvj = torch.zeros((B, H, bkv, Dv), **f)
+        for i0 in range(0, Sq, bq):
+            qi = q[:, :, i0:i0 + bq]
+            doi = do[:, :, i0:i0 + bq].to(acc)
+            q_pos = i0 + torch.arange(bq, device=q.device) + (Skv - Sq)
+            s = (qi @ kj.transpose(-1, -2)).to(acc) * scale
+            if causal:
+                s = s.masked_fill(k_pos[None, :] > q_pos[:, None], NEG_INF)
+            p = torch.exp(s - lse[:, :, i0:i0 + bq, None])      # (B,H,bq,bkv)
+            dvj = dvj + p.transpose(-1, -2) @ doi
+            dp = doi @ vjf.transpose(-1, -2)
+            ds = p * (dp - delta[:, :, i0:i0 + bq, None]) * scale
+            dkj = dkj + ds.transpose(-1, -2) @ qi.to(acc)
+            dq[:, :, i0:i0 + bq] += ds @ kjf
+        dk[:, :, j0:j0 + bkv] = dkj
+        dv[:, :, j0:j0 + bkv] = dvj
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _MemEfficientAttention(torch.autograd.Function):
+    """``o`` of :func:`_mea_fwd`; saves ``(q, k, v, o, lse)`` and nothing
+    else, so no (bq, bkv) block outlives the forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, bq, bkv):
+        o, lse = _mea_fwd(q, k, v, causal, scale, bq, bkv)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, bq, bkv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _mea_bwd(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None, None

@@ -2,15 +2,16 @@
 dense decoder and the xLSTM stack).  ``build_model(cfg)`` returns a :class:`Model` of plain functions:
 
 * ``init(seed, device)``                          -> params
-* ``train_loss(params, batch)``                   -> (loss, metrics), forward
+* ``train_loss(params, batch)``                   -> (loss, metrics)
 * ``prefill(params, batch, cache)``               -> (last_logits, cache)
 * ``decode_step(params, token, pos, cache)``      -> (logits, cache)
 * ``make_cache(batch, ctx, dtype, device)``       -> zeroed cache
 
 Parameters keep the reference's tree: each period slot's leaves are
 stacked along a leading layer axis (``repro_torch.convert`` maps a JAX
-tree one to one).  Layers run in a Python loop over that axis.  The cache
-is updated in place.
+tree one to one).  Layers run in a Python loop over that axis, each
+recomputed in the backward of ``train_loss``.  The cache is updated in
+place.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDesc, ModelConfig
 from repro_torch.models import blocks, compute
@@ -101,9 +103,17 @@ def model_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
     return p
 
 
-def _layer(tree, i):
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each a tree of views.  One
+    ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a zero-padded copy of the whole
+    stack into the leaf's gradient once a layer."""
+    layers = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+        for layer, part in zip(layers, parts):
+            layer[k] = part
+    return layers
 
 
 def _embed(cfg, params, tokens):
@@ -119,18 +129,27 @@ def _logits(cfg, params, x):
 
 
 def decoder_forward(cfg, params, tokens, caches=None, decode_pos=None):
+    """The stack's output.  Under autograd and without a cache each layer
+    is recomputed in the backward, as the reference's
+    ``jax.checkpoint(..., policy=nothing_saveable)`` does: only the
+    layers' inputs are kept."""
     x = _embed(cfg, params, tokens)
     S = x.shape[1]
     start = 0 if decode_pos is None else decode_pos
     positions = torch.arange(start, start + S, device=x.device)
+    remat = torch.is_grad_enabled() and caches is None
+    layers = [_unstack(slot, cfg.n_periods) for slot in params["blocks"]]
     for i in range(cfg.n_periods):
         for slot, b in enumerate(cfg.period):
             cache = None
             if caches is not None:
                 cache = {k: v[i] for k, v in caches[slot].items()}
-            x = blocks.block_apply(cfg, b, _layer(params["blocks"][slot], i),
-                                   x, positions=positions, causal=True,
-                                   cache=cache, decode_pos=decode_pos)
+            apply = functools.partial(
+                blocks.block_apply, cfg, b, layers[slot][i],
+                positions=positions, causal=True, cache=cache,
+                decode_pos=decode_pos)
+            x = checkpoint(apply, x, use_reentrant=False) if remat \
+                else apply(x)
     return apply_norm(params["final_norm"], x)
 
 
@@ -141,7 +160,8 @@ def _xent(logits, targets):
 
 
 def train_loss(cfg: ModelConfig, params, batch):
-    """Forward loss (cross-entropy in f32, as the reference's)."""
+    """The loss (cross-entropy in f32, as the reference's) and its metrics;
+    differentiable, each layer recomputed in the backward."""
     x = decoder_forward(cfg, params, batch["tokens"])
     loss = _xent(_logits(cfg, params, x), batch["targets"])
     zero = torch.zeros((), device=loss.device)

@@ -5,8 +5,9 @@ A tree is a tensor, or a dict, list or tuple of trees.  Moments are f32
 whatever the parameters' dtype.  Weight decay is decoupled and applies to
 tensors with ``ndim >= 2`` only, as the reference's does
 (``torch.optim.AdamW`` decays every tensor, 1-D ones too, and so is not
-used).  ``update`` returns new tensors and never writes into its
-arguments; a caller holding ``nn.Parameter``s copies the result in.
+used).  ``update_`` writes the new parameters and moments in place (one
+copy of the state, whatever its size); ``update`` is its functional
+form, which returns new tensors and never writes into its arguments.
 """
 from __future__ import annotations
 
@@ -81,31 +82,51 @@ def global_norm(tree) -> torch.Tensor:
                           for g in _leaves(tree)))
 
 
-def update(cfg: AdamWConfig, grads, state: dict, params):
-    """One AdamW step: ``(new_params, new_state, metrics)`` with metrics
-    ``{"grad_norm", "lr"}``.  ``grads`` has ``params``' structure."""
+# elements of a leaf updated at once by ``update_``: bounds its f32
+# temporaries (at most four of this size) whatever the leaf's size
+CHUNK = 1 << 24
+
+
+@torch.no_grad()
+def update_(cfg: AdamWConfig, grads, state: dict, params) -> dict:
+    """One AdamW step in place: writes the new parameters into ``params``
+    and the new moments and step into ``state``; returns the metrics
+    ``{"grad_norm", "lr"}``.  ``grads`` has ``params``' structure; each
+    leaf is taken in flat chunks of ``CHUNK`` elements."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    step = state["step"] + 1
+    state["step"].add_(1)
+    step = state["step"]
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
+    for p, g, m, v in zip(_leaves(params), _leaves(grads),
+                          _leaves(state["m"]), _leaves(state["v"])):
+        decay = p.ndim >= 2
+        # p, m and v are written through views; g may have any layout
+        pcs, mcs, vcs = (t.view(-1).split(CHUNK) for t in (p, m, v))
+        gcs = g.reshape(-1).split(CHUNK)
+        for pc, gc, mc, vc in zip(pcs, gcs, mcs, vcs):
+            gc = gc.float() * scale
+            mc.mul_(b1).add_((1 - b1) * gc)
+            vc.mul_(b2).add_(((1 - b2) * gc).mul_(gc))
+            u = (mc / bc1).div_(torch.sqrt(vc / bc2).add_(cfg.eps))
+            if decay:
+                u.add_(cfg.weight_decay * pc.float())
+            pc.copy_(pc.float() - u.mul_(lr))
+    return {"grad_norm": gnorm, "lr": lr}
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g * g
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if p.ndim >= 2:     # decoupled weight decay on matrices only
-            u = u + cfg.weight_decay * p.float()
-        return (p.float() - lr * u).to(p.dtype), m, v
 
-    res = [upd(p, g, m, v) for p, g, m, v in
-           zip(_leaves(params), _leaves(grads), _leaves(state["m"]),
-               _leaves(state["v"]))]
-    return (_unflatten(params, iter([r[0] for r in res])),
-            {"m": _unflatten(params, iter([r[1] for r in res])),
-             "v": _unflatten(params, iter([r[2] for r in res])),
-             "step": step},
-            {"grad_norm": gnorm, "lr": lr})
+def update(cfg: AdamWConfig, grads, state: dict, params):
+    """``update_`` on copies: ``(new_params, new_state, metrics)``, the
+    arguments left as they were."""
+    def copy(tree):
+        return _unflatten(tree, iter([
+            t.detach().clone(memory_format=torch.contiguous_format)
+            for t in _leaves(tree)]))
+    new_params = copy(params)
+    new_state = {"m": copy(state["m"]), "v": copy(state["v"]),
+                 "step": state["step"].clone()}
+    metrics = update_(cfg, grads, new_state, new_params)
+    return new_params, new_state, metrics

@@ -10,7 +10,7 @@ small-corpus variance of a single fit.  Each member is an ``nn.Module``
 stores it), He-normal initialized from a CPU ``torch.Generator`` seeded
 by ``seed``, so the initial weights do not depend on the device.
 Training is full-batch f32, one ``loss.backward()`` and one
-:func:`repro_torch.optim.adamw.update` a step with the reference's
+:func:`repro_torch.optim.adamw.update_` a step with the reference's
 schedule.
 
 The model lives on the card unless ``device="cpu"`` is asked for.  f32
@@ -116,11 +116,7 @@ def _train_member(member: Member, X: torch.Tensor, y: torch.Tensor,
         loss = torch.mean((member(X) - y) ** 2)
         loss.backward()
         grads = [{"w": l["w"].grad, "b": l["b"].grad} for l in params]
-        with torch.no_grad():
-            new, opt, _ = adamw.update(cfg, grads, opt, params)
-            for old_l, new_l in zip(params, new):
-                old_l["w"].copy_(new_l["w"])
-                old_l["b"].copy_(new_l["b"])
+        adamw.update_(cfg, grads, opt, params)
         losses.append(loss.detach())
     return torch.stack(losses) if losses else torch.zeros(0)
 

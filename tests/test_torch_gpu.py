@@ -875,3 +875,91 @@ def test_pruned_measured_fit_times_at_most_k_plus_1_pairs_a_site(cuda):
     prog = tune(sites, agent, env.space, env)
     assert all(ops.tile_ok(s, prog.tiles[s.key()]) for s in sites)
     env.measure_fn.transport.close()
+
+
+# ---------------------------------------------------------------------------
+# the train path on the card
+# ---------------------------------------------------------------------------
+
+def test_attention_backward_on_the_card_matches_the_cpu(cuda):
+    """The memory-efficient attention's ``Function`` in f32 (causal,
+    Sq < Skv, Dv != D, several blocks each way): o, dq, dk and dv on the
+    card within 1e-4 of the same call on the CPU (summation order only)."""
+    from repro_torch.models import compute
+    rng = np.random.default_rng(0)
+    shapes = [(2, 4, 64, 32), (2, 4, 96, 32), (2, 4, 96, 48), (2, 4, 64, 48)]
+    q, k, v, do = (rng.standard_normal(s, dtype=np.float32) for s in shapes)
+    out = {}
+    for dev in ("cpu", cuda):
+        qt, kt, vt = (torch.from_numpy(a).to(dev).requires_grad_(True)
+                      for a in (q, k, v))
+        o = compute._mem_efficient_attention(qt, kt, vt, causal=True,
+                                             scale=32 ** -0.5, bq=16,
+                                             bkv=32)
+        grads = torch.autograd.grad(o, (qt, kt, vt),
+                                    torch.from_numpy(do).to(dev))
+        out[str(dev)] = [t.detach().cpu() for t in (o, *grads)]
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert float((a - b).abs().max()) < 1e-4
+
+
+def _train_step_on(device):
+    from repro_torch.optim.adamw import AdamWConfig, _leaves, _unflatten
+    from repro_torch.train.steps import make_train_state, make_train_step
+    model = build_model(get_config("stablelm_3b").reduced())
+    # made on the CPU: a CUDA generator draws other weights from one seed
+    state = make_train_state(model, 0, AdamWConfig(), device="cpu")
+    state = _unflatten(state, iter([t.to(device) for t in _leaves(state)]))
+    tok = torch.randint(0, 256, (4, 33),
+                        generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": tok[:, :-1].to(device),
+             "targets": tok[:, 1:].to(device)}
+    state, m = make_train_step(model, AdamWConfig(warmup_steps=1))(
+        state, batch)
+    return float(m["loss"]), float(m["grad_norm"]), state
+
+
+def test_one_train_step_on_the_card_matches_the_cpu(cuda):
+    """One step of the reduced (f32) StableLM, the same weights from seed
+    0 and the same batch: the loss and the gradient norm within 1e-5
+    relative, every updated parameter within 5e-5 of the CPU's."""
+    from repro_torch.optim.adamw import _leaves
+    lc, gc, sc = _train_step_on("cpu")
+    lg, gg, sg = _train_step_on(cuda)
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(gg - gc) <= 1e-5 * gc
+    for a, b in zip(_leaves(sc["params"]), _leaves(sg["params"])):
+        assert float((a - b.cpu()).abs().max()) < 5e-5
+
+
+def test_kernel_mode_refuses_grad_on_the_card(cuda):
+    """The 2-layer bf16 StableLM under an injected program: with the
+    parameters requiring grad the first K1 call raises; under no_grad the
+    kernels run and the loss is eager's within 5e-3 relative."""
+    from repro_torch.core.extractor import extract_sites, meta_batch
+    from repro_torch.optim.adamw import _leaves
+    cfg = get_config("stablelm_3b").reduced(
+        n_layers=2, d_model=640, n_heads=8, n_kv_heads=8, head_dim=80,
+        d_ff=1024, vocab_size=1000, dtype="bfloat16")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    tok = torch.randint(0, 1000, (2, 129),
+                        generator=torch.Generator().manual_seed(0)).to(cuda)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    prog = baseline_program(extract_sites(
+        lambda p, b: model.train_loss(p, b), model.init(device="meta"),
+        meta_batch(2, 128)))
+    for p in _leaves(params):
+        p.requires_grad_(True)
+    before = (kmm.launches, kfa.launches)
+    with inject(prog), pytest.raises(NotImplementedError,
+                                     match="has no backward"):
+        model.train_loss(params, batch)
+    assert (kmm.launches, kfa.launches) == before
+    for p in _leaves(params):
+        p.requires_grad_(False)
+    with torch.no_grad():
+        le, _ = model.train_loss(params, batch)
+        with inject(prog):
+            lk, _ = model.train_loss(params, batch)
+    assert (kmm.launches - before[0], kfa.launches - before[1]) == (15, 2)
+    assert abs(float(lk) - float(le)) <= 5e-3 * abs(float(le))
