@@ -30,7 +30,13 @@ Phases, each printed before the last line:
      jamba_v0_1_52b's ssm.chunk_scan site (S=262144, P=64, N=16, Q=256),
      each K3 line with its variant (ops.chunk_launch_plan), the device ms
      of each pass and their sum, and the share of the bound that sum
-     reaches.  Each shape prints the kernel's ms (the median over repeats
+     reaches; then K1 under the baseline tile at every matmul shape of the
+     starcoder2_7b, chatglm3_6b, phi3_vision_4_2b and seamless_m4t_medium
+     serves (seamless's lm_head 4x256206x1024 through head.T among them)
+     and K2 at each of their prefill attentions (GQA groups of 9 and 16,
+     D = 96 at S = 768, D = 64 causal and not), each in the served
+     layout, after holding how often a pass calls each site against
+     per_pass_launches.  Each shape prints the kernel's ms (the median over repeats
      of 20 calls back to back), the plain version's, one PyTorch call's where
      there is one (a yardstick only, never called by the port, timed the
      same way) and the bound max(flops / 989e12, bytes / 3.35e12) s; each
@@ -80,9 +86,9 @@ Phases, each printed before the last line:
      and 10 is held against;
   7. one JSON line describing each kernel of the paths (K1 and K2 with
      their launches by variant and their StableLM-3B numbers, K1 also at
-     the train lm_head, K3 with its device ms by pass and chunk and the
-     Mamba-2 head), printed last so that the launches of phases 8-11
-     count in it;
+     the train lm_head, K1 and K2 at each phase-12 arch's baseline tiles,
+     K3 with its device ms by pass and chunk and the Mamba-2 head),
+     printed last so that the launches of phases 8-12 count in it;
   8. the facade (run between phases 6 and 7): the full-width StableLM-3B
      through repro_torch.api only.  A brute-force NeuroVectorizer against
      the measured oracle, with a fresh timing DB and program store under
@@ -151,7 +157,22 @@ Phases, each printed before the last line:
      4 dropped and a resume whose losses match within 1e-4 (one save's
      bytes and seconds; the directory deleted), and accum 2 against
      accum 1;
- 12. each phase's wall seconds, then the last line:
+ 12. four more archs served (after phase 11, before phase 7): the
+     seed-0 init of every ported arch at full width on the card, timed;
+     then starcoder2_7b (GELU MLP, GQA 36/4), chatglm3_6b (2-D RoPE, GQA
+     32/2), phi3_vision_4_2b (a 256-row frontend.proj prefix, head dim
+     96) and seamless_m4t_medium (encoder-decoder, cross-attention, head
+     dim 64, vocab 256206), one after another at full width and depth,
+     batch 4, prompt 512, 16 tokens: serve eager, then --autotune ppo
+     --inject against the cost model (legality h100) with the counters
+     zeroed just before and read just after, each pass's launches as
+     per_pass_launches says, no unaligned variant, the injected prefill
+     logits within LOGIT_TOL of eager's, both runs' greedy tokens, and K2
+     at each tuned prefill tile that phase 3 did not check; phase 3
+     already held K1 at each of their matmul shapes and K2 at each of
+     their prefill attentions (non-causal at D = 64 among them) under the
+     baseline tiles;
+ 13. each phase's wall seconds, then the last line:
      {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
@@ -195,6 +216,9 @@ RECUR_TOL = 1e-3            # f32 chunkwise prefill vs f32 token-by-token
 ARCH, BATCH, PROMPT, GEN, STEPS = "qwen3_8b", 4, 512, 16, 2000
 XLSTM = "xlstm_1_3b"
 STABLELM = "stablelm_3b"
+PHASE12_ARCHS = ("starcoder2_7b", "chatglm3_6b", "phi3_vision_4_2b",
+           "seamless_m4t_medium")       # served in phase 12
+STEPS_12 = STEPS                        # PPO steps of a phase-12 fit
 # tests/test_system.py's PPO for the main-path loop: its NeuroVecConfig,
 # learning rate and budget, on dataset.generate(400, seed=0, base=sites)
 LOOP_NV = dict(train_batch=256, sgd_minibatch=64, ppo_epochs=4)
@@ -259,10 +283,11 @@ def k1_shapes(sites):
     return out
 
 
-def k1_check(shape, tiles, label, gen):
-    """K1 vs plain and torch.matmul at one shape; returns a record.  At
-    M = 4 (bound by reading w) the times are over copies of w that exceed
-    COLD_BYTES together, the warm-L2 time (one w) printed beside them."""
+def k1_agree(shape, tiles, gen):
+    """K1 launched once at ``shape`` under ``tiles`` on random bf16
+    operands, held against the f32 product (fails at K1_TOL of its
+    largest) and its plain version: ``(x, w, weight, record)``,
+    ``weight()`` drawing another w of the same layout."""
     import torch
     from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ops, ref
@@ -283,18 +308,31 @@ def k1_check(shape, tiles, label, gen):
     if len(ran) != 1 or sum(kmm.launches_by_variant.values()) != \
             sum(before.values()) + 1:
         fail(f"K1 did not launch once at {shape}: {ran}")
-    variant = ran[0]
     yr = ref.matmul_ref(x, w).float()
     y_f32 = x.float() @ w.float()
     err = float((y.float() - y_f32).abs().max())
     rel = err / (float(y_f32.abs().max()) + 1e-9)
     if not torch.isfinite(y).all() or rel >= K1_TOL:
         fail(f"K1 {shape} tiles {tiles}: rel err {rel:.3e} >= {K1_TOL}")
-    plain_err = float((y.float() - yr).abs().max())
     # bf16 outputs that differ from cuBLAS's at all (0 only where both
     # happen to sum K in an order that rounds alike)
-    n_ne_lib = int((y != torch.matmul(x, w)).sum())
-    del y_f32, yr
+    rec = {"err": err, "rel": rel, "variant": ran[0],
+           "plain_err": float((y.float() - yr).abs().max()),
+           "n_ne_lib": int((y != torch.matmul(x, w)).sum())}
+    return x, w, weight, rec
+
+
+def k1_check(shape, tiles, label, gen):
+    """K1 vs plain and torch.matmul at one shape; returns a record.  At
+    M = 4 (bound by reading w) the times are over copies of w that exceed
+    COLD_BYTES together, the warm-L2 time (one w) printed beside them."""
+    import torch
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    M, N, K, transposed = shape
+    x, w, weight, rec = k1_agree(shape, tiles, gen)
+    err, rel, variant = rec["err"], rec["rel"], rec["variant"]
+    plain_err, n_ne_lib = rec["plain_err"], rec["n_ne_lib"]
     ws = [(x, w)]
     if M <= 8:
         nbytes_w = 2.0 * K * N
@@ -405,14 +443,14 @@ def k1_sweep(site, gen):
 # phase 3: K2
 # ---------------------------------------------------------------------------
 
-def k2_call(q, k, v, tiles):
-    """One causal K2 call through ops.flash_attention; returns the output
-    and the variant that ran."""
+def k2_call(q, k, v, tiles, causal=True):
+    """One K2 call through ops.flash_attention; returns the output and
+    the variant that ran."""
     import torch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
     before = dict(kfa.launches_by_variant)
-    y = ops.flash_attention(q, k, v, causal=True,
+    y = ops.flash_attention(q, k, v, causal=causal,
                             scale=q.shape[-1] ** -0.5, tiles=tiles)
     torch.cuda.synchronize()
     ran = [x for x in kfa.VARIANTS
@@ -433,7 +471,7 @@ def k2_work(B, H, Hkv, Sq, Skv, D, causal=True):
                                            + 2 * B * Hkv * Skv * D)
 
 
-def k2_line(label, q, k, v, t, ref_out=None):
+def k2_line(label, q, k, v, t, ref_out=None, causal=True):
     """K2 at tiles ``t`` against its plain version, with its ms (events,
     20 calls back to back), device ms (profiler), share of the bound and
     ratio to scaled_dot_product_attention on the same inputs."""
@@ -444,8 +482,8 @@ def k2_line(label, q, k, v, t, ref_out=None):
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     scale = D ** -0.5
-    y, variant = k2_call(q, k, v, t)
-    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=scale,
+    y, variant = k2_call(q, k, v, t, causal)
+    yp = kfa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                    bq=t[0], bkv=t[1])
     err = float((y.float() - yp.float()).abs().max())
     if not torch.isfinite(y).all() or err >= K2_TOL:
@@ -455,23 +493,24 @@ def k2_line(label, q, k, v, t, ref_out=None):
         err_ref = f"|k-ref_f32|={float((y.float() - ref_out).abs().max()):.3e} "
     del y, yp
     ms = time_ms_over(lambda: ops.flash_attention(
-        q, k, v, causal=True, scale=scale, tiles=t), [()])
+        q, k, v, causal=causal, scale=scale, tiles=t), [()])
     dev = sum(device_ms_by_kernel(lambda: ops.flash_attention(
-        q, k, v, causal=True, scale=scale, tiles=t)).values()) or None
+        q, k, v, causal=causal, scale=scale, tiles=t)).values()) or None
     plain_ms = time_ms_over(lambda: kfa.flash_attention_plain(
-        q, k, v, causal=True, scale=scale, bq=t[0], bkv=t[1]), [()],
+        q, k, v, causal=causal, scale=scale, bq=t[0], bkv=t[1]), [()],
         reps=5, calls=1)
     def sdpa():
         return F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=H != Hkv)
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=H != Hkv)
     lib_ms = time_ms_over(sdpa, [()])
     lib_dev = sum(device_ms_by_kernel(sdpa).values()) or None
-    flops, nbytes = k2_work(B, H, Hkv, S, k.shape[2], D)
+    flops, nbytes = k2_work(B, H, Hkv, S, k.shape[2], D, causal)
     b, by = bound_s(flops, nbytes)
     share_ms = dev if dev is not None else ms
     dev_ratio = (f"{dev / lib_dev:.2f}x" if dev and lib_dev
                  else "not measured")
-    print(f"[k2:{label}] B={B} H={H} Hkv={Hkv} S={S} D={D} causal "
+    print(f"[k2:{label}] B={B} H={H} Hkv={Hkv} S={S} D={D} "
+          f"{'causal' if causal else 'non-causal'} "
           f"tiles={t} variant={variant} |k-plain|={err:.3e} {err_ref}"
           f"ms={ms:.4f} device_ms="
           f"{'not measured' if dev is None else f'{dev:.4f}'} "
@@ -754,14 +793,30 @@ def read_counts():
 
 
 def per_pass_launches(cfg):
-    """Kernel launches of one prefill and of one decode step under
-    --inject: K1 at every matmul of a block and the head, K2 at prefill
-    attention; the mLSTM scan and the einsums stay plain PyTorch."""
-    per = {"attn": (7, 1), "mlstm": (2, 0), "slstm": (3, 0)}
-    mm = 1 + cfg.n_periods * sum(per[b.kind][0] for b in cfg.period)
-    att = cfg.n_periods * sum(per[b.kind][1] for b in cfg.period)
-    return ({"matmul": mm, "flash_attention": att, "chunk_scan": 0},
-            {"matmul": mm * (GEN - 1), "flash_attention": 0,
+    """Kernel launches of one prefill and of the GEN - 1 decode steps
+    under --inject: K1 at every matmul of a block (4 in the attention, 3
+    in a gated SiLU MLP, 2 in a GELU one), the head and a vision
+    frontend's projection (prefill only); K2 at prefill attention.  An
+    encoder-decoder's encoder runs in the prefill only, and each decoder
+    layer's cross-attention adds 4 matmuls and K2 in the prefill, 2
+    matmuls (q, o: its k/v are cached) a decode step.  The mLSTM scan and
+    the einsums stay plain PyTorch."""
+    mlp = 3 if cfg.act == "silu" else 2
+    per = {"attn": (4 + mlp, 1), "mlstm": (2, 0), "slstm": (3, 0)}
+    mm = sum(per[b.kind][0] for b in cfg.period)
+    att = sum(per[b.kind][1] for b in cfg.period)
+    if cfg.enc_dec:
+        n_enc = cfg.n_enc_layers // len(cfg.period)
+        n_dec = cfg.n_dec_layers // len(cfg.period)
+        pre_mm = 1 + n_enc * mm + n_dec * (mm + 4)
+        pre_att = n_enc * att + 2 * n_dec * att
+        dec_mm = 1 + n_dec * (mm + 2)
+    else:
+        pre_mm = 1 + cfg.n_periods * mm + (cfg.frontend == "vision")
+        pre_att = cfg.n_periods * att
+        dec_mm = 1 + cfg.n_periods * mm
+    return ({"matmul": pre_mm, "flash_attention": pre_att, "chunk_scan": 0},
+            {"matmul": dec_mm * (GEN - 1), "flash_attention": 0,
              "chunk_scan": 0})
 
 
@@ -2412,7 +2467,7 @@ def train_path(sl, gen):
     from repro_torch.launch import train
     from repro_torch.measure import make_measured_env
     from repro_torch.models import compute
-    from repro_torch.models.lm import build_model, decoder_forward
+    from repro_torch.models.lm import build_model, forward
     from repro_torch.optim.adamw import AdamWConfig, _leaves
     from repro_torch.train.steps import make_train_step
     out = {}
@@ -2475,7 +2530,7 @@ def train_path(sl, gen):
     out["loss_rel_err"] = rel
 
     def logits():       # the train forward's, at every position
-        x = decoder_forward(cfg, params, batch["tokens"])
+        x, _ = forward(cfg, params, batch)
         return compute.matmul(x, params["head"].T, site="lm_head").float()
     with torch.no_grad():
         eager_logits = logits()
@@ -2591,6 +2646,304 @@ def train_path(sl, gen):
     return counts, out
 
 
+# ---------------------------------------------------------------------------
+# phases 3 and 12: the four archs phase 12 serves
+# ---------------------------------------------------------------------------
+
+class CountingRecorder:
+    """A site recorder that also counts the calls of each site."""
+
+    def __init__(self):
+        from repro_torch.models.compute import SiteRecorder
+        self.rec, self.n = SiteRecorder(), {}
+
+    def record(self, s):
+        self.rec.record(s)
+        self.n[s.key()] = self.n.get(s.key(), 0) + 1
+
+
+def pass_site_counts(model):
+    """The serve's sites and how often one prefill and one decode step
+    call each, on ``meta`` tensors: ``(sites, prefill counts, decode
+    counts)``, counts by site key."""
+    import torch
+    from repro_torch.core.extractor import META, serve_batch, serve_ctx
+    from repro_torch.models import compute
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    params = model.init(device=META)
+    cache = model.make_cache(BATCH, serve_ctx(model.cfg, PROMPT, GEN),
+                             device=META)
+    prompts = torch.empty((BATCH, PROMPT), dtype=torch.long, device=META)
+    sites, counts = {}, []
+    for step, args in (
+            (make_prefill_step(model), (serve_batch(model.cfg, prompts),)),
+            (make_serve_step(model),
+             (torch.empty((BATCH, 1), dtype=torch.long, device=META), 0))):
+        rec = CountingRecorder()
+        with compute.compute_mode("eager", recorder=rec), torch.no_grad():
+            step(params, *args, cache)
+        counts.append(rec.n)
+        sites.update((s.key(), s) for s in rec.rec.unique_sites())
+    return list(sites.values()), counts[0], counts[1]
+
+
+def k2_inputs(cfg, site, gen):
+    """q, k, v of an attention site in the layout the model passes them:
+    q and k contiguous after RoPE, v the transposed view of its
+    projection; without RoPE (or at the cross-attention) all three the
+    transposed views."""
+    import torch
+    B, H, Hkv, D = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    def view(h, s_):
+        return torch.randn((B, s_, h, D), generator=gen,
+                           device="cuda").bfloat16().transpose(1, 2)
+
+    def contig(h, s_):
+        return torch.randn((B, h, s_, D), generator=gen,
+                           device="cuda").bfloat16()
+    rot = cfg.rope != "none" and not site.site.startswith("xattn")
+    mk = contig if rot else view
+    return mk(H, site.m), mk(Hkv, site.k), view(Hkv, site.k)
+
+
+def k2_key(cfg, site):
+    return (cfg.n_heads, cfg.n_kv_heads, site.m, site.k, site.n,
+            bool(site.causal))
+
+
+def k2_phase3_tile(site, base):
+    """The baseline tile, clamped to the sequence; where it does not
+    divide the sequence (Phi-3's 768 positions against the baseline's 512
+    keys: the reference's kernel refuses it too) the largest legal key
+    block below it at the same query block."""
+    from repro_torch.configs.neurovec import DEFAULT as NV
+    from repro_torch.kernels import ops
+    t = tuple(min(a, b) for a, b in zip(base, (site.m, site.k)))
+    if ops.attention_tiles_legal(site.m, site.k, site.n, *t):
+        return t
+    legal = [min(b, site.k) for b in NV.bkv_choices
+             if min(b, site.k) <= t[1] and
+             ops.attention_tiles_legal(site.m, site.k, site.n, t[0], b)]
+    print(f"[k2] {site.key()}: the baseline tile {t} does not divide the "
+          f"sequence; checked at {(t[0], max(legal))}", flush=True)
+    return t[0], max(legal)
+
+
+def phase12_kernel_checks(gen, k1_seen):
+    """Phase 3 at the four archs' serve shapes: K1 under the baseline tile
+    at every matmul shape not checked before (``k1_seen``), K2 at each
+    (Hq, Hkv, Sq, Skv, D, causal) of their prefill attention at its
+    baseline tile, in the served layout.  Returns per arch the records
+    and how often one prefill and one decode step launch each (their sum
+    held against ``per_pass_launches``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.models.lm import build_model
+    out = {}
+    for arch in PHASE12_ARCHS:
+        cfg = get_config(arch)
+        sites, n_pre, n_dec = pass_site_counts(build_model(cfg))
+        want_pre, want_dec = per_pass_launches(cfg)
+        k1_w, k2_w = {}, {}
+        for s in sites:
+            if s.kind == "matmul":
+                shape = (s.m, s.n, s.k, s.site == "lm_head")
+                k1_w[shape] = (k1_w.get(shape, 0) + n_pre.get(s.key(), 0)
+                               + n_dec.get(s.key(), 0))
+            elif s.m > 1:
+                k2_w[k2_key(cfg, s)] = (k2_w.get(k2_key(cfg, s), 0)
+                                        + n_pre.get(s.key(), 0))
+        got = (sum(n for k, n in n_pre.items() if k.startswith("matmul")),
+               sum(n for k, n in n_dec.items() if k.startswith("matmul")),
+               sum(k2_w.values()))
+        want = (want_pre["matmul"], want_dec["matmul"] // (GEN - 1),
+                want_pre["flash_attention"])
+        if got != want:
+            fail(f"{arch}: a pass calls (K1 prefill, K1 decode, K2) {got} "
+                 f"times, per_pass_launches says {want}")
+        k1, k2 = {}, {}
+        for s in sites:
+            if s.kind == "matmul":
+                shape = (s.m, s.n, s.k, s.site == "lm_head")
+                if shape in k1_seen:
+                    k1[shape] = k1_seen[shape]
+                elif shape not in k1:
+                    k1[shape] = k1_check(shape, baseline_tiles(s),
+                                         f"{arch} baseline:{s.site}", gen)
+            elif s.m > 1 and k2_key(cfg, s) not in k2:
+                q, k, v = k2_inputs(cfg, s, gen)
+                t = k2_phase3_tile(s, baseline_tiles(s)[:2])
+                k2[k2_key(cfg, s)] = dict(
+                    k2_line(f"{arch} {s.site}", q, k, v, t,
+                            causal=bool(s.causal)), tiles=t)
+                del q, k, v
+        k1_seen.update(k1)
+        out[arch] = {"k1": k1, "k1_launches": k1_w, "k2": k2,
+                     "k2_launches": k2_w}
+    return out
+
+
+def init_seconds(arch):
+    """The full-width seed-0 init of ``arch`` on the card: (params,
+    seconds, parameters)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim.adamw import _leaves
+    model = build_model(get_config(arch))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"[init] {arch}: seed-0 weights at full width on the card in "
+          f"{dt:.2f} s ({n / 1e9:.3f} B parameters, "
+          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
+          f" GB)", flush=True)
+    return params, dt, n
+
+
+def serve_arch(arch, params, checked, gen):
+    """Phase 12 for one arch at full width and depth, batch 4, prompt
+    512, 16 tokens, seed-0 weights: serve eager, then --autotune ppo
+    --inject against the cost model (legality h100), with the counters
+    zeroed just before and read just after the injected run.  Fails on
+    launch counts other than a pass's, an unaligned variant, a tuned
+    tile that cannot launch, or injected prefill logits farther than
+    LOGIT_TOL from eager's (over their largest).  K1 and K2 are held
+    against their plain versions at each tuned tile that phase 3 did not
+    check (``checked``: its records of the arch, under the baseline
+    tiles)."""
+    import torch
+    from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    base = ["--arch", arch, "--full", "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN)]
+    zero_counts()
+    eager = serve.run(serve.parse_args(base), params=params)
+    if any(read_counts().values()):
+        fail(f"{arch}: the eager serve launched {read_counts()}")
+    argv = base + ["--autotune", "ppo", "--autotune-steps", str(STEPS_12),
+                   "--inject"]
+    print(f"[serve12] serve.run({argv})", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = serve.run(serve.parse_args(argv), params=params,
+                    prompts=eager.prompts)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    cfg = res.model.cfg
+    want_pre, want_dec = per_pass_launches(cfg)
+    if res.launches != {"prefill": want_pre, "decode": want_dec}:
+        fail(f"{arch}: launch counts by pass {res.launches}")
+    n_pre = 1 + len(res.prefill_ms_runs)
+    n_dec = 1 + len(res.decode_tok_s_runs)
+    total = {k: res.tuning["launches"][k] + want_pre[k] * n_pre
+             + want_dec[k] * n_dec for k in counts}
+    if counts != total or counts["matmul"] == 0 or \
+            counts["flash_attention"] == 0:
+        fail(f"{arch}: total launch counts {counts} != {total}")
+    path_variants(f"serve12:{arch}", counts)
+    bad = [s.key() for s in res.sites
+           if not ops.tile_ok(s, res.prog.tiles[s.key()])]
+    if bad:
+        fail(f"{arch}: tuned tiles that cannot launch: {bad}")
+    logits, el = res.prefill_logits, eager.prefill_logits
+    if logits.shape != (BATCH, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or \
+            res.seq.shape != (BATCH, GEN):
+        fail(f"{arch}: logits {tuple(logits.shape)} / tokens "
+             f"{tuple(res.seq.shape)}")
+    rel = float((logits - el).abs().max() / el.abs().max())
+    agree = float((res.seq == eager.seq).float().mean())
+    print(f"[serve12:{arch}] wall {wall:.1f} s (PPO {STEPS_12} steps "
+          f"against the cost model included); eager: prefill ms "
+          f"{eager.prefill_ms:.2f} of "
+          f"{[round(t, 2) for t in eager.prefill_ms_runs]}, decode tok/s "
+          f"{eager.decode_tok_s:.2f} of "
+          f"{[round(t, 2) for t in eager.decode_tok_s_runs]}; kernels: "
+          f"prefill ms {res.prefill_ms:.2f} of "
+          f"{[round(t, 2) for t in res.prefill_ms_runs]}, decode tok/s "
+          f"{res.decode_tok_s:.2f} of "
+          f"{[round(t, 2) for t in res.decode_tok_s_runs]}; "
+          f"TPU-v5e-modelled speedup {res.modelled_speedup:.3f}x (cost "
+          f"model, not measured)", flush=True)
+    print(f"[serve12:{arch}] injected vs eager prefill logits: max "
+          f"|difference| over max |eager logit| {rel:.4e} (tol "
+          f"{LOGIT_TOL}); greedy tokens agree {agree * 100:.1f}%; eager "
+          f"tokens {eager.seq.tolist()}; injected tokens "
+          f"{res.seq.tolist()}", flush=True)
+    print(f"[serve12:{arch}] tuned tiles: " + ", ".join(
+        f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
+        for s in res.sites), flush=True)
+    if rel >= LOGIT_TOL:
+        fail(f"{arch}: injected prefill logits {rel:.3e} off eager's")
+    k1_tuned, k2_tuned = {}, {}
+    for s in res.sites:
+        if s.kind != "matmul":
+            continue
+        shape = (s.m, s.n, s.k, s.site == "lm_head")
+        t = tuple(res.prog.tiles[s.key()])
+        if (shape, t) in k1_tuned or (shape in checked["k1"] and
+                                      t == tuple(baseline_tiles(s))):
+            continue
+        r = k1_agree(shape, t, gen)[3]
+        k1_tuned[(shape, t)] = r
+        print(f"[k1:{arch} tuned:{s.site}] M={s.m} N={s.n} K={s.k}"
+              f"{' wT' if shape[3] else ''} tiles={t} variant="
+              f"{r['variant']} rel_err={r['rel']:.2e} |k-plain|="
+              f"{r['plain_err']:.3e} !=torch.matmul: {r['n_ne_lib']} of "
+              f"{s.m * s.n}", flush=True)
+    for s in res.sites:
+        if s.kind != "attention" or s.m == 1:
+            continue
+        t = tuple(min(a, b) for a, b in zip(res.prog.tiles[s.key()][:2],
+                                            (s.m, s.k)))
+        key = (k2_key(cfg, s), t)
+        if checked["k2"].get(k2_key(cfg, s), {}).get("tiles") != t and \
+                key not in k2_tuned:
+            q, k, v = k2_inputs(cfg, s, gen)
+            k2_tuned[key] = k2_line(f"{arch} tuned {s.site}", q, k, v, t,
+                                    causal=bool(s.causal))
+            del q, k, v
+    out = {"prefill_ms": res.prefill_ms, "eager_prefill_ms":
+           eager.prefill_ms, "decode_tok_s": res.decode_tok_s,
+           "eager_decode_tok_s": eager.decode_tok_s, "logits_rel": rel,
+           "tokens_agree": agree, "wall_s": wall,
+           "modelled_speedup": res.modelled_speedup,
+           "k1_tuned_checks": len(k1_tuned),
+           "k1_tuned_max_abs_err": max([r["err"] for r in k1_tuned.values()],
+                                       default=None),
+           "k1_tuned_max_rel_err": max([r["rel"] for r in k1_tuned.values()],
+                                       default=None),
+           "k2_tuned_max_abs_err": max([r["err"] for r in k2_tuned.values()],
+                                       default=None)}
+    del res, eager, logits, el
+    return counts, out
+
+
+def serve_phase12(gen, checked):
+    """Phase 12: the seed-0 init time of every ported arch at full width,
+    then the four archs served one after another, the card
+    freed between them."""
+    import torch
+    from repro_torch.configs import PORTED_ARCHS
+    by_path, summary = {}, {}
+    for arch in PORTED_ARCHS:
+        params, init_s, n = init_seconds(arch)
+        summary[arch] = {"init_s": init_s, "parameters": n}
+        if arch in PHASE12_ARCHS:
+            by_path[f"{arch} ppo (cost model)"], rec = serve_arch(
+                arch, params, checked[arch], gen)
+            summary[arch].update(rec)
+        del params
+        torch.cuda.empty_cache()
+    return by_path, summary
+
+
 def sass_check() -> None:
     """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
     TMA load (UTMALDG) instructions, and K2's and K3's builds no spilled
@@ -2684,8 +3037,8 @@ def main() -> int:
     model = build_model(get_config(ARCH))
     sites = extract_serve_sites(model, BATCH, PROMPT, GEN)
     shapes = k1_shapes(sites)
-    for shape, s in shapes.items():
-        k1_check(shape, baseline_tiles(s), "baseline", gen)
+    k1_seen = {shape: k1_check(shape, baseline_tiles(s), "baseline", gen)
+               for shape, s in shapes.items()}
     sweep_site = next(s for s in sites if s.kind == "matmul" and s.m > 1
                       and s.site == "attn.q")
     k1_sweep(sweep_site, gen)
@@ -2696,6 +3049,9 @@ def main() -> int:
                                    PROMPT, GEN)
     xl_scan = next(s for s in xl_sites if s.kind == "chunk_scan")
     k3, k3_mamba = k3_checks(xl_scan, gen)
+    torch.cuda.empty_cache()
+    p12_checks = phase12_kernel_checks(gen, k1_seen)
+    torch.cuda.empty_cache()
     phase_done("3 kernels")
 
     # ---- phase 4: the modelled main path ----
@@ -2805,6 +3161,13 @@ def main() -> int:
     by_path["stablelm_3b train (injected forward)"], tr = train_path(sl, gen)
     print("[train] summary " + json.dumps(tr, default=str), flush=True)
     phase_done("11 train path")
+
+    # ---- phase 12: four more archs served (before the kernels
+    # line: their launches count into the line's) ----
+    p12_paths, p12 = serve_phase12(gen, p12_checks)
+    by_path.update(p12_paths)
+    print("[serve12] summary " + json.dumps(p12, default=str), flush=True)
+    phase_done("12 four archs served")
     print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
@@ -2839,6 +3202,24 @@ def main() -> int:
     sl_k1, sl_k1_b, sl_k1_by = agg(sl["k1_tuned"], sl["k1_launches"])
     sl_k2, sl_k2_b, sl_k2_by = agg(k2_d80, {sl["t_att"]: sl["n_layers"]})
     r80 = k2_d80[sl["t_att"]]
+
+    def arch_records(kind):
+        """Per phase-12 arch: K1 (``k1``) or K2 (``k2``) at the baseline
+        tiles of phase 3, summed over one prefill and one decode step."""
+        out = {}
+        for arch, rec in p12_checks.items():
+            tot, b, by = agg(rec[kind], rec[f"{kind}_launches"])
+            out[arch] = {
+                "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                "bound_ms": b * 1e3, "bound_by": by,
+                "library_ms": tot["lib_ms"],
+                "max_abs_err": max(r["err"] for r in rec[kind].values()),
+                "launches": by_path[f"{arch} ppo (cost model)"][
+                    "matmul" if kind == "k1" else "flash_attention"],
+                "work": ("one prefill + one decode step" if kind == "k1"
+                         else "one prefill") + f" of {arch} at the "
+                "baseline tiles"}
+        return out
     line = {"kernels": [
         {"name": "tiled_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul.cu",
@@ -2848,9 +3229,17 @@ def main() -> int:
          "launches_by_variant": by_variant("matmul"),
          "launches_by_variant_by_path": path_counts("matmul_by_variant"),
          "max_abs_err": max([r["err"] for r in k1_tuned.values()]
-                            + [r["err"] for r in tr["lm_head"].values()]),
+                            + [r["err"] for r in tr["lm_head"].values()]
+                            + [r["err"] for a in p12_checks.values()
+                               for r in a["k1"].values()]
+                            + [a["k1_tuned_max_abs_err"] for a in p12.values()
+                               if a.get("k1_tuned_max_abs_err") is not None]),
          "max_rel_err": max([r["rel"] for r in k1_tuned.values()]
-                            + [r["rel"] for r in tr["lm_head"].values()]),
+                            + [r["rel"] for r in tr["lm_head"].values()]
+                            + [r["rel"] for a in p12_checks.values()
+                               for r in a["k1"].values()]
+                            + [a["k1_tuned_max_rel_err"] for a in p12.values()
+                               if a.get("k1_tuned_max_rel_err") is not None]),
          "tolerance": f"rel {K1_TOL} vs f32 matmul",
          "ms": k1_tot["ms"], "plain_ms": k1_tot["plain_ms"],
          "bound_ms": k1_b * 1e3, "bound_by": k1_by,
@@ -2872,7 +3261,8 @@ def main() -> int:
                  "bound_ms": r["bound_s"] * 1e3,
                  "bound_by": bound_s(r["flops"], r["bytes"])[1],
                  "variant": r["variant"], "max_abs_err": r["err"]}
-             for k, r in tr["lm_head"].items()}},
+             for k, r in tr["lm_head"].items()},
+         **arch_records("k1")},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
@@ -2883,7 +3273,11 @@ def main() -> int:
              "flash_attention_by_variant"),
          "max_abs_err": max([r["err"] for r in k2.values()]
                             + [r["err"] for r in k2_d80.values()]
-                            + [k2_small_err]),
+                            + [k2_small_err]
+                            + [r["err"] for a in p12_checks.values()
+                               for r in a["k2"].values()]
+                            + [a["k2_tuned_max_abs_err"] for a in p12.values()
+                               if a.get("k2_tuned_max_abs_err") is not None]),
          "tolerance": f"abs {K2_TOL} vs plain version",
          "ms": k2_tot["ms"], "plain_ms": k2_tot["plain_ms"],
          "bound_ms": k2_b * 1e3, "bound_by": k2_by,
@@ -2900,7 +3294,8 @@ def main() -> int:
              "max_abs_err": max([r["err"] for r in k2_d80.values()]
                                 + [k2_small_err]),
              "work": f"one prefill of stablelm_3b ({sl['n_layers']} launches "
-                     f"at head dim 80, tiles {sl['t_att']})"}},
+                     f"at head dim 80, tiles {sl['t_att']})"},
+         **arch_records("k2")},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/chunk_scan.cu",
          "replaces": "src/repro/kernels/chunk_scan.py:56",

@@ -13,7 +13,8 @@ import dataclasses
 import importlib
 from dataclasses import dataclass
 
-PORTED_ARCHS = ("qwen3_8b", "stablelm_3b", "xlstm_1_3b")
+PORTED_ARCHS = ("starcoder2_7b", "qwen3_8b", "stablelm_3b", "chatglm3_6b",
+                "xlstm_1_3b", "phi3_vision_4_2b", "seamless_m4t_medium")
 
 
 @dataclass(frozen=True)
@@ -93,6 +94,12 @@ class ModelConfig:
     @property
     def n_periods(self) -> int:
         return self.n_layers // len(self.period)
+
+    @property
+    def n_prefix(self) -> int:
+        """Positions a vision frontend's embeddings take before the
+        tokens."""
+        return self.n_frontend_tokens if self.frontend == "vision" else 0
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's rule)."""

@@ -1,7 +1,9 @@
 """Carry weights across from the JAX package.
 
 ``params_from_jax(np_params, cfg)`` maps the reference's parameter tree
-(the dense decoder's or the xLSTM stack's), and
+(the dense decoder's with its ``frontend_proj`` where it has one, the
+encoder-decoder's ``enc_blocks``, ``dec_blocks`` with their ``cross``
+and ``norm_x``, and ``enc_norm``, or the xLSTM stack's), and
 ``train_state_from_jax(np_state, cfg)`` its whole train state,
 with its leaves as numpy arrays, onto the port's.  The two trees have the
 same structure: each period slot's leaves stacked along a leading layer

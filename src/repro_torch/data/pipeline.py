@@ -6,7 +6,11 @@ is a pure function of ``(seed, step, host_index)``, so a restore at step N
 sees exactly the stream a run without the failure would have seen (no
 data-loader state in checkpoints).  The draws come from a CPU
 ``torch.Generator`` seeded from those three numbers, so a batch is the
-same on every device; they do not repeat ``jax.random``'s stream.
+same on every device; they do not repeat ``jax.random``'s stream.  A
+vision frontend's batch holds ``seq_len - n_frontend_tokens`` tokens and
+``frontend_embeds`` (B, n_frontend_tokens, d); an encoder-decoder's also
+``src_embeds`` (B, seq_len, d): both f32 ``normal * 0.02``, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -32,9 +36,6 @@ class SyntheticPipeline:
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  data_cfg: DataConfig = DataConfig(), device="cpu"):
-        if cfg.frontend != "none" or cfg.enc_dec:
-            raise NotImplementedError(
-                f"{cfg.name}: the port's pipeline makes token batches only")
         if shape.global_batch % data_cfg.host_count:
             raise ValueError(f"global batch {shape.global_batch} is not a "
                              f"multiple of {data_cfg.host_count} hosts")
@@ -65,6 +66,15 @@ class SyntheticPipeline:
         return out
 
     def batch_at(self, step: int) -> dict:
-        toks = self._tokens(self._generator(step), self.local_batch,
-                            self.shape.seq_len).to(self.device)
-        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        cfg, seq = self.cfg, self.shape.seq_len
+        gen = self._generator(step)
+        n_pre = cfg.n_prefix
+        toks = self._tokens(gen, self.local_batch, seq - n_pre)
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        if n_pre:
+            batch["frontend_embeds"] = torch.randn(
+                (self.local_batch, n_pre, cfg.d_model), generator=gen) * 0.02
+        if cfg.enc_dec:
+            batch["src_embeds"] = torch.randn(
+                (self.local_batch, seq, cfg.d_model), generator=gen) * 0.02
+        return {k: v.to(self.device) for k, v in batch.items()}

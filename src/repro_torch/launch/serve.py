@@ -68,7 +68,8 @@ from repro_torch.configs.neurovec import DEFAULT
 from repro_torch.core import costmodel_vec
 from repro_torch.core.env import ActionSpace, CostModelEnv
 from repro_torch.core.protocols import resolve_health
-from repro_torch.core.extractor import extract_serve_sites
+from repro_torch.core.extractor import (extract_serve_sites, serve_batch,
+                                        serve_ctx)
 from repro_torch.core.vectorizer import TileProgram, inject, program_speedup
 from repro_torch.device import resolve_device
 from repro_torch.kernels import chunk_scan as kcs
@@ -384,12 +385,15 @@ def _diff(after, before):
     return {k: after[k] - before[k] for k in after}
 
 
-def _decode(serve, params, logits, cache, args):
-    """Greedy decode from the prefill's logits: ((B, gen) tokens, cache)."""
+def _decode(serve, params, logits, cache, args, n_pre: int = 0):
+    """Greedy decode from the prefill's logits: ((B, gen) tokens, cache).
+    Step ``i`` writes position ``n_pre + prompt_len + i``, after the
+    frontend prefix and the prompt."""
     tok = logits.argmax(dim=-1)[:, None]
     out = [tok]
     for i in range(args.gen - 1):
-        tok, logits, cache = serve(params, tok, args.prompt_len + i, cache)
+        tok, logits, cache = serve(params, tok, n_pre + args.prompt_len + i,
+                                   cache)
         out.append(tok)
     return torch.cat(out, dim=1), cache
 
@@ -434,9 +438,14 @@ def _clone(tree):
     return tree.clone()
 
 
-def run(args, params=None, prompts=None) -> ServeResult:
-    """Serve one batch.  ``params`` (a parameter tree on ``args.device``)
-    and ``prompts`` ((B, prompt_len) ints) replace the seeded ones."""
+def run(args, params=None, prompts=None, frontend_embeds=None,
+        src_embeds=None) -> ServeResult:
+    """Serve one batch.  ``params`` (a parameter tree on ``args.device``),
+    ``prompts`` ((B, prompt_len) ints), and a vision frontend's
+    ``frontend_embeds`` (B, n_frontend_tokens, d) or an encoder-decoder's
+    ``src_embeds`` (B, S_src, d) replace the seeded ones
+    (``extractor.serve_batch``).  The cache holds the frontend prefix,
+    the prompt and the generated tokens."""
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if not args.full:
@@ -456,7 +465,17 @@ def run(args, params=None, prompts=None) -> ServeResult:
         prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                                 generator=gen)
     prompts = torch.as_tensor(prompts, dtype=torch.long).to(device)
-    fresh = model.make_cache(B, args.prompt_len + args.gen, device=device)
+    batch = serve_batch(cfg, prompts)
+    for name, given in (("frontend_embeds", frontend_embeds),
+                        ("src_embeds", src_embeds)):
+        if given is not None:
+            if name not in batch:
+                raise ValueError(f"{cfg.name} takes no {name}")
+            batch[name] = torch.as_tensor(given,
+                                          dtype=torch.float32).to(device)
+    n_pre = cfg.n_prefix
+    fresh = model.make_cache(B, serve_ctx(cfg, args.prompt_len, args.gen),
+                             device=device)
     cache = _clone(fresh)
     prefill = make_prefill_step(model)
     serve = make_serve_step(model)
@@ -473,9 +492,9 @@ def run(args, params=None, prompts=None) -> ServeResult:
         # one untimed pass first: it loads every kernel variant the tiles
         # name and grows the allocator, so the timed passes see neither
         c0 = _counts()
-        logits, cache = prefill(params, {"tokens": prompts}, cache)
+        logits, cache = prefill(params, batch, cache)
         c1 = _counts()
-        seq, cache = _decode(serve, params, logits, cache, args)
+        seq, cache = _decode(serve, params, logits, cache, args, n_pre)
         launches = {"prefill": _diff(c1, c0), "decode": _diff(_counts(), c1)}
         # every prefill starts from a fresh cache, every decode window from
         # the cache the last prefill left (the copies are not timed)
@@ -484,7 +503,7 @@ def run(args, params=None, prompts=None) -> ServeResult:
             _copy_into(cache, fresh)
             _sync(device)
             t0 = time.perf_counter()
-            logits, cache = prefill(params, {"tokens": prompts}, cache)
+            logits, cache = prefill(params, batch, cache)
             _sync(device)
             prefill_s.append(time.perf_counter() - t0)
         after_prefill = _clone(cache)
@@ -492,7 +511,7 @@ def run(args, params=None, prompts=None) -> ServeResult:
             _copy_into(cache, after_prefill)
             _sync(device)
             t0 = time.perf_counter()
-            seq, cache = _decode(serve, params, logits, cache, args)
+            seq, cache = _decode(serve, params, logits, cache, args, n_pre)
             _sync(device)
             decode_s.append(time.perf_counter() - t0)
     prefill_ms_runs = [t * 1e3 for t in prefill_s]

@@ -1,7 +1,8 @@
 """Per-BlockDesc init/apply: one period slot = mixer + optional MLP (the
 port of ``repro/models/blocks.py`` for the block kinds ``lm.build_model``
-admits: attention with a dense MLP, and the xLSTM ``mlstm``/``slstm``
-blocks without one)."""
+admits: attention with a dense MLP, gated SiLU or plain GELU as
+``cfg.act`` says, and the xLSTM ``mlstm``/``slstm`` blocks without
+one)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -11,20 +12,20 @@ from repro_torch.models import attention, xlstm
 from repro_torch.models.common import apply_mlp, apply_norm, mlp_init, norm_init
 
 
-def block_init(cfg: ModelConfig, b: BlockDesc, gen, dtype, device):
+def block_init(cfg: ModelConfig, b: BlockDesc, draw, dtype, device):
     ln = cfg.norm == "layernorm"
     p = {"norm1": norm_init(cfg.d_model, dtype, device, bias=ln)}
     if b.kind == "attn":
-        p["mixer"] = attention.attn_init(cfg, gen, dtype, device)
+        p["mixer"] = attention.attn_init(cfg, draw, dtype, device)
     elif b.kind == "mlstm":
-        p["mixer"] = xlstm.mlstm_init(cfg, gen, dtype, device)
+        p["mixer"] = xlstm.mlstm_init(cfg, draw, dtype, device)
     elif b.kind == "slstm":
-        p["mixer"] = xlstm.slstm_init(cfg, gen, dtype, device)
+        p["mixer"] = xlstm.slstm_init(cfg, draw, dtype, device)
     else:
         raise ValueError(b.kind)
     if b.mlp != "none":
         p["norm2"] = norm_init(cfg.d_model, dtype, device, bias=ln)
-        p["mlp"] = mlp_init(cfg, gen, dtype, device)
+        p["mlp"] = mlp_init(cfg, draw, dtype, device)
     return p
 
 
@@ -59,5 +60,5 @@ def block_apply(cfg: ModelConfig, b: BlockDesc, p, x, *, positions,
         raise ValueError(b.kind)
     x = x + y
     if b.mlp != "none":
-        x = x + apply_mlp(p["mlp"], apply_norm(p["norm2"], x))
+        x = x + apply_mlp(cfg, p["mlp"], apply_norm(p["norm2"], x))
     return x

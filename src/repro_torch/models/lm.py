@@ -1,5 +1,7 @@
-"""Decoder-only model builder (the port of ``repro/models/lm.py``: the
-dense decoder and the xLSTM stack).  ``build_model(cfg)`` returns a :class:`Model` of plain functions:
+"""Model builder (the port of ``repro/models/lm.py``: the dense decoder,
+with a frontend prefix where the config has one, the encoder-decoder
+with cross-attention, and the xLSTM stack).  ``build_model(cfg)``
+returns a :class:`Model` of plain functions:
 
 * ``init(seed, device)``                          -> params
 * ``train_loss(params, batch)``                   -> (loss, metrics)
@@ -7,9 +9,14 @@ dense decoder and the xLSTM stack).  ``build_model(cfg)`` returns a :class:`Mode
 * ``decode_step(params, token, pos, cache)``      -> (logits, cache)
 * ``make_cache(batch, ctx, dtype, device)``       -> zeroed cache
 
-Parameters keep the reference's tree: each period slot's leaves are
-stacked along a leading layer axis (``repro_torch.convert`` maps a JAX
-tree one to one).  Layers run in a Python loop over that axis, each
+A batch holds ``tokens`` (and ``targets`` to train), plus
+``frontend_embeds`` (B, n_frontend_tokens, d) for a vision frontend,
+whose projection is prepended to the token embeddings, or
+``src_embeds`` (B, S_src, d), the encoder's input, for an
+encoder-decoder.  Parameters keep the reference's tree: each period
+slot's leaves are stacked along a leading layer axis
+(``repro_torch.convert`` maps a JAX tree one to one).  Layers run in a
+Python loop over that axis, as deep as the stack's leaves are, each
 recomputed in the backward of ``train_loss``.  The cache is updated in
 place.
 """
@@ -23,9 +30,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockDesc, ModelConfig
-from repro_torch.models import blocks, compute
-from repro_torch.models.common import (apply_norm, dense_init, norm_init,
-                                       torch_dtype)
+from repro_torch.models import attention, blocks, compute
+from repro_torch.models.common import (WeightDraw, apply_norm, dense_init,
+                                       norm_init, torch_dtype)
 
 
 @dataclass(frozen=True)
@@ -43,18 +50,18 @@ _PORTED_BLOCKS = (BlockDesc("attn", "dense"), BlockDesc("mlstm", "none"),
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """The port runs decoder stacks of attention + gated-SiLU MLP blocks
-    (1-D RoPE or none) and of mLSTM/sLSTM blocks, with RMSNorm or
-    LayerNorm and a tied or untied head."""
-    has_attn = any(b.kind == "attn" for b in cfg.period)
-    if (cfg.enc_dec or cfg.frontend != "none" or cfg.mla
-            or cfg.norm not in ("rmsnorm", "layernorm")
+    """The port runs stacks of attention + dense MLP blocks (gated SiLU or
+    plain GELU; 1-D, 2-D or no RoPE), with a frontend prefix or as an
+    encoder-decoder, and stacks of mLSTM/sLSTM blocks, with RMSNorm or
+    LayerNorm and a tied or untied head.  MoE, Mamba and MLA wait."""
+    if (cfg.mla or cfg.norm not in ("rmsnorm", "layernorm")
             or any(b not in _PORTED_BLOCKS for b in cfg.period)
-            or (has_attn and (cfg.act != "silu"
-                              or cfg.rope not in ("1d", "none")))):
+            or cfg.rope not in ("1d", "2d", "none")):
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet; the port runs attention + gated "
-            f"SiLU MLP blocks (1-D RoPE or none) and mLSTM/sLSTM blocks")
+            f"{cfg.name}: not ported yet; the port runs attention + dense "
+            f"MLP blocks (SiLU or GELU; 1-D, 2-D or no RoPE; a frontend "
+            f"prefix or an encoder-decoder) and mLSTM/sLSTM blocks, not "
+            f"MoE, Mamba or MLA")
 
 
 def _stacked(n: int, make):
@@ -81,25 +88,49 @@ def _stacked(n: int, make):
     return out
 
 
+def _stack_init(cfg: ModelConfig, draw, dtype, device, n_units: int,
+                cross: bool = False):
+    """One stacked tree a period slot, ``n_units // len(period)`` layers
+    deep; a decoder slot of an encoder-decoder (``cross``) also gets its
+    cross-attention (``cross``) and that attention's norm (``norm_x``)."""
+    ln = cfg.norm == "layernorm"
+
+    def layer(b):
+        p = blocks.block_init(cfg, b, draw, dtype, device)
+        if cross:
+            p["cross"] = attention.attn_init(cfg, draw, dtype, device,
+                                             cross=True)
+            p["norm_x"] = norm_init(cfg.d_model, dtype, device, bias=ln)
+        return p
+    n = n_units // len(cfg.period)
+    return tuple(_stacked(n, lambda b=b: layer(b)) for b in cfg.period)
+
+
 def model_init(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random weights from ``seed`` (``device="meta"``: shapes only)."""
+    """Random weights from ``seed`` (``device="meta"``: shapes only),
+    drawn on ``device`` by :class:`~repro_torch.models.common.WeightDraw`:
+    the same numbers on every device."""
     dtype = torch_dtype(cfg.dtype)
     device = torch.device(device)
-    gen = None
-    if device.type != "meta":
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-    p = {"embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+    draw = None if device.type == "meta" else WeightDraw(seed)
+    ln = cfg.norm == "layernorm"
+    p = {"embed": dense_init(draw, (cfg.vocab_size, cfg.d_model), dtype,
                              device, scale=cfg.d_model ** -0.5),
-         "final_norm": norm_init(cfg.d_model, dtype, device,
-                                 bias=cfg.norm == "layernorm")}
+         "final_norm": norm_init(cfg.d_model, dtype, device, bias=ln)}
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), dtype,
+        p["head"] = dense_init(draw, (cfg.vocab_size, cfg.d_model), dtype,
                                device)
-    p["blocks"] = tuple(
-        _stacked(cfg.n_periods,
-                 lambda b=b: blocks.block_init(cfg, b, gen, dtype, device))
-        for b in cfg.period)
+    if cfg.frontend != "none" and not cfg.enc_dec:
+        p["frontend_proj"] = dense_init(draw, (cfg.d_model, cfg.d_model),
+                                        dtype, device)
+    if cfg.enc_dec:
+        p["enc_blocks"] = _stack_init(cfg, draw, dtype, device,
+                                      cfg.n_enc_layers)
+        p["dec_blocks"] = _stack_init(cfg, draw, dtype, device,
+                                      cfg.n_dec_layers, cross=True)
+        p["enc_norm"] = norm_init(cfg.d_model, dtype, device, bias=ln)
+    else:
+        p["blocks"] = _stack_init(cfg, draw, dtype, device, cfg.n_layers)
     return p
 
 
@@ -128,29 +159,93 @@ def _logits(cfg, params, x):
     return compute.matmul(x, head.T, site="lm_head").float()
 
 
-def decoder_forward(cfg, params, tokens, caches=None, decode_pos=None):
-    """The stack's output.  Under autograd and without a cache each layer
-    is recomputed in the backward, as the reference's
+def _depth(stack) -> int:
+    """The layers of a stacked tree: its leaves' leading dim."""
+    tree = stack[0]
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(tree.shape[0])
+
+
+def _slot_apply(cfg, b, p, x, *, memory, positions, causal, cache,
+                decode_pos, mem_cache):
+    """One period slot: the block, then (a decoder slot of an
+    encoder-decoder) the cross-attention over the memory or its cache."""
+    x = blocks.block_apply(cfg, b, p, x, positions=positions, causal=causal,
+                           cache=cache, decode_pos=decode_pos)
+    if "cross" in p:
+        x = x + attention.apply_cross_attn(
+            cfg, p["cross"], apply_norm(p["norm_x"], x), memory=memory,
+            mem_cache=mem_cache)
+    return x
+
+
+def _run_stack(cfg, stack, x, *, positions, causal, caches=None,
+               decode_pos=None, memory=None, mem_caches=None):
+    """The layers of ``stack`` over ``x``.  Under autograd and without a
+    cache each layer is recomputed in the backward, as the reference's
     ``jax.checkpoint(..., policy=nothing_saveable)`` does: only the
-    layers' inputs are kept."""
-    x = _embed(cfg, params, tokens)
-    S = x.shape[1]
-    start = 0 if decode_pos is None else decode_pos
-    positions = torch.arange(start, start + S, device=x.device)
+    layers' inputs are kept.  ``memory`` with ``mem_caches`` (prefill)
+    writes the cross-attention k/v into them; ``mem_caches`` alone
+    (decode) is read."""
+    n = _depth(stack)
     remat = torch.is_grad_enabled() and caches is None
-    layers = [_unstack(slot, cfg.n_periods) for slot in params["blocks"]]
-    for i in range(cfg.n_periods):
+    layers = [_unstack(slot, n) for slot in stack]
+    for i in range(n):
         for slot, b in enumerate(cfg.period):
-            cache = None
+            cache = mc = None
             if caches is not None:
                 cache = {k: v[i] for k, v in caches[slot].items()}
+            if mem_caches is not None:
+                mc = {k: v[i] for k, v in mem_caches[slot].items()}
             apply = functools.partial(
-                blocks.block_apply, cfg, b, layers[slot][i],
-                positions=positions, causal=True, cache=cache,
-                decode_pos=decode_pos)
+                _slot_apply, cfg, b, layers[slot][i], memory=memory,
+                positions=positions, causal=causal, cache=cache,
+                decode_pos=decode_pos, mem_cache=mc)
             x = checkpoint(apply, x, use_reentrant=False) if remat \
                 else apply(x)
-    return apply_norm(params["final_norm"], x)
+    return x
+
+
+def _prep_inputs(cfg, params, batch):
+    """The token embeddings, after the projected frontend prefix where
+    the config has one: ``(x, n_pre)``."""
+    x = _embed(cfg, params, batch["tokens"])
+    if cfg.frontend == "none" or cfg.enc_dec:
+        return x, 0
+    fe = compute.matmul(batch["frontend_embeds"].to(x.dtype),
+                        params["frontend_proj"], site="frontend.proj")
+    return torch.cat([fe, x], dim=1), fe.shape[1]
+
+
+def _positions(x, decode_pos):
+    start = 0 if decode_pos is None else decode_pos
+    return torch.arange(start, start + x.shape[1], device=x.device)
+
+
+def forward(cfg, params, batch, caches=None, decode_pos=None,
+            mem_caches=None):
+    """The (decoder) stack's output over ``batch`` and the frontend
+    prefix's length: ``(x, n_pre)``.  Unless ``decode_pos`` is given, the
+    frontend prefix goes first and an encoder-decoder's encoder
+    (non-causal) runs over ``batch["src_embeds"]``: prefill writes its
+    cross-attention k/v into ``mem_caches``, which decode reads."""
+    memory = None
+    if decode_pos is None:
+        x, n_pre = _prep_inputs(cfg, params, batch)
+        if cfg.enc_dec:
+            src = batch["src_embeds"].to(torch_dtype(cfg.dtype))
+            memory = _run_stack(cfg, params["enc_blocks"], src,
+                                positions=_positions(src, None),
+                                causal=False)
+            memory = apply_norm(params["enc_norm"], memory)
+    else:
+        x, n_pre = _embed(cfg, params, batch["tokens"]), 0
+    stack = params["dec_blocks"] if cfg.enc_dec else params["blocks"]
+    x = _run_stack(cfg, stack, x, positions=_positions(x, decode_pos),
+                   causal=True, caches=caches, decode_pos=decode_pos,
+                   memory=memory, mem_caches=mem_caches)
+    return apply_norm(params["final_norm"], x), n_pre
 
 
 def _xent(logits, targets):
@@ -160,37 +255,50 @@ def _xent(logits, targets):
 
 
 def train_loss(cfg: ModelConfig, params, batch):
-    """The loss (cross-entropy in f32, as the reference's) and its metrics;
-    differentiable, each layer recomputed in the backward."""
-    x = decoder_forward(cfg, params, batch["tokens"])
-    loss = _xent(_logits(cfg, params, x), batch["targets"])
+    """The loss (cross-entropy in f32, as the reference's, over the text
+    positions only) and its metrics; differentiable, each layer
+    recomputed in the backward."""
+    x, n_pre = forward(cfg, params, batch)
+    logits = _logits(cfg, params, x)
+    loss = _xent(logits[:, n_pre:], batch["targets"])
     zero = torch.zeros((), device=loss.device)
     return loss, {"xent": loss, "lb_loss": zero, "router_z": zero}
 
 
 def make_cache(cfg: ModelConfig, batch: int, ctx: int, dtype=None,
                device="cuda"):
+    """``ctx`` positions a layer: ``caches`` for the (decoder) stack's
+    blocks and, for an encoder-decoder, ``mem`` for its cross-attention."""
     dtype = dtype or torch_dtype(cfg.dtype)
-    caches = []
-    for b in cfg.period:
-        one = blocks.block_cache(cfg, b, batch, ctx, dtype, device)
+    n = ((cfg.n_dec_layers if cfg.enc_dec else cfg.n_layers)
+         // len(cfg.period))
+
+    def stacked(one):
         # one copy a layer of the slot's initial cache (xLSTM's stabiliser
         # starts at -1e30, not 0)
-        caches.append({k: v[None].expand((cfg.n_periods,) + tuple(v.shape))
-                       .clone() for k, v in one.items()})
-    return {"caches": tuple(caches)}
+        return {k: v[None].expand((n,) + tuple(v.shape)).clone()
+                for k, v in one.items()}
+    out = {"caches": tuple(
+        stacked(blocks.block_cache(cfg, b, batch, ctx, dtype, device))
+        for b in cfg.period)}
+    if cfg.enc_dec:
+        out["mem"] = tuple(
+            stacked(attention.make_attn_cache(cfg, batch, ctx, dtype, device))
+            for _ in cfg.period)
+    return out
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
     """Fill the cache from a full-sequence forward; return last logits."""
-    x = decoder_forward(cfg, params, batch["tokens"], caches=cache["caches"])
+    x, _ = forward(cfg, params, batch, caches=cache["caches"],
+                   mem_caches=cache.get("mem"))
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
 def decode_step(cfg: ModelConfig, params, token, pos: int, cache):
     """token (B,1); ``pos`` the absolute position of the new token."""
-    x = decoder_forward(cfg, params, token, caches=cache["caches"],
-                        decode_pos=int(pos))
+    x, _ = forward(cfg, params, {"tokens": token}, caches=cache["caches"],
+                   decode_pos=int(pos), mem_caches=cache.get("mem"))
     return _logits(cfg, params, x)[:, 0], cache
 
 

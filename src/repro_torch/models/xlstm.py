@@ -44,20 +44,20 @@ def _mlstm_dims(cfg: ModelConfig):
     return di, cfg.n_heads, di // cfg.n_heads
 
 
-def mlstm_init(cfg: ModelConfig, gen, dtype, device):
+def mlstm_init(cfg: ModelConfig, draw, dtype, device):
     d = cfg.d_model
     di, h, hd = _mlstm_dims(cfg)
     f32 = torch.float32
     return {
-        "up": dense_init(gen, (d, 2 * di), dtype, device),
-        "wq": dense_init(gen, (h, hd, hd), dtype, device),
-        "wk": dense_init(gen, (h, hd, hd), dtype, device),
-        "wv": dense_init(gen, (h, hd, hd), dtype, device),
-        "w_i": dense_init(gen, (di, h), f32, device, scale=0.01),
-        "w_f": dense_init(gen, (di, h), f32, device, scale=0.01),
+        "up": dense_init(draw, (d, 2 * di), dtype, device),
+        "wq": dense_init(draw, (h, hd, hd), dtype, device),
+        "wk": dense_init(draw, (h, hd, hd), dtype, device),
+        "wv": dense_init(draw, (h, hd, hd), dtype, device),
+        "w_i": dense_init(draw, (di, h), f32, device, scale=0.01),
+        "w_f": dense_init(draw, (di, h), f32, device, scale=0.01),
         "b_f": torch.full((h,), 3.0, dtype=f32, device=device),
         "gn": torch.ones((di,), dtype=dtype, device=device),
-        "down": dense_init(gen, (di, d), dtype, device),
+        "down": dense_init(draw, (di, d), dtype, device),
     }
 
 
@@ -190,21 +190,21 @@ def make_mlstm_cache(cfg: ModelConfig, batch: int, device):
 # sLSTM
 # ===========================================================================
 
-def slstm_init(cfg: ModelConfig, gen, dtype, device):
+def slstm_init(cfg: ModelConfig, draw, dtype, device):
     d = cfg.d_model
     h = cfg.n_heads
     hd = d // h
     f = -(-(4 * d // 3) // 128) * 128    # GLU hidden, padded to 128
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "wx": dense_init(gen, (d, 4 * d), dtype, device),    # i,f,z,o input
-        "r": dense_init(gen, (4, h, hd, hd), torch.float32, device,
+        "wx": dense_init(draw, (d, 4 * d), dtype, device),    # i,f,z,o input
+        "r": dense_init(draw, (4, h, hd, hd), torch.float32, device,
                         scale=0.02),
         "b": torch.cat([torch.zeros((d,), **f32),
                         torch.full((d,), 3.0, **f32),
                         torch.zeros((2 * d,), **f32)]),
-        "mlp_up": dense_init(gen, (d, 2 * f), dtype, device),
-        "mlp_down": dense_init(gen, (f, d), dtype, device),
+        "mlp_up": dense_init(draw, (d, 2 * f), dtype, device),
+        "mlp_down": dense_init(draw, (f, d), dtype, device),
         "gn": torch.ones((d,), dtype=dtype, device=device),
     }
 

@@ -904,12 +904,11 @@ def test_attention_backward_on_the_card_matches_the_cpu(cuda):
 
 
 def _train_step_on(device):
-    from repro_torch.optim.adamw import AdamWConfig, _leaves, _unflatten
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import make_train_state, make_train_step
     model = build_model(get_config("stablelm_3b").reduced())
-    # made on the CPU: a CUDA generator draws other weights from one seed
-    state = make_train_state(model, 0, AdamWConfig(), device="cpu")
-    state = _unflatten(state, iter([t.to(device) for t in _leaves(state)]))
+    # seed 0 draws the same weights on every device
+    state = make_train_state(model, 0, AdamWConfig(), device=device)
     tok = torch.randint(0, 256, (4, 33),
                         generator=torch.Generator().manual_seed(0))
     batch = {"tokens": tok[:, :-1].to(device),
@@ -963,3 +962,67 @@ def test_kernel_mode_refuses_grad_on_the_card(cuda):
             lk, _ = model.train_loss(params, batch)
     assert (kmm.launches - before[0], kfa.launches - before[1]) == (15, 2)
     assert abs(float(lk) - float(le)) <= 5e-3 * abs(float(le))
+
+
+# ---------------------------------------------------------------------------
+# seed-0 weights on every device, and the kernels at the inputs of
+# StarCoder2-7B, ChatGLM3-6B, Phi-3-Vision-4.2B and SeamlessM4T-medium
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["starcoder2_7b", "qwen3_8b", "stablelm_3b",
+                                  "chatglm3_6b", "xlstm_1_3b",
+                                  "phi3_vision_4_2b", "seamless_m4t_medium"])
+def test_seed0_init_is_the_same_on_the_cpu_and_the_card(cuda, arch, dtype):
+    """Every leaf of the reduced config's seed-0 init, bitwise, in f32 and
+    in bf16 (the f32 product by the scale and the cast are exact IEEE
+    operations on both)."""
+    from repro_torch.checkpoint.checkpoint import _flat
+    model = build_model(get_config(arch).reduced(dtype=dtype))
+    on_cpu = _flat(model.init(seed=0, device="cpu"))
+    on_card = _flat(model.init(seed=0, device=cuda))
+    assert [k for k, _ in on_card] == [k for k, _ in on_cpu]
+    for (k, a), (_, b) in zip(on_cpu, on_card):
+        assert b.is_cuda and torch.equal(a, b.cpu()), k
+
+
+@pytest.mark.parametrize("hq,hkv,tiles,causal", [
+    (16, 16, (128, 512), False),    # SeamlessM4T's encoder and cross-attn
+    (16, 16, (128, 128), True),     # its decoder
+    (36, 4, (128, 512), True),      # StarCoder2's groups of 9
+    (32, 2, (128, 512), True),      # ChatGLM3's groups of 16
+])
+def test_flash_kernel_at_gqa_groups_and_head_dim_64(cuda, hq, hkv, tiles, causal):
+    """K2 at D = 64 non-causal with Sq = Skv = 512 (no earlier path ran K2
+    non-causal below D = 128), D = 64 causal, and the GQA groups of 9 and
+    16 at D = 128, in the served layout, against its plain version."""
+    d = 64 if hq == hkv else 128
+    q, k, v = _attention_inputs(2, hq, hkv, 512, 512, _MODEL, cuda, seed=40,
+                                d=d)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=causal, scale=d ** -0.5, tiles=tiles))
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
+    yp = kfa.flash_attention_plain(q, k, v, causal=causal, scale=d ** -0.5,
+                                   bq=tiles[0], bkv=tiles[1])
+    assert torch.isfinite(y.float()).all()
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+
+
+def test_matmul_at_the_seamless_lm_head(cuda):
+    """K1 at SeamlessM4T's ``lm_head``, ``4x256206x1024`` through
+    ``head.T`` (an output row of 512412 bytes, not a multiple of 16), at
+    the baseline tile against the f32 product and the plain version; the
+    plan never splits K there (the output grid exceeds the SMs)."""
+    from repro_torch.core.costmodel import baseline_matmul_tiles
+    M, N, K = 4, 256206, 1024
+    x = _normal(41, M, K, device=cuda)
+    head = _normal(42, N, K, device=cuda)
+    tiles = baseline_matmul_tiles(M, N, K)
+    before = dict(kmm.launches_by_variant)
+    y = ops.matmul(x, head.T, tiles=tiles)
+    torch.cuda.synchronize()
+    ran = {v: kmm.launches_by_variant[v] - before[v] for v in kmm.VARIANTS}
+    assert ran == {"tma_wgmma": 1, "split_k": 0, "unaligned": 0}
+    assert y.shape == (M, N) and torch.isfinite(y.float()).all()
+    assert _rel_err(y, x.float() @ head.float().T) < K1_REL_TOL
+    assert _rel_err(y, kmm.matmul_plain(x, head.T).float()) < K1_REL_TOL

@@ -229,11 +229,12 @@ def test_unknown_mode_and_arch_raise():
         with compute.compute_mode("pallas"):
             pass
     with pytest.raises(ValueError, match="not ported"):
-        get_config("starcoder2_7b")
+        get_config("llama4_maverick_400b")
 
 
-@pytest.mark.parametrize("change", [dict(mla=True), dict(act="gelu"),
-                                    dict(rope="2d"),
+@pytest.mark.parametrize("change", [dict(mla=True),
+                                    dict(period=(BlockDesc("attn", "moe"),)),
+                                    dict(period=(BlockDesc("mamba", "moe"),)),
                                     dict(period=(BlockDesc("mamba",
                                                            "dense"),))])
 def test_unported_model_paths_are_refused(change):
