@@ -31,12 +31,17 @@ Phases, each printed before the last line:
      each K3 line with its variant (ops.chunk_launch_plan), the device ms
      of each pass and their sum, and the share of the bound that sum
      reaches; then K1 under the baseline tile at every matmul shape of the
-     starcoder2_7b, chatglm3_6b, phi3_vision_4_2b and seamless_m4t_medium
-     serves (seamless's lm_head 4x256206x1024 through head.T among them)
-     and K2 at each of their prefill attentions (GQA groups of 9 and 16,
-     D = 96 at S = 768, D = 64 causal and not), each in the served
-     layout, after holding how often a pass calls each site against
-     per_pass_launches.  Each shape prints the kernel's ms (the median over repeats
+     starcoder2_7b, chatglm3_6b, phi3_vision_4_2b, seamless_m4t_medium,
+     llama4_maverick_400b and jamba_v0_1_52b serves (seamless's lm_head
+     4x256206x1024 and llama4's 4x202048x5120 through head.T, jamba's
+     ssm.in_proj 2048x16544x4096 among them), K1's f32 variant at the
+     four MoE router shapes (2048x128x5120, 4x128x5120, 2048x16x4096,
+     4x16x4096) against the f32 product at 1e-5 of its largest |output|
+     (TF32 off), timed beside torch.matmul in f32 and its bound at the
+     FP32 rate (66.9 TFLOP/s), and K2 at each of their prefill attentions
+     (GQA groups of 9, 16, 5 and 4, D = 96 at S = 768, D = 64 causal and
+     not), each in the served layout, after holding how often a pass
+     calls each site against per_pass_launches.  Each shape prints the kernel's ms (the median over repeats
      of 20 calls back to back), the plain version's, one PyTorch call's where
      there is one (a yardstick only, never called by the port, timed the
      same way) and the bound max(flops / 989e12, bytes / 3.35e12) s; each
@@ -87,6 +92,7 @@ Phases, each printed before the last line:
   7. one JSON line describing each kernel of the paths (K1 and K2 with
      their launches by variant and their StableLM-3B numbers, K1 also at
      the train lm_head, K1 and K2 at each phase-12 arch's baseline tiles,
+     K1's f32 variant at each MoE arch's router shapes,
      K3 with its device ms by pass and chunk and the Mamba-2 head),
      printed last so that the launches of phases 8-12 count in it;
   8. the facade (run between phases 6 and 7): the full-width StableLM-3B
@@ -157,21 +163,29 @@ Phases, each printed before the last line:
      4 dropped and a resume whose losses match within 1e-4 (one save's
      bytes and seconds; the directory deleted), and accum 2 against
      accum 1;
- 12. four more archs served (after phase 11, before phase 7): the
-     seed-0 init of every ported arch at full width on the card, timed;
-     then starcoder2_7b (GELU MLP, GQA 36/4), chatglm3_6b (2-D RoPE, GQA
+ 12. six more archs served (after phase 11, before phase 7): the
+     seed-0 init of every ported arch at full width on the card, timed, at
+     the depth it is served at (llama4_maverick_400b at 2 of its 48
+     layers, jamba_v0_1_52b at 8 of 32: one period each, as much as one
+     card holds beside the serve; the others at full depth); then
+     starcoder2_7b (GELU MLP, GQA 36/4), chatglm3_6b (2-D RoPE, GQA
      32/2), phi3_vision_4_2b (a 256-row frontend.proj prefix, head dim
-     96) and seamless_m4t_medium (encoder-decoder, cross-attention, head
-     dim 64, vocab 256206), one after another at full width and depth,
-     batch 4, prompt 512, 16 tokens: serve eager, then --autotune ppo
-     --inject against the cost model (legality h100) with the counters
-     zeroed just before and read just after, each pass's launches as
-     per_pass_launches says, no unaligned variant, the injected prefill
-     logits within LOGIT_TOL of eager's, both runs' greedy tokens, and K2
-     at each tuned prefill tile that phase 3 did not check; phase 3
-     already held K1 at each of their matmul shapes and K2 at each of
-     their prefill attentions (non-causal at D = 64 among them) under the
-     baseline tiles;
+     96), seamless_m4t_medium (encoder-decoder, cross-attention, head dim
+     64, vocab 256206), llama4_maverick_400b (a dense and a 128-expert
+     top-1 MoE layer with a shared expert, GQA 40/8) and jamba_v0_1_52b
+     (7 Mamba/SSD mixers and one attention, 4 MoE layers of 16 experts
+     top-2), one after another at full width, batch 4, prompt 512, 16
+     tokens: serve eager, then --autotune ppo --inject against the cost
+     model (legality h100) with the counters zeroed just before and read
+     just after, each pass's launches as per_pass_launches says, K1's f32
+     variant once a MoE layer a pass, no unaligned variant, the injected
+     prefill logits within LOGIT_TOL of eager's (for the MoE archs on the
+     batch rows whose tokens kept every routing choice, with the share of
+     (token, slot) choices that agree printed by MoE layer), both runs'
+     greedy tokens, and K1 (f32 at 1e-5) and K2 at each tuned tile that
+     phase 3 did not check; phase 3 already held K1 at each of their
+     matmul shapes and K2 at each of their prefill attentions (non-causal
+     at D = 64 among them) under the baseline tiles;
  13. each phase's wall seconds, then the last line:
      {"ok": true, "device": {...}}.
 
@@ -191,10 +205,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (data sheet)
+PEAK_F32 = 66.9e12          # H100 SXM FP32 FLOP/s outside the tensor
+                            # cores (data sheet)
 HBM_BPS = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
 K1_TOL = 3e-2               # rel. error vs f32 matmul_ref: bf16 output
                             # rounding (2^-8) with f32 accumulation, as in
                             # tests/test_kernels.py
+K1_F32_TOL = 1e-5           # K1's f32 variant vs the f32 product (TF32
+                            # off), over its largest |output|: two f32
+                            # summation orders; TF32 would show as 1e-3
 K2_TOL = 2e-2               # abs. error vs the plain version: bf16 output
                             # and bf16-rounded P in both, |out| < ~1
 K3_TOL = 3e-2               # max error vs the plain version over its largest
@@ -217,7 +236,12 @@ ARCH, BATCH, PROMPT, GEN, STEPS = "qwen3_8b", 4, 512, 16, 2000
 XLSTM = "xlstm_1_3b"
 STABLELM = "stablelm_3b"
 PHASE12_ARCHS = ("starcoder2_7b", "chatglm3_6b", "phi3_vision_4_2b",
-           "seamless_m4t_medium")       # served in phase 12
+                 "seamless_m4t_medium", "llama4_maverick_400b",
+                 "jamba_v0_1_52b")      # served in phase 12
+# the depth each arch is served at on one card, at its published widths:
+# whole periods, as many as the 80 GB hold beside the serve (PERF.md §4)
+SERVE_LAYERS = {"llama4_maverick_400b": 2,     # one period, 37.4 GB bf16
+                "jamba_v0_1_52b": 8}           # one period, 26.5 GB bf16
 STEPS_12 = STEPS                        # PPO steps of a phase-12 fit
 # tests/test_system.py's PPO for the main-path loop: its NeuroVecConfig,
 # learning rate and budget, on dataset.generate(400, seed=0, base=sites)
@@ -233,9 +257,20 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def bound_s(flops: float, nbytes: float):
-    t_ops, t_mem = flops / PEAK_BF16, nbytes / HBM_BPS
+def bound_s(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    t_ops, t_mem = flops / peak, nbytes / HBM_BPS
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def served_cfg(arch):
+    """``arch`` at its published widths and the depth phase 12 serves it
+    at (``SERVE_LAYERS``; full depth where it is not listed)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in SERVE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
+    return cfg
 
 
 COLD_BYTES = 100e6          # M = 4 shapes are timed over copies of w that
@@ -371,6 +406,70 @@ def k1_check(shape, tiles, label, gen):
             "n_ne_lib": n_ne_lib, "device_ms": dev_ms, "variant": variant,
             "lib_ms": lib_ms, "bound_s": b, "flops": 2.0 * M * N * K,
             "bytes": 2.0 * (M * K + K * N + M * N)}
+
+
+def k1_f32_agree(shape, tiles, gen):
+    """K1's f32 variant launched once at ``shape`` under ``tiles`` on
+    random f32 operands, held against the f32 product with TF32 off
+    (fails at K1_F32_TOL of its largest |output|): ``(x, w, record)``."""
+    import torch
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    M, N, K, transposed = shape
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the f32 product is not f32")
+    x = torch.randn((M, K), generator=gen, device="cuda")
+    w = (torch.randn((N, K), generator=gen, device="cuda").T if transposed
+         else torch.randn((K, N), generator=gen, device="cuda"))
+    before = dict(kmm.launches_by_variant)
+    y = ops.matmul(x, w, tiles=tiles)
+    torch.cuda.synchronize()
+    ran = {v: kmm.launches_by_variant[v] - before[v] for v in kmm.VARIANTS}
+    if ran != {v: int(v == "f32") for v in kmm.VARIANTS}:
+        fail(f"K1 in f32 at {shape} tiles {tiles} ran {ran}")
+    want = x @ w
+    err = float((y - want).abs().max())
+    rel = err / (float(want.abs().max()) + 1e-30)
+    if y.dtype != torch.float32 or not torch.isfinite(y).all() or \
+            rel >= K1_F32_TOL:
+        fail(f"K1 f32 {shape} tiles {tiles}: rel err {rel:.3e} >= "
+             f"{K1_F32_TOL}")
+    plain = kmm.matmul_plain(x, w)
+    return x, w, {"err": err, "rel": rel, "variant": "f32",
+                  "plain_err": float((y - plain).abs().max()),
+                  "n_ne_lib": int((y != want).sum())}
+
+
+def k1_f32_check(shape, tiles, label, gen):
+    """K1's f32 variant (the MoE router) against the f32 product, timed
+    beside its plain version and torch.matmul in f32 (TF32 off), its
+    bound at the FP32 rate outside the tensor cores (PEAK_F32)."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    import torch
+    M, N, K, transposed = shape
+    x, w, rec = k1_f32_agree(shape, tiles, gen)
+    ms = time_ms_over(lambda a, b: ops.matmul(a, b, tiles=tiles), [(x, w)])
+    lib_ms = time_ms_over(torch.matmul, [(x, w)])
+    plain_ms = time_ms_over(kmm.matmul_plain, [(x, w)], reps=5, calls=1)
+    dev_ms = sum(device_ms_by_kernel(
+        lambda: ops.matmul(x, w, tiles=tiles)).values()) or None
+    flops, nbytes = 2.0 * M * N * K, 4.0 * (M * K + K * N + M * N)
+    b, by = bound_s(flops, nbytes, PEAK_F32)
+    share_ms = dev_ms if dev_ms is not None else ms
+    print(f"[k1f32:{label}] M={M} N={N} K={K}{' wT' if transposed else ''} "
+          f"tiles={tuple(tiles)} variant=f32 rel_err={rec['rel']:.2e} "
+          f"(tol {K1_F32_TOL}) |k-plain|={rec['plain_err']:.3e} "
+          f"!=torch.matmul: {rec['n_ne_lib']} of {M * N} ms={ms:.4f} "
+          f"device_ms="
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
+          f"plain_ms={plain_ms:.4f} torch.matmul_f32_ms={lib_ms:.4f} "
+          f"bound_ms={b * 1e3:.4f} ({by}, FP32 {PEAK_F32 / 1e12:.1f} "
+          f"TFLOP/s) share_of_bound={b * 1e3 / share_ms:.3f} "
+          f"vs_torch.matmul={ms / lib_ms:.2f}x", flush=True)
+    return dict(rec, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                device_ms=dev_ms, bound_s=b, flops=flops, bytes=nbytes,
+                peak=PEAK_F32)
 
 
 def k1_operand_bytes(plan, K: int) -> float:
@@ -794,17 +893,21 @@ def read_counts():
 
 def per_pass_launches(cfg):
     """Kernel launches of one prefill and of the GEN - 1 decode steps
-    under --inject: K1 at every matmul of a block (4 in the attention, 3
-    in a gated SiLU MLP, 2 in a GELU one), the head and a vision
-    frontend's projection (prefill only); K2 at prefill attention.  An
-    encoder-decoder's encoder runs in the prefill only, and each decoder
-    layer's cross-attention adds 4 matmuls and K2 in the prefill, 2
-    matmuls (q, o: its k/v are cached) a decode step.  The mLSTM scan and
-    the einsums stay plain PyTorch."""
-    mlp = 3 if cfg.act == "silu" else 2
-    per = {"attn": (4 + mlp, 1), "mlstm": (2, 0), "slstm": (3, 0)}
-    mm = sum(per[b.kind][0] for b in cfg.period)
-    att = sum(per[b.kind][1] for b in cfg.period)
+    under --inject: K1 at every matmul of a block (4 in the attention, 2
+    in a Mamba mixer, 3 in a gated SiLU MLP, 2 in a GELU one, 1 in an MoE
+    MLP, its f32 router, and 3 more for its shared experts), the head and
+    a vision frontend's projection (prefill only); K2 at prefill
+    attention.  An encoder-decoder's encoder runs in the prefill only,
+    and each decoder layer's cross-attention adds 4 matmuls and K2 in the
+    prefill, 2 matmuls (q, o: its k/v are cached) a decode step.  The
+    mLSTM and SSD scans, the expert einsums and the other einsums stay
+    plain PyTorch."""
+    mixer = {"attn": (4, 1), "mamba": (2, 0), "mlstm": (2, 0),
+             "slstm": (3, 0)}
+    mlp = {"dense": 3 if cfg.act == "silu" else 2, "none": 0,
+           "moe": 1 + 3 * bool(cfg.n_shared_experts)}
+    mm = sum(mixer[b.kind][0] + mlp[b.mlp] for b in cfg.period)
+    att = sum(mixer[b.kind][1] for b in cfg.period)
     if cfg.enc_dec:
         n_enc = cfg.n_enc_layers // len(cfg.period)
         n_dec = cfg.n_dec_layers // len(cfg.period)
@@ -2530,7 +2633,7 @@ def train_path(sl, gen):
     out["loss_rel_err"] = rel
 
     def logits():       # the train forward's, at every position
-        x, _ = forward(cfg, params, batch)
+        x, _, _ = forward(cfg, params, batch)
         return compute.matmul(x, params["head"].T, site="lm_head").float()
     with torch.no_grad():
         eager_logits = logits()
@@ -2647,7 +2750,7 @@ def train_path(sl, gen):
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 12: the four archs phase 12 serves
+# phases 3 and 12: the six archs phase 12 serves
 # ---------------------------------------------------------------------------
 
 class CountingRecorder:
@@ -2731,27 +2834,28 @@ def k2_phase3_tile(site, base):
 
 
 def phase12_kernel_checks(gen, k1_seen):
-    """Phase 3 at the four archs' serve shapes: K1 under the baseline tile
-    at every matmul shape not checked before (``k1_seen``), K2 at each
-    (Hq, Hkv, Sq, Skv, D, causal) of their prefill attention at its
-    baseline tile, in the served layout.  Returns per arch the records
-    and how often one prefill and one decode step launch each (their sum
-    held against ``per_pass_launches``)."""
-    from repro_torch.configs import get_config
+    """Phase 3 at the phase-12 archs' serve shapes (at the depth they are
+    served at): K1 under the baseline tile at every bf16 matmul shape not
+    checked before (``k1_seen``) and its f32 variant at each f32 one (the
+    MoE router), K2 at each (Hq, Hkv, Sq, Skv, D, causal) of their
+    prefill attention at its baseline tile, in the served layout.
+    Returns per arch the records and how often one prefill and one decode
+    step launch each (their sum held against ``per_pass_launches``)."""
     from repro_torch.core.costmodel import baseline_tiles
     from repro_torch.models.lm import build_model
     out = {}
     for arch in PHASE12_ARCHS:
-        cfg = get_config(arch)
+        cfg = served_cfg(arch)
         sites, n_pre, n_dec = pass_site_counts(build_model(cfg))
         want_pre, want_dec = per_pass_launches(cfg)
-        k1_w, k2_w = {}, {}
+        k1_w, k2_w, f32_w = {}, {}, {}
         for s in sites:
             if s.kind == "matmul":
                 shape = (s.m, s.n, s.k, s.site == "lm_head")
-                k1_w[shape] = (k1_w.get(shape, 0) + n_pre.get(s.key(), 0)
-                               + n_dec.get(s.key(), 0))
-            elif s.m > 1:
+                w = f32_w if s.dtype == "float32" else k1_w
+                w[shape] = (w.get(shape, 0) + n_pre.get(s.key(), 0)
+                            + n_dec.get(s.key(), 0))
+            elif s.kind == "attention" and s.m > 1:
                 k2_w[k2_key(cfg, s)] = (k2_w.get(k2_key(cfg, s), 0)
                                         + n_pre.get(s.key(), 0))
         got = (sum(n for k, n in n_pre.items() if k.startswith("matmul")),
@@ -2762,16 +2866,21 @@ def phase12_kernel_checks(gen, k1_seen):
         if got != want:
             fail(f"{arch}: a pass calls (K1 prefill, K1 decode, K2) {got} "
                  f"times, per_pass_launches says {want}")
-        k1, k2 = {}, {}
+        k1, k2, k1f = {}, {}, {}
         for s in sites:
-            if s.kind == "matmul":
+            if s.kind == "matmul" and s.dtype == "float32":
+                shape = (s.m, s.n, s.k, s.site == "lm_head")
+                k1f[shape] = k1_f32_check(shape, baseline_tiles(s),
+                                          f"{arch} baseline:{s.site}", gen)
+            elif s.kind == "matmul":
                 shape = (s.m, s.n, s.k, s.site == "lm_head")
                 if shape in k1_seen:
                     k1[shape] = k1_seen[shape]
                 elif shape not in k1:
                     k1[shape] = k1_check(shape, baseline_tiles(s),
                                          f"{arch} baseline:{s.site}", gen)
-            elif s.m > 1 and k2_key(cfg, s) not in k2:
+            elif s.kind == "attention" and s.m > 1 and \
+                    k2_key(cfg, s) not in k2:
                 q, k, v = k2_inputs(cfg, s, gen)
                 t = k2_phase3_tile(s, baseline_tiles(s)[:2])
                 k2[k2_key(cfg, s)] = dict(
@@ -2780,62 +2889,140 @@ def phase12_kernel_checks(gen, k1_seen):
                 del q, k, v
         k1_seen.update(k1)
         out[arch] = {"k1": k1, "k1_launches": k1_w, "k2": k2,
-                     "k2_launches": k2_w}
+                     "k2_launches": k2_w, "k1_f32": k1f,
+                     "k1_f32_launches": f32_w}
     return out
 
 
 def init_seconds(arch):
-    """The full-width seed-0 init of ``arch`` on the card: (params,
-    seconds, parameters)."""
+    """The seed-0 init of ``arch`` on the card at its published widths and
+    the depth it is served at (``served_cfg``): (params, seconds,
+    parameters, config)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
     from repro_torch.optim.adamw import _leaves
-    model = build_model(get_config(arch))
+    cfg = served_cfg(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n = sum(t.numel() for t in _leaves(params))
-    print(f"[init] {arch}: seed-0 weights at full width on the card in "
-          f"{dt:.2f} s ({n / 1e9:.3f} B parameters, "
-          f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
-          f" GB)", flush=True)
-    return params, dt, n
+    size = sum(t.numel() * t.element_size() for t in _leaves(params))
+    depth = ("full depth" if cfg.n_layers == get_config(arch).n_layers
+             else f"cut to {cfg.n_layers} of {get_config(arch).n_layers} "
+                  f"layers")
+    print(f"[init] {arch}: seed-0 weights at full width, {depth}, on the "
+          f"card in {dt:.2f} s ({n / 1e9:.3f} B parameters, "
+          f"{size / 1e9:.2f} GB; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)", flush=True)
+    return params, dt, n, cfg
 
 
-def serve_arch(arch, params, checked, gen):
-    """Phase 12 for one arch at full width and depth, batch 4, prompt
-    512, 16 tokens, seed-0 weights: serve eager, then --autotune ppo
-    --inject against the cost model (legality h100), with the counters
-    zeroed just before and read just after the injected run.  Fails on
-    launch counts other than a pass's, an unaligned variant, a tuned
-    tile that cannot launch, or injected prefill logits farther than
-    LOGIT_TOL from eager's (over their largest).  K1 and K2 are held
-    against their plain versions at each tuned tile that phase 3 did not
-    check (``checked``: its records of the arch, under the baseline
-    tiles)."""
+class RouteTap:
+    """Within ``with``: the experts each MoE layer's router picks for the
+    tokens of the first prefill it sees, ``(T, K)`` on the host, one a
+    layer in layer order (``models.moe.route`` wrapped; its result is
+    passed through untouched)."""
+
+    def __init__(self, n_layers: int, n_tokens: int):
+        self.n, self.T, self.eidx = n_layers, n_tokens, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._route = route = moe.route
+
+        def tapped(cfg, logits):
+            out = route(cfg, logits)
+            if logits.device.type != "meta" and \
+                    logits.shape[0] == self.T and len(self.eidx) < self.n:
+                self.eidx.append(out[0].cpu())
+            return out
+        moe.route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route = self._route
+
+
+def routing_agreement(cfg, eager_tap, kernel_tap, logits, el):
+    """Per MoE layer, the share of (token, slot) choices the injected
+    prefill shares with eager's; the batch rows whose tokens kept every
+    choice in every layer, and the prefill logits' distance over those
+    rows (held at LOGIT_TOL) and over all rows (reported)."""
+    import torch
+    if not eager_tap.eidx:
+        return {}
+    if len(eager_tap.eidx) != len(kernel_tap.eidx) or \
+            len(eager_tap.eidx) != eager_tap.n:
+        fail(f"{cfg.name}: tapped {len(eager_tap.eidx)} / "
+             f"{len(kernel_tap.eidx)} MoE layers, want {eager_tap.n}")
+    same = [(a == b) for a, b in zip(eager_tap.eidx, kernel_tap.eidx)]
+    share = [float(m.float().mean()) for m in same]
+    kept = torch.stack([m.reshape(BATCH, PROMPT, -1).all(-1).all(-1)
+                        for m in same]).all(0)          # (B,)
+    scale = float(el.abs().max())
+    row_rel = [float((logits[b] - el[b]).abs().max()) / scale
+               for b in range(BATCH)]
+    kept_rel = max([r for r, k in zip(row_rel, kept.tolist()) if k],
+                   default=None)
+    print(f"[serve12:{cfg.name}] routing, injected vs eager prefill: "
+          f"(token, slot) choices that agree by MoE layer "
+          f"{[round(x, 5) for x in share]}; {int(kept.sum())} of {BATCH} "
+          f"rows kept every choice; logits off eager's over max |eager "
+          f"logit| by row {[f'{r:.3e}' for r in row_rel]} (rows that kept "
+          f"their choices held at {LOGIT_TOL}"
+          f"{'' if kept_rel is None else f', worst {kept_rel:.3e}'}; a "
+          f"flipped row is reported, not held)", flush=True)
+    if kept_rel is not None and kept_rel >= LOGIT_TOL:
+        fail(f"{cfg.name}: rows that kept their routing lie {kept_rel:.3e} "
+             f"off eager's logits")
+    return {"route_agree_by_layer": share, "rows_kept": int(kept.sum()),
+            "logits_rel_by_row": row_rel, "logits_rel_kept_rows": kept_rel}
+
+
+def serve_arch(arch, params, checked, gen, cfg):
+    """Phase 12 for one arch at full width and the depth ``cfg`` has,
+    batch 4, prompt 512, 16 tokens, seed-0 weights: serve eager, then
+    --autotune ppo --inject against the cost model (legality h100), with
+    the counters zeroed just before and read just after the injected run.
+    Fails on launch counts other than a pass's (K1's f32 variant: one
+    router matmul a MoE layer a pass), an unaligned variant, a tuned tile
+    that cannot launch, or injected prefill logits farther than LOGIT_TOL
+    from eager's (over their largest); with MoE layers only the batch
+    rows whose tokens kept every routing choice are held, and the
+    agreement is printed.  K1 and K2 are held against their plain
+    versions at each tuned tile that phase 3 did not check (``checked``:
+    its records of the arch, under the baseline tiles), K1 in f32 against
+    the f32 product at K1_F32_TOL."""
     import torch
     from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     base = ["--arch", arch, "--full", "--batch", str(BATCH), "--prompt-len",
             str(PROMPT), "--gen", str(GEN)]
+    n_moe = sum(b.mlp == "moe" for b in cfg.period) * cfg.n_periods
     zero_counts()
-    eager = serve.run(serve.parse_args(base), params=params)
+    with RouteTap(n_moe, BATCH * PROMPT) as eager_tap:
+        eager = serve.run(serve.parse_args(base), params=params, cfg=cfg)
     if any(read_counts().values()):
         fail(f"{arch}: the eager serve launched {read_counts()}")
     argv = base + ["--autotune", "ppo", "--autotune-steps", str(STEPS_12),
                    "--inject"]
-    print(f"[serve12] serve.run({argv})", flush=True)
+    print(f"[serve12] serve.run({argv}, cfg={cfg.n_layers} layers)",
+          flush=True)
     zero_counts()
     t0 = time.perf_counter()
-    res = serve.run(serve.parse_args(argv), params=params,
-                    prompts=eager.prompts)
+    with RouteTap(n_moe, BATCH * PROMPT) as kernel_tap:
+        res = serve.run(serve.parse_args(argv), params=params,
+                        prompts=eager.prompts, cfg=cfg)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    cfg = res.model.cfg
     want_pre, want_dec = per_pass_launches(cfg)
     if res.launches != {"prefill": want_pre, "decode": want_dec}:
         fail(f"{arch}: launch counts by pass {res.launches}")
@@ -2847,6 +3034,11 @@ def serve_arch(arch, params, checked, gen):
             counts["flash_attention"] == 0:
         fail(f"{arch}: total launch counts {counts} != {total}")
     path_variants(f"serve12:{arch}", counts)
+    f32_want = n_moe * (n_pre + n_dec * (GEN - 1))
+    if kmm.launches_by_variant["f32"] != f32_want:
+        fail(f"{arch}: {kmm.launches_by_variant['f32']} launches of K1's "
+             f"f32 variant, want {f32_want} (one router matmul a MoE layer "
+             f"a pass)")
     bad = [s.key() for s in res.sites
            if not ops.tile_ok(s, res.prog.tiles[s.key()])]
     if bad:
@@ -2859,9 +3051,9 @@ def serve_arch(arch, params, checked, gen):
              f"{tuple(res.seq.shape)}")
     rel = float((logits - el).abs().max() / el.abs().max())
     agree = float((res.seq == eager.seq).float().mean())
-    print(f"[serve12:{arch}] wall {wall:.1f} s (PPO {STEPS_12} steps "
-          f"against the cost model included); eager: prefill ms "
-          f"{eager.prefill_ms:.2f} of "
+    print(f"[serve12:{arch}] {cfg.n_layers} layers; wall {wall:.1f} s (PPO "
+          f"{STEPS_12} steps against the cost model included); eager: "
+          f"prefill ms {eager.prefill_ms:.2f} of "
           f"{[round(t, 2) for t in eager.prefill_ms_runs]}, decode tok/s "
           f"{eager.decode_tok_s:.2f} of "
           f"{[round(t, 2) for t in eager.decode_tok_s_runs]}; kernels: "
@@ -2870,16 +3062,18 @@ def serve_arch(arch, params, checked, gen):
           f"{res.decode_tok_s:.2f} of "
           f"{[round(t, 2) for t in res.decode_tok_s_runs]}; "
           f"TPU-v5e-modelled speedup {res.modelled_speedup:.3f}x (cost "
-          f"model, not measured)", flush=True)
+          f"model, not measured); K1 f32 launches {f32_want}", flush=True)
+    held = " on the rows that kept their routing" if n_moe else ""
     print(f"[serve12:{arch}] injected vs eager prefill logits: max "
           f"|difference| over max |eager logit| {rel:.4e} (tol "
-          f"{LOGIT_TOL}); greedy tokens agree {agree * 100:.1f}%; eager "
+          f"{LOGIT_TOL}{held}); greedy tokens agree {agree * 100:.1f}%; eager "
           f"tokens {eager.seq.tolist()}; injected tokens "
           f"{res.seq.tolist()}", flush=True)
     print(f"[serve12:{arch}] tuned tiles: " + ", ".join(
         f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
         for s in res.sites), flush=True)
-    if rel >= LOGIT_TOL:
+    routing = routing_agreement(cfg, eager_tap, kernel_tap, logits, el)
+    if not n_moe and rel >= LOGIT_TOL:
         fail(f"{arch}: injected prefill logits {rel:.3e} off eager's")
     k1_tuned, k2_tuned = {}, {}
     for s in res.sites:
@@ -2887,14 +3081,17 @@ def serve_arch(arch, params, checked, gen):
             continue
         shape = (s.m, s.n, s.k, s.site == "lm_head")
         t = tuple(res.prog.tiles[s.key()])
-        if (shape, t) in k1_tuned or (shape in checked["k1"] and
+        f32 = s.dtype == "float32"
+        seen = checked["k1_f32" if f32 else "k1"]
+        if (shape, t) in k1_tuned or (shape in seen and
                                       t == tuple(baseline_tiles(s))):
             continue
-        r = k1_agree(shape, t, gen)[3]
+        r = (k1_f32_agree(shape, t, gen)[2] if f32
+             else k1_agree(shape, t, gen)[3])
         k1_tuned[(shape, t)] = r
-        print(f"[k1:{arch} tuned:{s.site}] M={s.m} N={s.n} K={s.k}"
-              f"{' wT' if shape[3] else ''} tiles={t} variant="
-              f"{r['variant']} rel_err={r['rel']:.2e} |k-plain|="
+        print(f"[k1{'f32' if f32 else ''}:{arch} tuned:{s.site}] M={s.m} "
+              f"N={s.n} K={s.k}{' wT' if shape[3] else ''} tiles={t} "
+              f"variant={r['variant']} rel_err={r['rel']:.2e} |k-plain|="
               f"{r['plain_err']:.3e} !=torch.matmul: {r['n_ne_lib']} of "
               f"{s.m * s.n}", flush=True)
     for s in res.sites:
@@ -2909,16 +3106,22 @@ def serve_arch(arch, params, checked, gen):
             k2_tuned[key] = k2_line(f"{arch} tuned {s.site}", q, k, v, t,
                                     causal=bool(s.causal))
             del q, k, v
-    out = {"prefill_ms": res.prefill_ms, "eager_prefill_ms":
-           eager.prefill_ms, "decode_tok_s": res.decode_tok_s,
+    bf16 = [r for r in k1_tuned.values() if r["variant"] != "f32"]
+    f32s = [r for r in k1_tuned.values() if r["variant"] == "f32"]
+    out = {"layers": cfg.n_layers, "prefill_ms": res.prefill_ms,
+           "eager_prefill_ms": eager.prefill_ms,
+           "decode_tok_s": res.decode_tok_s,
            "eager_decode_tok_s": eager.decode_tok_s, "logits_rel": rel,
            "tokens_agree": agree, "wall_s": wall,
            "modelled_speedup": res.modelled_speedup,
+           "k1_f32_launches": f32_want, **routing,
            "k1_tuned_checks": len(k1_tuned),
-           "k1_tuned_max_abs_err": max([r["err"] for r in k1_tuned.values()],
+           "k1_tuned_max_abs_err": max([r["err"] for r in bf16],
                                        default=None),
-           "k1_tuned_max_rel_err": max([r["rel"] for r in k1_tuned.values()],
+           "k1_tuned_max_rel_err": max([r["rel"] for r in bf16],
                                        default=None),
+           "k1_f32_tuned_max_rel_err": max([r["rel"] for r in f32s],
+                                           default=None),
            "k2_tuned_max_abs_err": max([r["err"] for r in k2_tuned.values()],
                                        default=None)}
     del res, eager, logits, el
@@ -2926,18 +3129,19 @@ def serve_arch(arch, params, checked, gen):
 
 
 def serve_phase12(gen, checked):
-    """Phase 12: the seed-0 init time of every ported arch at full width,
-    then the four archs served one after another, the card
-    freed between them."""
+    """Phase 12: the seed-0 init time of every ported arch at full width
+    and the depth it is served at, then the phase-12 archs served one
+    after another, the card freed between them."""
     import torch
     from repro_torch.configs import PORTED_ARCHS
     by_path, summary = {}, {}
     for arch in PORTED_ARCHS:
-        params, init_s, n = init_seconds(arch)
-        summary[arch] = {"init_s": init_s, "parameters": n}
+        params, init_s, n, cfg = init_seconds(arch)
+        summary[arch] = {"init_s": init_s, "parameters": n,
+                         "layers": cfg.n_layers}
         if arch in PHASE12_ARCHS:
             by_path[f"{arch} ppo (cost model)"], rec = serve_arch(
-                arch, params, checked[arch], gen)
+                arch, params, checked[arch], gen, cfg)
             summary[arch].update(rec)
         del params
         torch.cuda.empty_cache()
@@ -3162,12 +3366,12 @@ def main() -> int:
     print("[train] summary " + json.dumps(tr, default=str), flush=True)
     phase_done("11 train path")
 
-    # ---- phase 12: four more archs served (before the kernels
+    # ---- phase 12: six more archs served (before the kernels
     # line: their launches count into the line's) ----
     p12_paths, p12 = serve_phase12(gen, p12_checks)
     by_path.update(p12_paths)
     print("[serve12] summary " + json.dumps(p12, default=str), flush=True)
-    phase_done("12 four archs served")
+    phase_done("12 six archs served")
     print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
@@ -3203,6 +3407,36 @@ def main() -> int:
     sl_k2, sl_k2_b, sl_k2_by = agg(k2_d80, {sl["t_att"]: sl["n_layers"]})
     r80 = k2_d80[sl["t_att"]]
 
+    def f32_records(rec):
+        """K1's f32 variant at an arch's router shapes (phase 3, baseline
+        tiles), summed over one prefill and one decode step, the bound at
+        the FP32 rate."""
+        recs, w = rec["k1_f32"], rec["k1_f32_launches"]
+        if not recs:
+            return None
+        tot = {k: sum(recs[s][k] * n for s, n in w.items())
+               for k in ("ms", "plain_ms", "lib_ms")}
+        by_time = {"operations": 0.0, "bytes": 0.0}
+        for s, n in w.items():
+            b, by = bound_s(recs[s]["flops"], recs[s]["bytes"], PEAK_F32)
+            by_time[by] += b * n
+        return {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                "bound_ms": sum(by_time.values()) * 1e3,
+                "bound_by": max(by_time, key=by_time.get),
+                "library_ms": tot["lib_ms"],
+                "max_abs_err": max(r["err"] for r in recs.values()),
+                "max_rel_err": max(r["rel"] for r in recs.values()),
+                "launches_per_pass": {f"{m}x{n}x{k}": c
+                                      for (m, n, k, _), c in w.items()},
+                "by_shape": {f"{m}x{n}x{k}": {
+                    "ms": r["ms"], "device_ms": r["device_ms"],
+                    "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
+                    "bound_ms": r["bound_s"] * 1e3}
+                    for (m, n, k, _), r in recs.items()},
+                "work": "the moe.router matmuls of one prefill + one decode "
+                        "step at the baseline tiles; library: torch.matmul "
+                        "in f32, TF32 off"}
+
     def arch_records(kind):
         """Per phase-12 arch: K1 (``k1``) or K2 (``k2``) at the baseline
         tiles of phase 3, summed over one prefill and one decode step."""
@@ -3218,8 +3452,14 @@ def main() -> int:
                     "matmul" if kind == "k1" else "flash_attention"],
                 "work": ("one prefill + one decode step" if kind == "k1"
                          else "one prefill") + f" of {arch} at the "
-                "baseline tiles"}
+                "baseline tiles" + (" (bf16 sites)" if kind == "k1" else "")}
+            if kind == "k1" and f32_records(rec) is not None:
+                out[arch]["router_f32"] = f32_records(rec)
         return out
+    f32_recs = [r for a in p12_checks.values()
+                for r in a["k1_f32"].values()]
+    f32_tuned = [a["k1_f32_tuned_max_rel_err"] for a in p12.values()
+                 if a.get("k1_f32_tuned_max_rel_err") is not None]
     line = {"kernels": [
         {"name": "tiled_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/matmul.cu",
@@ -3228,6 +3468,13 @@ def main() -> int:
          "launches_by_path": path_counts("matmul"),
          "launches_by_variant": by_variant("matmul"),
          "launches_by_variant_by_path": path_counts("matmul_by_variant"),
+         "f32_variant": {
+             "launches": by_variant("matmul")["f32"],
+             "max_abs_err": max(r["err"] for r in f32_recs),
+             "max_rel_err": max([r["rel"] for r in f32_recs] + f32_tuned),
+             "tolerance": f"{K1_F32_TOL} of the largest |output| vs the f32 "
+                          f"product (TF32 off)",
+             "bound_rate": f"FP32 {PEAK_F32:.3g} FLOP/s, {HBM_BPS:.3g} B/s"},
          "max_abs_err": max([r["err"] for r in k1_tuned.values()]
                             + [r["err"] for r in tr["lm_head"].values()]
                             + [r["err"] for a in p12_checks.values()

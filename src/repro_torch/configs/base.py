@@ -14,7 +14,8 @@ import importlib
 from dataclasses import dataclass
 
 PORTED_ARCHS = ("starcoder2_7b", "qwen3_8b", "stablelm_3b", "chatglm3_6b",
-                "xlstm_1_3b", "phi3_vision_4_2b", "seamless_m4t_medium")
+                "llama4_maverick_400b", "xlstm_1_3b", "phi3_vision_4_2b",
+                "seamless_m4t_medium", "jamba_v0_1_52b")
 
 
 @dataclass(frozen=True)
@@ -94,6 +95,14 @@ class ModelConfig:
     @property
     def n_periods(self) -> int:
         return self.n_layers // len(self.period)
+
+    @property
+    def d_inner_ssm(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner_ssm // self.ssm_head_dim
 
     @property
     def n_prefix(self) -> int:

@@ -1,9 +1,12 @@
 """Carry weights across from the JAX package.
 
 ``params_from_jax(np_params, cfg)`` maps the reference's parameter tree
-(the dense decoder's with its ``frontend_proj`` where it has one, the
+(the decoder's with its ``frontend_proj`` where it has one, the
 encoder-decoder's ``enc_blocks``, ``dec_blocks`` with their ``cross``
-and ``norm_x``, and ``enc_norm``, or the xLSTM stack's), and
+and ``norm_x``, and ``enc_norm``, the xLSTM stack's; the MoE MLP's f32
+``router``, stacked ``ewi``/``ewg``/``ewo`` and ``shared_*`` and the
+Mamba mixer's ``in_proj``, ``conv``, f32 ``A_log``/``D``/``dt_bias``,
+``norm`` and ``out_proj`` among the leaves), and
 ``train_state_from_jax(np_state, cfg)`` its whole train state,
 with its leaves as numpy arrays, onto the port's.  The two trees have the
 same structure: each period slot's leaves stacked along a leading layer

@@ -123,7 +123,7 @@ def chunk_scan_cuda(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     from repro_torch.kernels.ops import (KERNEL_DTYPE, chunk_launch_plan,
                                          chunk_tiles_legal, torch_dtype_ok)
     global launches
-    if not torch_dtype_ok(x, Bm, Cm):
+    if not torch_dtype_ok(x, Bm, Cm, kind="chunk_scan"):
         raise TypeError(f"K3 takes {KERNEL_DTYPE} x, B and C, got {x.dtype}/"
                         f"{Bm.dtype}/{Cm.dtype} (ops.dtype_ok)")
     if x.dim() != 3 or Bm.shape != Cm.shape or Bm.dim() != 3 \

@@ -136,7 +136,7 @@ def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
                                          torch_dtype_ok)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    if not torch_dtype_ok(q, k, v):
+    if not torch_dtype_ok(q, k, v, kind="attention"):
         raise TypeError(f"K2 takes {KERNEL_DTYPE}, got {q.dtype}/{k.dtype}/"
                         f"{v.dtype} (ops.dtype_ok)")
     if not head_dim_ok(D) or k.shape[-1] != D or v.shape[-1] != D:

@@ -3,7 +3,7 @@
 Replaces the TPU kernel ``src/repro/kernels/matmul.py`` (``matmul_pallas``
 and ``_matmul_kernel``).  The CUDA source is ``csrc/matmul.cu``; a CTA owns
 the agent's (bm, bn) output tile, accumulates in f32 and writes the output
-in ``x.dtype``.  Three variants (``ops.matmul_launch_plan`` picks one):
+in ``x.dtype``.  Four variants (``ops.matmul_launch_plan`` picks one):
 
 * ``tma_wgmma``: a ring of TMA loads into shared memory, one producer
   thread, two consumer warpgroups of ``wgmma``; ``w`` is read in place
@@ -16,9 +16,18 @@ in ``x.dtype``.  Three variants (``ops.matmul_launch_plan`` picks one):
 * ``unaligned``: operands TMA cannot take (a row pitch or pointer that is
   not a multiple of 16 bytes) go through the first kernel's loop
   (``mma.sync``, staged through static shared memory).
+* ``f32``: float32 operands (the MoE router's ``moe.router`` site, where
+  the reference's ``matmul_pallas`` computes in f32).  256 threads of
+  FFMA, each holding a register micro-tile of the CTA's output, with x
+  and w staged through two shared-memory buffers (``cp.async`` where the
+  pitch allows).  Every output sums K in order, so every legal tile gives
+  the same bits; no TF32, whose 10 mantissa bits would flip the router's
+  top-k at near ties against the eager path.
 
 What bounds it on the H100: at prefill (M = 2048) the tensor-core rate,
-at decode (M = 4) reading ``w`` once from device memory.
+at decode (M = 4) reading ``w`` once from device memory; the ``f32``
+variant the FP32 rate outside the tensor cores (about 67 TFLOP/s), or
+at N = 16 reading ``x``.
 
 On a CPU tensor :func:`repro_torch.kernels.ops.matmul` takes
 :func:`matmul_plain`; on a CUDA tensor it launches the kernel or raises.
@@ -33,7 +42,7 @@ import torch
 
 from repro_torch.kernels import build
 
-VARIANTS = ("tma_wgmma", "split_k", "unaligned")
+VARIANTS = ("tma_wgmma", "split_k", "unaligned", "f32")
 launches = 0
 launches_by_variant = {v: 0 for v in VARIANTS}
 
@@ -42,6 +51,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_void_p])
 _TMA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                  + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 10
+                 + [ctypes.c_void_p])
+_F32_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
 _SMS: dict = {}                 # device index -> SM count
 _COUNTERS: dict = {}            # (device, stream) -> split-k tile counters
@@ -53,7 +65,8 @@ class TileError(ValueError):
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch: f32 accumulation, output in
-    ``x.dtype``.  Every legal tile computes this function."""
+    ``x.dtype`` (in f32 the exact f32 product: TF32 stays off).  Every
+    legal tile computes this function."""
     return (x.float() @ w.float()).to(x.dtype)
 
 
@@ -96,12 +109,13 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, bm: int, bn: int,
                 bk: int) -> torch.Tensor:
     """Launch K1 on CUDA tensors with the tuned tile ``(bm, bn, bk)``."""
-    from repro_torch.kernels.ops import (KERNEL_DTYPE, matmul_launch_plan,
+    from repro_torch.kernels.ops import (KERNEL_DTYPES, matmul_launch_plan,
                                          torch_dtype_ok)
     global launches
-    if not torch_dtype_ok(x, w):
-        raise TypeError(f"K1 takes {KERNEL_DTYPE}, got {x.dtype} @ "
-                        f"{w.dtype} (ops.dtype_ok)")
+    if not torch_dtype_ok(x, w, kind="matmul"):
+        raise TypeError(f"K1 takes one of {KERNEL_DTYPES['matmul']} for "
+                        f"both operands, got {x.dtype} @ {w.dtype} "
+                        f"(ops.dtype_ok)")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"K1 needs x(M,K) @ w(K,N), got {tuple(x.shape)} "
                          f"@ {tuple(w.shape)}")
@@ -116,17 +130,27 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, bm: int, bn: int,
         raise ValueError(f"K1 reads w with one unit stride, got {w.stride()}")
     w_kmajor = swk == 1 and swn != 1
     lda, ldw = x.stride(0), (swn if w_kmajor else swk)
+    f32 = x.dtype == torch.float32
     # TMA (and 16-byte loads) take a 16-byte aligned base and row pitch
-    vec_a = lda % 8 == 0 and x.data_ptr() % 16 == 0
-    vec_b = ldw % 8 == 0 and w.data_ptr() % 16 == 0
+    per16 = 4 if f32 else 8
+    vec_a = lda % per16 == 0 and x.data_ptr() % 16 == 0
+    vec_b = ldw % per16 == 0 and w.data_ptr() % 16 == 0
     plan = matmul_launch_plan(M, N, K, (bm, bn, bk), _sm_count(x.device),
-                              aligned=vec_a and vec_b)
+                              aligned=vec_a and vec_b,
+                              dtype="float32" if f32 else "bfloat16")
     if plan is None:
         raise TileError(f"matmul tile {(bm, bn, bk)} cannot launch at "
                         f"M={M} N={N} K={K} (ops.tile_ok)")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    if plan.variant == "unaligned":
+    if plan.variant == "f32":
+        # a row-major w's 16-byte chunks start at column n0 = bn * j
+        vec_b = vec_b and (w_kmajor or plan.bn % 4 == 0)
+        rc = _fn("repro_matmul_f32", _F32_ARGTYPES)(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, lda, ldw,
+            int(w_kmajor), plan.bm, plan.bn, plan.rows, plan.cols,
+            plan.grid_m, plan.grid_n, int(vec_a), int(vec_b), stream)
+    elif plan.variant == "unaligned":
         rc = _fn("repro_matmul_unaligned_bf16", _ARGTYPES)(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, lda, swk,
             swn, plan.bm, plan.bn, plan.bk, plan.rows, plan.cols,

@@ -9,10 +9,12 @@ Which tiles launch (:func:`tile_ok`).  One rule, in three clauses, which
 ``tile_ok``, ``CostModelEnv(legality="h100")`` (scalar and batched), the
 launch plans and the kernels' own argument checks all call:
 
-* dtype (:func:`dtype_ok`): K1, K2 and K3 take bfloat16 and nothing else.
-  On the CPU route (``route="cpu"``, the plain versions) any dtype runs;
-  the other clauses still hold there, so a program tuned on the CPU names
-  tiles the card launches at the same shapes in bf16.
+* dtype (:func:`dtype_ok`), per kernel (``KERNEL_DTYPES``): K1 takes
+  bfloat16 and float32 (its ``f32`` variant, for the MoE router), K2 and
+  K3 bfloat16 only.  On the CPU route (``route="cpu"``, the plain
+  versions) any dtype runs; the other clauses still hold there, so a
+  program tuned on the CPU names tiles the card launches at the same
+  shapes in bf16.
 * head dim (:func:`head_dim_ok`, K2 at Sq > 1): D a multiple of 8 (TMA's
   16-byte strides, the epilogue's 16-byte stores) up to ``ATTN_D_PAD`` =
   128.  K2 computes every D in two 64-column slabs of the padded 128: TMA
@@ -30,7 +32,9 @@ launch plans and the kernels' own argument checks all call:
     the rows to 64 (two consumer warpgroups, still at most 128
     accumulators a thread), so this rule is unchanged from the first
     kernel; :func:`matmul_launch_plan` picks the variant and, for a small
-    output grid, the split over ``bk``.
+    output grid, the split over ``bk``.  In f32 the same tile runs the
+    ``f32`` variant: 256 threads of FFMA, at most 128 accumulators a
+    thread, so the clause is the same.
   - attention: ``bq * ATTN_D_PAD <= 128 * 128`` (at most two consumer
     warpgroups of 64 rows, each holding its (64, 128) f32 accumulator),
     and the blocks must divide the sequence (``Sq % bq == Skv % bkv ==
@@ -64,7 +68,10 @@ from repro_torch.kernels import chunk_scan as kcs
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 
-KERNEL_DTYPE = "bfloat16"        # the one dtype K1, K2 and K3 take
+KERNEL_DTYPE = "bfloat16"        # the dtype every kernel takes
+KERNEL_DTYPES = {"matmul": ("bfloat16", "float32"),     # K1
+                 "attention": ("bfloat16",),            # K2
+                 "chunk_scan": ("bfloat16",)}           # K3
 ROUTES = ("cuda", "cpu")        # the card's kernels; the plain versions
 MM_ACC_LIMIT = 128 * 256        # f32 accumulator elements of a K1 CTA
 ATTN_ACC_LIMIT = 128 * 128      # f32 accumulator elements of a K2 CTA,
@@ -102,23 +109,26 @@ def _pow2_at_least(x, lo):
     return np.maximum(lo, 2 ** np.ceil(np.log2(x)).astype(np.int64))
 
 
-def dtype_ok(dtype, route: str = "cuda"):
+def dtype_ok(dtype, route: str = "cuda", kind: Optional[str] = None):
     """The rule's dtype clause, elementwise over dtype names (numpy
-    broadcast): on the card (``route="cuda"``) the kernels take bfloat16
-    only; the plain versions of the CPU route take any dtype."""
+    broadcast): on the card (``route="cuda"``) the dtypes
+    ``KERNEL_DTYPES[kind]`` of the kernel for a site ``kind`` (``None``:
+    those every kernel takes, bfloat16); the plain versions of the CPU
+    route take any dtype."""
     d = np.asarray(dtype)
     if route == "cpu":
         return np.ones(d.shape, bool)
     if route != "cuda":
         raise ValueError(f"route {route!r} not in {ROUTES}")
-    return d == KERNEL_DTYPE
+    return np.isin(d, KERNEL_DTYPES[kind] if kind is not None
+                   else (KERNEL_DTYPE,))
 
 
-def torch_dtype_ok(*tensors) -> bool:
+def torch_dtype_ok(*tensors, kind: Optional[str] = None) -> bool:
     """The dtype clause for a kernel's operands on the card: one dtype, and
-    one the kernels take."""
+    one the kernel for ``kind`` takes (:func:`dtype_ok`)."""
     names = {str(t.dtype).removeprefix("torch.") for t in tensors}
-    return len(names) == 1 and bool(dtype_ok(names.pop()))
+    return len(names) == 1 and bool(dtype_ok(names.pop(), kind=kind))
 
 
 def head_dim_ok(D):
@@ -135,7 +145,7 @@ def matmul_tiles_legal(M, N, K, bm, bn, bk, *, dtype=KERNEL_DTYPE,
     pos = (bm > 0) & (bn > 0) & (bk > 0)
     rows = _pow2_at_least(np.minimum(bm, _ceil_mult(M, 8)), 16)
     cols = _pow2_at_least(np.minimum(bn, _ceil_mult(N, 128)), 128)
-    return (dtype_ok(dtype, route) & pos & (rows <= MM_MAX_ROWS)
+    return (dtype_ok(dtype, route, "matmul") & pos & (rows <= MM_MAX_ROWS)
             & (cols <= MM_MAX_COLS) & (rows * cols <= MM_ACC_LIMIT))
 
 
@@ -149,7 +159,8 @@ def attention_tiles_legal(Sq, Skv, D, bq, bkv, *, dtype=KERNEL_DTYPE,
     launched = (head_dim_ok(D) & (bq_e * ATTN_D_PAD <= ATTN_ACC_LIMIT)
                 & (Sq % bq_e == 0) & (Skv % bkv_e == 0))
     # Sq == 1 (decode) never launches K2: it takes the plain branch
-    return dtype_ok(dtype, route) & pos & ((np.asarray(Sq) == 1) | launched)
+    return dtype_ok(dtype, route, "attention") & pos & (
+        (np.asarray(Sq) == 1) | launched)
 
 
 def chunk_tiles_legal(S, P, N, Q, *, dtype=KERNEL_DTYPE, route="cuda"):
@@ -157,7 +168,8 @@ def chunk_tiles_legal(S, P, N, Q, *, dtype=KERNEL_DTYPE, route="cuda"):
     number of scanned positions of a group.  ``P`` never limits."""
     Q, N = np.asarray(Q, np.int64), np.asarray(N, np.int64)
     q_e = np.minimum(Q, S)
-    return (dtype_ok(dtype, route) & (Q > 0) & (q_e <= kcs.Q_MAX) & (N >= 8)
+    return (dtype_ok(dtype, route, "chunk_scan") & (Q > 0)
+            & (q_e <= kcs.Q_MAX) & (N >= 8)
             & (N % 8 == 0) & (N <= kcs.N_MAX))
 
 
@@ -198,7 +210,7 @@ class MatmulLaunch(NamedTuple):
     """How K1 runs one call: the variant, the clamped tiles (the CTA
     strides), the compiled CTA tile, the output grid, the split of K and
     the grouping of row blocks (``csrc/matmul.cu``)."""
-    variant: str        # "tma_wgmma", "split_k" or "unaligned"
+    variant: str        # "tma_wgmma", "split_k", "unaligned" or "f32"
     bm: int
     bn: int
     bk: int
@@ -212,27 +224,36 @@ class MatmulLaunch(NamedTuple):
 
 
 def matmul_launch_plan(M: int, N: int, K: int, tiles, sms: int,
-                       aligned: bool = True) -> Optional[MatmulLaunch]:
-    """The launch of K1 for a legal tile (``None`` if illegal).  Operands
-    TMA cannot take (``aligned`` false) run the unaligned variant.  An
-    output grid smaller than ``sms`` splits K into at most ``sms // tiles``
-    runs of ``k_run``, a whole number of ``bk`` blocks (``split_k``), when
-    ``bk`` is a multiple of the kernel's deepest stage, so that no stage of
-    a run reads into the next; otherwise one CTA walks all of K
-    (``tma_wgmma``).  The kernel takes ``k_run`` as it is.  Memoised: the
-    wrapper asks once a call."""
+                       aligned: bool = True,
+                       dtype: str = KERNEL_DTYPE) -> Optional[MatmulLaunch]:
+    """The launch of K1 for a legal tile (``None`` if illegal).  float32
+    operands run the ``f32`` variant, one CTA a tile walking all of K
+    (never ``split_k`` or ``tma_wgmma``; it stages through ``cp.async``
+    where the pitch allows, so ``aligned`` does not change it).  bf16
+    operands TMA cannot take (``aligned`` false) run the unaligned
+    variant.  An output grid smaller than ``sms`` splits K into at most
+    ``sms // tiles`` runs of ``k_run``, a whole number of ``bk`` blocks
+    (``split_k``), when ``bk`` is a multiple of the kernel's deepest
+    stage, so that no stage of a run reads into the next; otherwise one
+    CTA walks all of K (``tma_wgmma``).  The kernel takes ``k_run`` as it
+    is.  Memoised: the wrapper asks once a call."""
     bm, bn, bk = (int(t) for t in tiles[:3])
+    if dtype not in KERNEL_DTYPES["matmul"]:
+        raise ValueError(f"K1 takes {KERNEL_DTYPES['matmul']}, not {dtype}")
     return _launch_plan(int(M), int(N), int(K), bm, bn, bk, int(sms),
-                        bool(aligned))
+                        bool(aligned), dtype == "float32")
 
 
 @functools.lru_cache(maxsize=4096)
-def _launch_plan(M, N, K, bm, bn, bk, sms, aligned):
+def _launch_plan(M, N, K, bm, bn, bk, sms, aligned, f32):
     plan = matmul_tile_plan(M, N, K, (bm, bn, bk))
     if plan is None:
         return None
     bm, bn, bk, rows, cols = plan
     grid_m, grid_n = -(-M // bm), -(-N // bn)
+    if f32:
+        return MatmulLaunch("f32", bm, bn, bk, rows, cols, grid_m, grid_n,
+                            1, K, 1)
     n_tiles = grid_m * grid_n
     nkb = -(-K // bk)
     splits, k_run = 1, K

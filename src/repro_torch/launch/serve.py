@@ -411,11 +411,11 @@ def _check_kernel_sites(cfg, sites) -> None:
         raise ValueError(
             f"{cfg.name}: no tile of the CUDA kernels launches at "
             f"{len(bad)} sites ({', '.join(sorted({s.site for s in bad}))})"
-            f": they take "
-            f"{ops.KERNEL_DTYPE} and attention head dims that are multiples "
-            f"of 8 up to {ops.ATTN_D_PAD}; those sites have dtypes {dtypes} "
-            f"and attention head dims {dims} (the reduced test config?); "
-            f"pass --full")
+            f": K1 takes {' and '.join(ops.KERNEL_DTYPES['matmul'])}, K2 "
+            f"and K3 {ops.KERNEL_DTYPE} only, and K2 attention head dims "
+            f"that are multiples of 8 up to {ops.ATTN_D_PAD}; those sites "
+            f"have dtypes {dtypes} and attention head dims {dims} (the "
+            f"reduced test config?); pass --full")
 
 
 def _copy_into(dst, src) -> None:
@@ -439,17 +439,20 @@ def _clone(tree):
 
 
 def run(args, params=None, prompts=None, frontend_embeds=None,
-        src_embeds=None) -> ServeResult:
-    """Serve one batch.  ``params`` (a parameter tree on ``args.device``),
+        src_embeds=None, cfg=None) -> ServeResult:
+    """Serve one batch.  ``cfg``, when given, is the model in place of the
+    one ``--arch`` and ``--full`` name (a published width at a cut depth,
+    say).  ``params`` (a parameter tree on ``args.device``),
     ``prompts`` ((B, prompt_len) ints), and a vision frontend's
     ``frontend_embeds`` (B, n_frontend_tokens, d) or an encoder-decoder's
     ``src_embeds`` (B, S_src, d) replace the seeded ones
     (``extractor.serve_batch``).  The cache holds the frontend prefix,
     the prompt and the generated tokens."""
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = cfg.reduced()
+    if cfg is None:
+        cfg = get_config(args.arch)
+        if not args.full:
+            cfg = cfg.reduced()
     model = build_model(cfg)
     sites = []
     if args.autotune or args.tiles:

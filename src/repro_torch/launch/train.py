@@ -43,6 +43,8 @@ class TrainResult:
     losses: list
     grad_norms: list
     state: dict
+    # each step's MoE losses {"lb_loss", "router_z"} (zero without MoE)
+    aux: list = field(default_factory=list)
     start_step: int = 0
     # (forward + backward ms, optimizer ms) a step from CUDA events, and
     # their medians after the first step; empty and None on the CPU
@@ -132,7 +134,7 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
         torch.cuda.reset_peak_memory_stats(device)
     monitor = StepMonitor()
     preempt = PreemptionHandler()
-    losses, gnorms = [], []
+    losses, gnorms, aux = [], [], []
     try:
         for step in range(start_step, args.steps):
             batch = pipe.batch_at(step)
@@ -142,6 +144,8 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
             ev = monitor.stop(step)
             losses.append(loss)
             gnorms.append(float(metrics["grad_norm"]))
+            aux.append({k: float(metrics[k])
+                        for k in ("lb_loss", "router_z")})
             if cuda:
                 marks["end"].synchronize()
                 step_ms.append((marks["start"].elapsed_time(marks["grads"]),
@@ -149,8 +153,11 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
             if ev:
                 print(f"[ft] straggler flagged: {ev}")
             if step % 10 == 0 or step == args.steps - 1:
+                moe = (f"lb_loss {aux[-1]['lb_loss']:.4f} router_z "
+                       f"{aux[-1]['router_z']:.4f} " if cfg.n_experts
+                       else "")
                 print(f"step {step:5d} loss {loss:.4f} "
-                      f"gnorm {gnorms[-1]:.3f} "
+                      f"gnorm {gnorms[-1]:.3f} {moe}"
                       f"lr {float(metrics['lr']):.2e}")
             if mgr and ((step + 1) % args.ckpt_every == 0):
                 mgr.save_async(state, step + 1)
@@ -180,7 +187,7 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
     print(f"[train] done: first loss {losses[0]:.4f} -> last "
           f"{losses[-1]:.4f}")
     return TrainResult(losses=losses, grad_norms=gnorms, state=state,
-                       start_step=start_step, step_ms=step_ms,
+                       aux=aux, start_step=start_step, step_ms=step_ms,
                        fwd_bwd_ms=fb, optimizer_ms=opt, peak_bytes=peak)
 
 

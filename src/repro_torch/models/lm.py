@@ -1,6 +1,7 @@
-"""Model builder (the port of ``repro/models/lm.py``: the dense decoder,
-with a frontend prefix where the config has one, the encoder-decoder
-with cross-attention, and the xLSTM stack).  ``build_model(cfg)``
+"""Model builder (the port of ``repro/models/lm.py``: the decoder stacks
+of attention, Mamba and xLSTM blocks with dense or MoE MLPs, with a
+frontend prefix where the config has one, and the encoder-decoder with
+cross-attention; MLA waits).  ``build_model(cfg)``
 returns a :class:`Model` of plain functions:
 
 * ``init(seed, device)``                          -> params
@@ -17,8 +18,9 @@ encoder-decoder.  Parameters keep the reference's tree: each period
 slot's leaves are stacked along a leading layer axis
 (``repro_torch.convert`` maps a JAX tree one to one).  Layers run in a
 Python loop over that axis, as deep as the stack's leaves are, each
-recomputed in the backward of ``train_loss``.  The cache is updated in
-place.
+recomputed in the backward of ``train_loss``; the MoE layers' load-balance
+and router z-losses are summed over the stack and enter the loss with
+the reference's weights.  The cache is updated in place.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import BlockDesc, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, blocks, compute
 from repro_torch.models.common import (WeightDraw, apply_norm, dense_init,
                                        norm_init, torch_dtype)
@@ -45,28 +47,23 @@ class Model:
     make_cache: Callable
 
 
-_PORTED_BLOCKS = (BlockDesc("attn", "dense"), BlockDesc("mlstm", "none"),
-                  BlockDesc("slstm", "none"))
-
-
 def _check_ported(cfg: ModelConfig) -> None:
-    """The port runs stacks of attention + dense MLP blocks (gated SiLU or
-    plain GELU; 1-D, 2-D or no RoPE), with a frontend prefix or as an
-    encoder-decoder, and stacks of mLSTM/sLSTM blocks, with RMSNorm or
-    LayerNorm and a tied or untied head.  MoE, Mamba and MLA wait."""
-    if (cfg.mla or cfg.norm not in ("rmsnorm", "layernorm")
-            or any(b not in _PORTED_BLOCKS for b in cfg.period)
-            or cfg.rope not in ("1d", "2d", "none")):
+    """The port runs every block kind of the reference (attention, Mamba,
+    mLSTM and sLSTM mixers; dense and MoE MLPs) but MLA's attention."""
+    if cfg.mla:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet; the port runs attention + dense "
-            f"MLP blocks (SiLU or GELU; 1-D, 2-D or no RoPE; a frontend "
-            f"prefix or an encoder-decoder) and mLSTM/sLSTM blocks, not "
-            f"MoE, Mamba or MLA")
+            f"{cfg.name}: not ported yet; the port runs attention, Mamba "
+            f"and xLSTM blocks with dense or MoE MLPs, not MLA")
 
 
 def _stacked(n: int, make):
     """Stack ``n`` freshly made param trees along a new leading axis,
-    filling one preallocated tensor per leaf (peak = stack + one layer)."""
+    filling one preallocated tensor per leaf (peak = stack + one layer).
+    A stack of one layer is the drawn tree itself, each leaf a view with
+    a leading axis of 1 (peak = the layer)."""
+    if n == 1:
+        return _map_leaves(make(), lambda v: v.unsqueeze(0))
+
     def alloc(tree):
         return {k: alloc(v) if isinstance(v, dict) else
                 torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
@@ -86,6 +83,11 @@ def _stacked(n: int, make):
     for i in range(1, n):
         write(out, make(), i)
     return out
+
+
+def _map_leaves(tree, fn):
+    return {k: _map_leaves(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def _stack_init(cfg: ModelConfig, draw, dtype, device, n_units: int,
@@ -170,14 +172,16 @@ def _depth(stack) -> int:
 def _slot_apply(cfg, b, p, x, *, memory, positions, causal, cache,
                 decode_pos, mem_cache):
     """One period slot: the block, then (a decoder slot of an
-    encoder-decoder) the cross-attention over the memory or its cache."""
-    x = blocks.block_apply(cfg, b, p, x, positions=positions, causal=causal,
-                           cache=cache, decode_pos=decode_pos)
+    encoder-decoder) the cross-attention over the memory or its cache.
+    Returns ``(x, aux)`` as ``blocks.block_apply`` does."""
+    x, aux = blocks.block_apply(cfg, b, p, x, positions=positions,
+                                causal=causal, cache=cache,
+                                decode_pos=decode_pos)
     if "cross" in p:
         x = x + attention.apply_cross_attn(
             cfg, p["cross"], apply_norm(p["norm_x"], x), memory=memory,
             mem_cache=mem_cache)
-    return x
+    return x, aux
 
 
 def _run_stack(cfg, stack, x, *, positions, causal, caches=None,
@@ -187,8 +191,12 @@ def _run_stack(cfg, stack, x, *, positions, causal, caches=None,
     ``jax.checkpoint(..., policy=nothing_saveable)`` does: only the
     layers' inputs are kept.  ``memory`` with ``mem_caches`` (prefill)
     writes the cross-attention k/v into them; ``mem_caches`` alone
-    (decode) is read."""
+    (decode) is read.  Returns ``(x, aux)``: ``aux`` the MoE layers'
+    ``{"lb_loss", "router_z"}`` summed in layer order, zero without
+    MoE."""
     n = _depth(stack)
+    aux = {"lb_loss": torch.zeros((), device=x.device),
+           "router_z": torch.zeros((), device=x.device)}
     remat = torch.is_grad_enabled() and caches is None
     layers = [_unstack(slot, n) for slot in stack]
     for i in range(n):
@@ -202,9 +210,11 @@ def _run_stack(cfg, stack, x, *, positions, causal, caches=None,
                 _slot_apply, cfg, b, layers[slot][i], memory=memory,
                 positions=positions, causal=causal, cache=cache,
                 decode_pos=decode_pos, mem_cache=mc)
-            x = checkpoint(apply, x, use_reentrant=False) if remat \
+            x, a = checkpoint(apply, x, use_reentrant=False) if remat \
                 else apply(x)
-    return x
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in aux}
+    return x, aux
 
 
 def _prep_inputs(cfg, params, batch):
@@ -225,27 +235,28 @@ def _positions(x, decode_pos):
 
 def forward(cfg, params, batch, caches=None, decode_pos=None,
             mem_caches=None):
-    """The (decoder) stack's output over ``batch`` and the frontend
-    prefix's length: ``(x, n_pre)``.  Unless ``decode_pos`` is given, the
-    frontend prefix goes first and an encoder-decoder's encoder
-    (non-causal) runs over ``batch["src_embeds"]``: prefill writes its
-    cross-attention k/v into ``mem_caches``, which decode reads."""
+    """The (decoder) stack's output over ``batch``, the frontend prefix's
+    length and the stack's MoE losses: ``(x, n_pre, aux)``.  Unless
+    ``decode_pos`` is given, the frontend prefix goes first and an
+    encoder-decoder's encoder (non-causal) runs over
+    ``batch["src_embeds"]``: prefill writes its cross-attention k/v into
+    ``mem_caches``, which decode reads."""
     memory = None
     if decode_pos is None:
         x, n_pre = _prep_inputs(cfg, params, batch)
         if cfg.enc_dec:
             src = batch["src_embeds"].to(torch_dtype(cfg.dtype))
-            memory = _run_stack(cfg, params["enc_blocks"], src,
-                                positions=_positions(src, None),
-                                causal=False)
+            memory, _ = _run_stack(cfg, params["enc_blocks"], src,
+                                   positions=_positions(src, None),
+                                   causal=False)
             memory = apply_norm(params["enc_norm"], memory)
     else:
         x, n_pre = _embed(cfg, params, batch["tokens"]), 0
     stack = params["dec_blocks"] if cfg.enc_dec else params["blocks"]
-    x = _run_stack(cfg, stack, x, positions=_positions(x, decode_pos),
-                   causal=True, caches=caches, decode_pos=decode_pos,
-                   memory=memory, mem_caches=mem_caches)
-    return apply_norm(params["final_norm"], x), n_pre
+    x, aux = _run_stack(cfg, stack, x, positions=_positions(x, decode_pos),
+                        causal=True, caches=caches, decode_pos=decode_pos,
+                        memory=memory, mem_caches=mem_caches)
+    return apply_norm(params["final_norm"], x), n_pre, aux
 
 
 def _xent(logits, targets):
@@ -256,13 +267,14 @@ def _xent(logits, targets):
 
 def train_loss(cfg: ModelConfig, params, batch):
     """The loss (cross-entropy in f32, as the reference's, over the text
-    positions only) and its metrics; differentiable, each layer
-    recomputed in the backward."""
-    x, n_pre = forward(cfg, params, batch)
+    positions only, plus ``1e-2 * lb_loss + 1e-3 * router_z`` of the MoE
+    layers) and its metrics; differentiable, each layer recomputed in the
+    backward."""
+    x, n_pre, aux = forward(cfg, params, batch)
     logits = _logits(cfg, params, x)
-    loss = _xent(logits[:, n_pre:], batch["targets"])
-    zero = torch.zeros((), device=loss.device)
-    return loss, {"xent": loss, "lb_loss": zero, "router_z": zero}
+    xent = _xent(logits[:, n_pre:], batch["targets"])
+    loss = xent + 1e-2 * aux["lb_loss"] + 1e-3 * aux["router_z"]
+    return loss, {"xent": xent, **aux}
 
 
 def make_cache(cfg: ModelConfig, batch: int, ctx: int, dtype=None,
@@ -290,15 +302,16 @@ def make_cache(cfg: ModelConfig, batch: int, ctx: int, dtype=None,
 
 def prefill(cfg: ModelConfig, params, batch, cache):
     """Fill the cache from a full-sequence forward; return last logits."""
-    x, _ = forward(cfg, params, batch, caches=cache["caches"],
-                   mem_caches=cache.get("mem"))
+    x, _, _ = forward(cfg, params, batch, caches=cache["caches"],
+                      mem_caches=cache.get("mem"))
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
 def decode_step(cfg: ModelConfig, params, token, pos: int, cache):
     """token (B,1); ``pos`` the absolute position of the new token."""
-    x, _ = forward(cfg, params, {"tokens": token}, caches=cache["caches"],
-                   decode_pos=int(pos), mem_caches=cache.get("mem"))
+    x, _, _ = forward(cfg, params, {"tokens": token},
+                      caches=cache["caches"], decode_pos=int(pos),
+                      mem_caches=cache.get("mem"))
     return _logits(cfg, params, x)[:, 0], cache
 
 

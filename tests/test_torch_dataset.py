@@ -93,8 +93,9 @@ def test_arch_sites_are_the_references_for_the_ported_archs():
     """``arch_sites`` walks the reference's list cut to the ported archs:
     its keys are the reference extractor's for those archs, in order."""
     want = [k for arch in ("starcoder2_7b", "qwen3_8b", "stablelm_3b",
-                           "chatglm3_6b", "xlstm_1_3b", "phi3_vision_4_2b",
-                           "seamless_m4t_medium")
+                           "chatglm3_6b", "llama4_maverick_400b",
+                           "xlstm_1_3b", "phi3_vision_4_2b",
+                           "seamless_m4t_medium", "jamba_v0_1_52b")
             for k in _keys(jextract_arch_sites(arch))]
     assert _keys(dataset.arch_sites()) == want
 

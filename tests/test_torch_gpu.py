@@ -199,9 +199,14 @@ def test_illegal_tiles_raise(cuda):
 
 
 def test_kernels_refuse_float32(cuda):
+    """K2 and K3 take bf16 only, and K1 one dtype for both operands (K1
+    in f32 is its own variant, tested below)."""
     x = torch.zeros((16, 128), device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
-        ops.matmul(x, x.T)
+        ops.matmul(x, x.T.bfloat16())
+    q = torch.zeros((1, 2, 128, 128), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.flash_attention(q, q, q, causal=True, scale=0.1)
 
 
 _CONTIG, _MODEL = "contiguous", "model"
@@ -971,8 +976,9 @@ def test_kernel_mode_refuses_grad_on_the_card(cuda):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["starcoder2_7b", "qwen3_8b", "stablelm_3b",
-                                  "chatglm3_6b", "xlstm_1_3b",
-                                  "phi3_vision_4_2b", "seamless_m4t_medium"])
+                                  "chatglm3_6b", "llama4_maverick_400b",
+                                  "xlstm_1_3b", "phi3_vision_4_2b",
+                                  "seamless_m4t_medium", "jamba_v0_1_52b"])
 def test_seed0_init_is_the_same_on_the_cpu_and_the_card(cuda, arch, dtype):
     """Every leaf of the reduced config's seed-0 init, bitwise, in f32 and
     in bf16 (the f32 product by the scale and the cast are exact IEEE
@@ -1022,7 +1028,142 @@ def test_matmul_at_the_seamless_lm_head(cuda):
     y = ops.matmul(x, head.T, tiles=tiles)
     torch.cuda.synchronize()
     ran = {v: kmm.launches_by_variant[v] - before[v] for v in kmm.VARIANTS}
-    assert ran == {"tma_wgmma": 1, "split_k": 0, "unaligned": 0}
+    assert ran == {"tma_wgmma": 1, "split_k": 0, "unaligned": 0, "f32": 0}
     assert y.shape == (M, N) and torch.isfinite(y.float()).all()
     assert _rel_err(y, x.float() @ head.float().T) < K1_REL_TOL
     assert _rel_err(y, kmm.matmul_plain(x, head.T).float()) < K1_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# K1 in f32 (the MoE router), and the kernels at the inputs of Llama-4
+# Maverick and Jamba v0.1
+# ---------------------------------------------------------------------------
+
+K1_F32_TOL = 1e-5       # of the largest |output|: f32 sums in two orders
+
+
+def _f32_normal(seed, *shape, device):
+    x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def _f32_ran(fn):
+    before = dict(kmm.launches_by_variant)
+    y = fn()
+    torch.cuda.synchronize()
+    return y, {v: kmm.launches_by_variant[v] - before[v]
+               for v in kmm.VARIANTS}
+
+
+@pytest.mark.parametrize("shape,tiles,layout", [
+    ((2048, 128, 5120), (128, 128, 512), _W_ROW),    # Llama-4 router
+    ((4, 128, 5120), (8, 128, 512), _W_ROW),
+    ((2048, 16, 4096), (128, 128, 512), _W_ROW),     # Jamba router
+    ((4, 16, 4096), (8, 128, 512), _W_ROW),
+    ((513, 129, 257), (64, 512, 128), _W_ROW),       # ragged M, N, K
+    ((37, 1000, 130), (16, 256, 128), _W_T),         # head.T
+    ((300, 640, 384), (16, 512, 128), _W_ROW),       # a tile per row size
+    ((300, 640, 384), (32, 256, 1024), _W_ROW),
+    ((300, 640, 384), (64, 512, 4096), _W_T),
+    ((300, 640, 384), (128, 256, 256), _W_ROW),
+    ((300, 640, 384), (256, 128, 512), _W_T),
+])
+def test_matmul_f32_variant_matches_the_f32_product(cuda, shape, tiles,
+                                                    layout):
+    """K1's f32 variant against the f32 product with TF32 off, within
+    1e-5 of its largest |output| (a larger error would mean TF32 or a
+    wrong sum); one launch of ``f32``, never ``split_k``."""
+    M, N, K = shape
+    x = _f32_normal(50, M, K, device=cuda)
+    if layout == _W_T:
+        w = _f32_normal(51, N, K, device=cuda).T
+    else:
+        w = _f32_normal(51, K, N, device=cuda)
+    y, ran = _f32_ran(lambda: ops.matmul(x, w, tiles=tiles))
+    assert ran == {v: int(v == "f32") for v in kmm.VARIANTS}
+    assert y.dtype == torch.float32 and y.shape == (M, N)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = x @ w
+    assert float((y - want).abs().max() / want.abs().max()) < K1_F32_TOL
+    assert torch.equal(kmm.matmul_plain(x, w), want)
+
+
+def test_matmul_f32_every_tile_gives_the_same_bits(cuda):
+    """Every f32 tile sums K in order, one FFMA a step: the tiles agree
+    bitwise, the unaligned operands (scalar loads) too."""
+    x = _f32_normal(52, 300, 514, device=cuda)
+    w = _f32_normal(53, 514, 300, device=cuda)
+    y0 = ops.matmul(x, w, tiles=(128, 128, 512))
+    for t in [(8, 128, 128), (32, 512, 256), (256, 128, 4096),
+              (64, 256, 1024)]:
+        assert torch.equal(ops.matmul(x, w, tiles=t), y0), t
+    buf = torch.empty((300, 515), device=cuda)
+    buf[:, 1:] = x
+    xu = buf[:, 1:]     # pitch 515 floats, base 4 bytes past 16: no cp.async
+    assert torch.equal(ops.matmul(xu, w, tiles=(64, 128, 512)), y0)
+
+
+def test_matmul_f32_never_splits_k(cuda):
+    """At M = 4 the bf16 plan splits K over the SMs; the f32 one never."""
+    x = _f32_normal(54, 4, 12288, device=cuda)
+    w = _f32_normal(55, 12288, 4096, device=cuda)
+    y, ran = _f32_ran(lambda: ops.matmul(x, w, tiles=(8, 128, 512)))
+    assert ran["f32"] == 1 and ran["split_k"] == 0
+    assert ops.matmul_launch_plan(4, 4096, 12288, (8, 128, 512),
+                                  132).variant == "split_k"
+    assert float((y - x @ w).abs().max() / (x @ w).abs().max()) < K1_F32_TOL
+
+
+def test_runner_times_an_f32_site_with_f32_operands(cuda):
+    """The measured oracle builds f32 operands for an f32 site and times
+    K1's f32 variant, not a bf16 cast."""
+    from repro_torch.measure.runner import MeasureRunner
+    from repro_torch.models.site import KernelSite
+    site = KernelSite("moe.router", "matmul", m=2048, n=128, k=5120,
+                      dtype="float32")
+    runner = MeasureRunner(reps=2, device=cuda)
+    before = dict(kmm.launches_by_variant)
+    t = runner([site], np.array([[128, 128, 512]]))
+    assert np.isfinite(t).all() and t[0] > 0 and runner.failed_pairs == 0
+    assert kmm.launches_by_variant["f32"] > before["f32"]
+    assert all(kmm.launches_by_variant[v] == before[v]
+               for v in kmm.VARIANTS if v != "f32")
+
+
+@pytest.mark.parametrize("hq,hkv,tiles", [(40, 8, (128, 512)),
+                                          (32, 8, (128, 512))])
+def test_flash_kernel_at_llama4_and_jamba_attention(cuda, hq, hkv, tiles):
+    """K2 at Llama-4's 40/8 heads (groups of 5) and Jamba's 32/8, D = 128,
+    in the served layout, against its plain version."""
+    q, k, v = _attention_inputs(2, hq, hkv, 512, 512, _MODEL, cuda, seed=60)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=128 ** -0.5, tiles=tiles))
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
+    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=128 ** -0.5,
+                                   bq=tiles[0], bkv=tiles[1])
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+
+
+@pytest.mark.parametrize("arch", ["llama4_maverick_400b", "jamba_v0_1_52b"])
+def test_moe_archs_under_inject_match_eager_on_the_card(cuda, arch):
+    """A bf16 reduced config of each arch, its prefill under the baseline
+    program: K1 in bf16 and in f32 (one router matmul a MoE layer), K2,
+    logits near eager's."""
+    cfg = get_config(arch).reduced(dtype="bfloat16", d_model=128,
+                                   n_heads=2, n_kv_heads=1, head_dim=64)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    sites = extract_serve_sites(model, 2, 64, 2)
+    prog = baseline_program(sites)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda)
+    n_moe = sum(b.mlp == "moe" for b in cfg.period) * cfg.n_periods
+    with torch.inference_mode():
+        le, _ = model.prefill(params, {"tokens": tok},
+                              model.make_cache(2, 66, device=cuda))
+        before = dict(kmm.launches_by_variant)
+        with inject(prog):
+            lk, _ = model.prefill(params, {"tokens": tok},
+                                  model.make_cache(2, 66, device=cuda))
+        torch.cuda.synchronize()
+    assert kmm.launches_by_variant["f32"] - before["f32"] == n_moe
+    assert float((lk - le).abs().max() / le.abs().max()) < 5e-2

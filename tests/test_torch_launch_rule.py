@@ -58,16 +58,20 @@ def _parent_rule(site, tiles):
 
 
 def _refused(site):
-    """The sites the kernels take no tile of: not bf16, or prefill
-    attention at a head dim that is not a multiple of 8 up to 128."""
-    return site.dtype != "bfloat16" or (
+    """The sites the kernels take no tile of: a dtype their kernel does
+    not take (K1 bf16 and f32, K2 and K3 bf16 only), or prefill attention
+    at a head dim that is not a multiple of 8 up to 128."""
+    dtypes = ("bfloat16", "float32") if site.kind == "matmul" else \
+        ("bfloat16",)
+    return site.dtype not in dtypes or (
         site.kind == "attention" and site.m > 1
         and (site.n % 8 or not 8 <= site.n <= 128))
 
 
 def _rule(site, tiles):
-    """The rule written out: the dtype and head-dim clauses, then the
-    parent's tile clause with K2's accumulator at the padded head dim."""
+    """The rule written out: the per-kernel dtype and the head-dim
+    clauses, then the parent's tile clause (the same in f32 for K1) with
+    K2's accumulator at the padded head dim."""
     if _refused(site):
         return False
     if site.kind == "attention" and site.m > 1:
@@ -93,9 +97,10 @@ def _serve_sites(arch):
 
 def test_tile_ok_is_the_rule_over_the_corpus(corpus):
     """At every corpus site and action tile ``tile_ok`` is the rule; a
-    refused site (about half the corpus is f32; head dims are jittered)
-    has no legal tile, and a site the dtype and head-dim clauses admit
-    has none only where no action's blocks divide its sequence."""
+    refused site (f32 attention, about a tenth of the corpus; head dims
+    are jittered) has no legal tile, and a site the dtype and head-dim
+    clauses admit has none only where no action's blocks divide its
+    sequence.  The f32 matmul sites, a third of the corpus, are legal."""
     n_refused = n_shape = 0
     for s in corpus:
         got = [ops.tile_ok(s, t) for t in _action_tiles(s)]
@@ -106,7 +111,7 @@ def test_tile_ok_is_the_rule_over_the_corpus(corpus):
         elif not any(got):
             n_shape += 1
             assert s.kind == "attention" and s.m > 1, s.key()
-    assert 300 < n_refused < 700 and n_shape < 20
+    assert 80 < n_refused < 160 and n_shape < 20
 
 
 def test_h100_cost_grid_is_finite_exactly_where_tile_ok(corpus):
@@ -131,7 +136,8 @@ def test_env_trains_over_refused_sites_and_tune_raises_at_them(corpus):
     every action, so PPO trains over the whole corpus; ``tune`` under the
     rule raises "no legal action" there, whichever agent."""
     env = CostModelEnv(DEFAULT, legality="h100")
-    bad = next(s for s in corpus if s.dtype == "float32")
+    bad = next(s for s in corpus if s.dtype == "float32"
+               and s.kind == "attention")
     assert np.isinf(env.baseline_costs([bad])[0])
     assert env.baseline_cost(bad) == np.inf
     acts = np.zeros((1, 3), np.int64)
@@ -226,3 +232,49 @@ def test_padding_the_head_dim_to_128_keeps_the_function(d):
     assert float(got[..., d:].abs().max()) == 0.0
     np.testing.assert_allclose(got[..., :d].numpy(), want.numpy(),
                                atol=1e-6, rtol=0)
+
+
+def test_f32_matmul_tiles_are_legal_exactly_where_bf16_ones_are(corpus):
+    """K1's f32 variant takes every tile its bf16 variants take, at every
+    matmul shape of the corpus and the serve sites of the two MoE archs
+    (their f32 ``moe.router`` among them): the same tile clause."""
+    sites = [s for s in corpus if s.kind == "matmul"]
+    sites += [s for a in ("llama4_maverick_400b", "jamba_v0_1_52b")
+              for s in _serve_sites(a) if s.kind == "matmul"]
+    assert any(s.site == "moe.router" and s.dtype == "float32"
+               for s in sites)
+    n_legal = 0
+    for s in sites:
+        f32 = dataclasses.replace(s, dtype="float32")
+        bf16 = dataclasses.replace(s, dtype="bfloat16")
+        for t in _action_tiles(s):
+            assert ops.tile_ok(f32, t) == ops.tile_ok(bf16, t) == \
+                _parent_rule(s, t), (s.key(), t)
+            n_legal += ops.tile_ok(f32, t)
+    assert n_legal > 0
+    grid = CostModelEnv(DEFAULT, legality="h100").cost_grid(
+        [dataclasses.replace(s, dtype="float32") for s in sites])
+    assert np.isfinite(grid).any(axis=1).all()
+
+
+def test_f32_attention_and_chunk_scan_sites_are_still_refused(corpus):
+    """K2 and K3 take bf16 only: their f32 sites have no legal tile, on
+    the card's rule and in the h100 cost grid, and the plans of K1 in
+    f32 never split K or take the TMA pipeline."""
+    sites = [dataclasses.replace(s, dtype="float32") for s in corpus
+             if s.kind in ("attention", "chunk_scan")]
+    assert {s.kind for s in sites} == {"attention", "chunk_scan"}
+    for s in sites:
+        assert not any(ops.tile_ok(s, t) for t in _action_tiles(s))
+    assert np.isinf(CostModelEnv(DEFAULT, legality="h100").cost_grid(
+        sites)).all()
+    assert not ops.dtype_ok("float32", kind="attention")
+    assert not ops.dtype_ok("float32", kind="chunk_scan")
+    assert ops.dtype_ok("float32", kind="matmul")
+    assert not ops.torch_dtype_ok(torch.ones(2))
+    assert ops.torch_dtype_ok(torch.ones(2), kind="matmul")
+    for M, N, K in [(2048, 128, 5120), (4, 16, 4096), (4, 4096, 4096)]:
+        for t in [(128, 128, 512), (8, 128, 128), (256, 128, 4096)]:
+            p = ops.matmul_launch_plan(M, N, K, t, 132, dtype="float32")
+            assert p.variant == "f32" and p.splits == 1 and p.k_run == K
+            assert p[1:6] == ops.matmul_launch_plan(M, N, K, t, 132)[1:6]

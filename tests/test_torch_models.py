@@ -229,14 +229,16 @@ def test_unknown_mode_and_arch_raise():
         with compute.compute_mode("pallas"):
             pass
     with pytest.raises(ValueError, match="not ported"):
-        get_config("llama4_maverick_400b")
+        get_config("deepseek_v2_236b")
 
 
-@pytest.mark.parametrize("change", [dict(mla=True),
-                                    dict(period=(BlockDesc("attn", "moe"),)),
-                                    dict(period=(BlockDesc("mamba", "moe"),)),
-                                    dict(period=(BlockDesc("mamba",
-                                                           "dense"),))])
+@pytest.mark.parametrize("change", [
+    dict(mla=True),
+    dict(mla=True, period=(BlockDesc("attn", "moe"),)),
+    dict(mla=True, n_layers=2, period=(BlockDesc("attn", "dense"),
+                                       BlockDesc("attn", "moe"))),
+    dict(mla=True, n_layers=2, period=(BlockDesc("mamba", "dense"),
+                                       BlockDesc("attn", "moe")))])
 def test_unported_model_paths_are_refused(change):
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen3_8b").reduced(), **change)

@@ -545,8 +545,8 @@ def test_pruned_env_under_h100_times_topk_legal_tiles(carried):
                         batch=128, causal=True),
              KernelSite("sl.scan", "chunk_scan", m=256, n=64, k=16,
                         batch=64),
-             KernelSite("f32.mm", "matmul", m=64, n=256, k=512,
-                        dtype="float32")]
+             KernelSite("f32.attn", "attention", m=512, n=64, k=512,
+                        batch=64, causal=True, dtype="float32")]
     k = 4
     spy = Spy()
     env = MeasuredEnv(DEFAULT, measure_fn=spy, prune_topk=k,
