@@ -5,10 +5,12 @@
 
 Phases, each printed before the last line:
   1. device: nvidia-smi's name and power limit; TF32 switched off;
-  2. build: the three CUDA sources compiled at once from csrc/ (seconds,
-     ptxas); K1's, K2's and K3's libraries must hold HGMMA and UTMALDG
-     instructions (cuobjdump -sass), K2's and K3's builds no spill, and
-     K3's static shared memory (ptxas) must be its plan's;
+  2. build: the four CUDA sources (K1's bf16 variants and its f32
+     variant apart) compiled at once from csrc/ (seconds, ptxas); K1's,
+     K2's and K3's libraries must hold HGMMA and UTMALDG instructions
+     (cuobjdump -sass), K1's f32 library FFMA and no HMMA or HGMMA (no
+     TF32), the f32, K2 and K3 builds no spill, and K3's static shared
+     memory (ptxas) must be its plan's;
   3. kernels vs their plain PyTorch versions on the card, in bf16:
      K1 (tiled matmul) at every distinct qwen3_8b serve-site shape under the
      baseline tiles, and a tile-invariance sweep over every legal tile of
@@ -38,10 +40,17 @@ Phases, each printed before the last line:
      four MoE router shapes (2048x128x5120, 4x128x5120, 2048x16x4096,
      4x16x4096) against the f32 product at 1e-5 of its largest |output|
      (TF32 off), timed beside torch.matmul in f32 and its bound at the
-     FP32 rate (66.9 TFLOP/s), and K2 at each of their prefill attentions
-     (GQA groups of 9, 16, 5 and 4, D = 96 at S = 768, D = 64 causal and
-     not), each in the served layout, after holding how often a pass
-     calls each site against per_pass_launches.  Each shape prints the kernel's ms (the median over repeats
+     FP32 rate (66.9 TFLOP/s), each [k1f32:...] line with its plan (the
+     runs R of K and k_run, the grid, the height x width layout and the
+     CTA tile), and K2 at each of their prefill attentions (GQA groups of
+     9, 16, 5 and 4, D = 96 at S = 768, D = 64 causal and not), each in
+     the served layout, after holding how often a pass
+     calls each site against per_pass_launches; then K1's f32 variant at
+     PPO's router tile (32, 128, 1024) at 2048x128x5120 and at the
+     corpus's f32 sites b.f32 (2048x2048x2048) and m.fft (4096x128x128)
+     under the baseline tiles, the same way, and the same bits at four
+     tiles and at M = 4 against M = 2048 for both routers' (N, K).  Each
+     shape prints the kernel's ms (the median over repeats
      of 20 calls back to back), the plain version's, one PyTorch call's where
      there is one (a yardstick only, never called by the port, timed the
      same way) and the bound max(flops / 989e12, bytes / 3.35e12) s; each
@@ -92,7 +101,8 @@ Phases, each printed before the last line:
   7. one JSON line describing each kernel of the paths (K1 and K2 with
      their launches by variant and their StableLM-3B numbers, K1 also at
      the train lm_head, K1 and K2 at each phase-12 arch's baseline tiles,
-     K1's f32 variant at each MoE arch's router shapes,
+     K1's f32 variant at each MoE arch's router shapes and at phase 3's
+     other f32 shapes,
      K3 with its device ms by pass and chunk and the Mamba-2 head),
      printed last so that the launches of phases 8-12 count in it;
   8. the facade (run between phases 6 and 7): the full-width StableLM-3B
@@ -198,6 +208,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -440,6 +451,24 @@ def k1_f32_agree(shape, tiles, gen):
                   "n_ne_lib": int((y != want).sum())}
 
 
+def k1_f32_plan(shape, tiles) -> dict:
+    """K1's f32 plan at ``shape`` under ``tiles``: the runs of K, the
+    grid, the rows and columns a CTA computes and the CTA tile of the
+    launch rule."""
+    import torch
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops
+    M, N, K, _ = shape
+    p = ops.matmul_launch_plan(M, N, K, tiles,
+                               kmm._sm_count(torch.device("cuda")),
+                               dtype="float32")
+    return {"R": p.splits, "k_run": p.k_run,
+            "grid": (p.grid_n, p.grid_m, p.splits),
+            "layout": f"{getattr(p, 'height', p.rows)}x"
+                      f"{getattr(p, 'width', p.cols)}",
+            "cta_tile": f"{p.rows}x{p.cols}"}
+
+
 def k1_f32_check(shape, tiles, label, gen):
     """K1's f32 variant (the MoE router) against the f32 product, timed
     beside its plain version and torch.matmul in f32 (TF32 off), its
@@ -449,6 +478,7 @@ def k1_f32_check(shape, tiles, label, gen):
     import torch
     M, N, K, transposed = shape
     x, w, rec = k1_f32_agree(shape, tiles, gen)
+    plan = k1_f32_plan(shape, tiles)
     ms = time_ms_over(lambda a, b: ops.matmul(a, b, tiles=tiles), [(x, w)])
     lib_ms = time_ms_over(torch.matmul, [(x, w)])
     plain_ms = time_ms_over(kmm.matmul_plain, [(x, w)], reps=5, calls=1)
@@ -458,7 +488,10 @@ def k1_f32_check(shape, tiles, label, gen):
     b, by = bound_s(flops, nbytes, PEAK_F32)
     share_ms = dev_ms if dev_ms is not None else ms
     print(f"[k1f32:{label}] M={M} N={N} K={K}{' wT' if transposed else ''} "
-          f"tiles={tuple(tiles)} variant=f32 rel_err={rec['rel']:.2e} "
+          f"tiles={tuple(tiles)} variant=f32 R={plan['R']} "
+          f"k_run={plan['k_run']} grid={plan['grid']} "
+          f"layout={plan['layout']} (CTA tile {plan['cta_tile']}) "
+          f"rel_err={rec['rel']:.2e} "
           f"(tol {K1_F32_TOL}) |k-plain|={rec['plain_err']:.3e} "
           f"!=torch.matmul: {rec['n_ne_lib']} of {M * N} ms={ms:.4f} "
           f"device_ms="
@@ -469,7 +502,59 @@ def k1_f32_check(shape, tiles, label, gen):
           f"vs_torch.matmul={ms / lib_ms:.2f}x", flush=True)
     return dict(rec, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 device_ms=dev_ms, bound_s=b, flops=flops, bytes=nbytes,
-                peak=PEAK_F32)
+                peak=PEAK_F32, plan=plan)
+
+
+def f32_summary(r) -> dict:
+    """A record of K1's f32 variant as the kernels line shows it."""
+    return {"shape": r.get("shape"), "tiles": r.get("tiles"),
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
+            "bound_ms": r["bound_s"] * 1e3,
+            "bound_by": bound_s(r["flops"], r["bytes"], PEAK_F32)[1],
+            "max_abs_err": r["err"], "plan": r["plan"]}
+
+
+F32_PHASE3 = (      # K1's f32 variant beyond the routers' baseline tiles
+    ("ppo router tile", (2048, 128, 5120, False), (32, 128, 1024)),
+    ("corpus b.f32", (2048, 2048, 2048, False), None),
+    ("corpus m.fft", (4096, 128, 128, False), None),
+)
+
+
+def k1_f32_checks(gen) -> dict:
+    """Phase 3's f32 checks beyond the routers: the variant at PPO's
+    router tile and at the corpus's f32 sites (baseline tiles), each
+    against the f32 product, timed beside torch.matmul in f32 and its
+    bound; then the same bits at four tiles and at M = 4 against M = 2048
+    for both routers' (N, K).  Returns the records by label."""
+    import torch
+    from repro_torch.core.costmodel import baseline_matmul_tiles
+    from repro_torch.kernels import ops
+    out = {}
+    for label, shape, tiles in F32_PHASE3:
+        tiles = tiles or baseline_matmul_tiles(*shape[:3])
+        out[label] = dict(k1_f32_check(shape, tiles, label, gen),
+                          shape="x".join(map(str, shape[:3])),
+                          tiles=tuple(tiles))
+        torch.cuda.empty_cache()
+    for N, K in ((128, 5120), (16, 4096)):
+        x = torch.randn((2048, K), generator=gen, device="cuda")
+        w = torch.randn((K, N), generator=gen, device="cuda")
+        y0 = ops.matmul(x, w, tiles=(128, 128, 512))
+        tiles = [(32, 128, 1024), (16, 512, 128), (64, 256, 4096),
+                 (256, 128, 512)]
+        same = [bool(torch.equal(ops.matmul(x, w, tiles=t), y0))
+                for t in tiles]
+        rows = bool(torch.equal(
+            ops.matmul(x[:4].clone(), w, tiles=(8, 128, 512)), y0[:4]))
+        print(f"[k1f32:bits] M=2048 N={N} K={K}: the same bits as "
+              f"(128, 128, 512) at {dict(zip(tiles, same))}; rows 0-3 at "
+              f"M = 4 (8, 128, 512) the same bits as at M = 2048: {rows}",
+              flush=True)
+        if not all(same) or not rows:
+            fail(f"K1 f32 at N={N} K={K}: a tile or M changed the bits")
+    return out
 
 
 def k1_operand_bytes(plan, K: int) -> float:
@@ -3150,7 +3235,8 @@ def serve_phase12(gen, checked):
 
 def sass_check() -> None:
     """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
-    TMA load (UTMALDG) instructions, and K2's and K3's builds no spilled
+    TMA load (UTMALDG) instructions, K1's f32 library FFMA and no
+    tensor-core product, and the f32, K2 and K3 builds no spilled
     register; K3's static shared memory must be what its plan counts."""
     import shutil
     from repro_torch.kernels import build
@@ -3166,7 +3252,18 @@ def sass_check() -> None:
               f"instructions", flush=True)
         if n_hgmma == 0 or n_tma == 0:
             fail(f"lib{name} holds no HGMMA or no UTMALDG instruction")
-    for name in ("flash_attention", "chunk_scan"):
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("matmul_f32"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    # opcodes, not HFMA2.MMA (a move on the FMA pipe)
+    n_ffma = len(re.findall(r"\bFFMA\b", sass))
+    n_mma = len(re.findall(r"\b(?:HGMMA|HMMA|IMMA|DMMA)\b", sass))
+    print(f"[build:matmul_f32] SASS: {n_ffma} FFMA, {n_mma} tensor-core "
+          f"(HMMA, HGMMA) instructions", flush=True)
+    if n_mma or not n_ffma:
+        fail("libmatmul_f32 must be FFMA alone: a tensor-core product "
+             "would round the f32 operands to TF32")
+    for name in ("matmul_f32", "flash_attention", "chunk_scan"):
         spills = [ln for ln in build.build_log(name).splitlines()
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill "
                   "loads" not in ln]
@@ -3256,6 +3353,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     p12_checks = phase12_kernel_checks(gen, k1_seen)
     torch.cuda.empty_cache()
+    f32_more = k1_f32_checks(gen)
     phase_done("3 kernels")
 
     # ---- phase 4: the modelled main path ----
@@ -3428,11 +3526,8 @@ def main() -> int:
                 "max_rel_err": max(r["rel"] for r in recs.values()),
                 "launches_per_pass": {f"{m}x{n}x{k}": c
                                       for (m, n, k, _), c in w.items()},
-                "by_shape": {f"{m}x{n}x{k}": {
-                    "ms": r["ms"], "device_ms": r["device_ms"],
-                    "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
-                    "bound_ms": r["bound_s"] * 1e3}
-                    for (m, n, k, _), r in recs.items()},
+                "by_shape": {f"{m}x{n}x{k}": f32_summary(r)
+                             for (m, n, k, _), r in recs.items()},
                 "work": "the moe.router matmuls of one prefill + one decode "
                         "step at the baseline tiles; library: torch.matmul "
                         "in f32, TF32 off"}
@@ -3469,11 +3564,16 @@ def main() -> int:
          "launches_by_variant": by_variant("matmul"),
          "launches_by_variant_by_path": path_counts("matmul_by_variant"),
          "f32_variant": {
+             "source": "src/repro_torch/csrc/matmul_f32.cu",
              "launches": by_variant("matmul")["f32"],
-             "max_abs_err": max(r["err"] for r in f32_recs),
-             "max_rel_err": max([r["rel"] for r in f32_recs] + f32_tuned),
+             "max_abs_err": max(r["err"] for r in f32_recs
+                                + list(f32_more.values())),
+             "max_rel_err": max([r["rel"] for r in f32_recs
+                                 + list(f32_more.values())] + f32_tuned),
              "tolerance": f"{K1_F32_TOL} of the largest |output| vs the f32 "
                           f"product (TF32 off)",
+             "phase3": {label: f32_summary(r)
+                        for label, r in f32_more.items()},
              "bound_rate": f"FP32 {PEAK_F32:.3g} FLOP/s, {HBM_BPS:.3g} B/s"},
          "max_abs_err": max([r["err"] for r in k1_tuned.values()]
                             + [r["err"] for r in tr["lm_head"].values()]

@@ -1,11 +1,12 @@
 // K1: tiled matmul y(M,N) = x(M,K) @ w(K,N), bf16 in, f32 accumulate,
-// bf16 out (variant D: f32 in and out).  Replaces the TPU kernel
-// src/repro/kernels/matmul.py (matmul_pallas / _matmul_kernel).
+// bf16 out.  Replaces the TPU kernel src/repro/kernels/matmul.py
+// (matmul_pallas / _matmul_kernel).
 //
 // Bound: at prefill (M = 2048) the products are bound by the tensor-core
 // rate; at decode (M = 4) by reading w once from device memory.  Four
 // variants share one tile contract: a CTA owns the (bm, bn) output tile
-// the agent chose, on the reference's (M/bm, N/bn) grid.
+// the agent chose, on the reference's (M/bm, N/bn) grid.  Three are here;
+// the fourth, D (f32 operands: the MoE router), is matmul_f32.cu.
 //
 // A. tma_wgmma (a large output grid: prefill, lm_head).  One producer
 //    thread keeps TMA loads of 64-deep K slabs of x and w (128-byte
@@ -38,23 +39,8 @@
 //    multiple of 16 bytes).  The first version's loop: 32-wide K sub-slabs
 //    staged through static shared memory, mma.sync m16n8k16.  No model
 //    path takes it.
-// D. f32 (float32 operands: the MoE router, where matmul_pallas computes
-//    in f32).  f32 in, f32 accumulate, f32 out, in FFMA: TF32 wgmma keeps
-//    10 mantissa bits, enough to flip the router's top-k at near ties
-//    against the eager f32 product.  Bound by the FP32 rate outside the
-//    tensor cores (about 67 TFLOP/s on an H100 SXM), or at N = 16 by
-//    reading x.  A CTA of 256 threads (16 x 16) owns the agent's clamped
-//    (bm, bn) tile, covered by the (rows, cols) CTA tile of the launch
-//    rule; each thread holds a (rows / 16) x (cols / 16) micro-tile of
-//    accumulators in registers (at most 128), rows ty + 16 i and columns
-//    tx + 16 j, so a warp reads two rows of x and 16 neighbouring columns
-//    of w from shared memory.  16-deep K slabs of x and w are staged
-//    through two shared-memory buffers, with cp.async (16 bytes, zero
-//    fill past the edges) where the pitch and base allow, scalar loads
-//    otherwise; the next slab loads while this one is summed.  K is walked
-//    in order, one fmaf a step, so every legal tile gives the same bits;
-//    the ragged M, N and K edges are zero-filled and the stores masked.
-//    w is read in place, row-major or as the transposed view head.T.
+// D. f32 (float32 operands, f32 out): FFMA with K split by K alone over
+//    a thread-block cluster; its own source, matmul_f32.cu.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -467,203 +453,7 @@ cudaError_t launch_tma(const CUtensorMap& mx, const CUtensorMap& mw,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// D. f32: FFMA on register micro-tiles
-// ---------------------------------------------------------------------------
-
-constexpr int F32_BK = 16;             // K depth of one staged slab
-constexpr int F32_THREADS = 256;       // 16 x 16
-constexpr int F32_PITCH = F32_BK + 4;  // floats a row of a K-contiguous tile
-
-template <int ROWS, int COLS, bool B_KMAJOR>
-struct F32Cfg {
-  static constexpr int TM = ROWS / 16, TN = COLS / 16;   // micro-tile
-  static constexpr int A_FLOATS = ROWS * F32_PITCH;      // As[r][k]
-  static constexpr int B_FLOATS = B_KMAJOR ? COLS * F32_PITCH   // Bs[n][k]
-                                           : F32_BK * COLS;     // Bs[k][n]
-  static constexpr int STAGE = A_FLOATS + B_FLOATS;
-  static constexpr int SMEM = 2 * STAGE * 4;
-  static_assert(TM * TN <= 128, "more than 128 accumulators a thread");
-};
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N_PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N_PENDING) : "memory");
-}
-
-// Four consecutive floats src[0..3] into dst[0..3], the first `n` of them
-// real and the rest zero: one cp.async where `vec`, else scalar loads.
-__device__ __forceinline__ void stage4(float* dst, const float* src,
-                                       const float* base, int n, bool vec) {
-  n = n < 0 ? 0 : (n > 4 ? 4 : n);
-  if (vec) {
-    cp_async16(dst, n > 0 ? src : base, 4 * n);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[e] = e < n ? src[e] : 0.f;
-  }
-}
-
-template <int ROWS, int COLS, bool B_KMAJOR>
-__global__ void __launch_bounds__(F32_THREADS, 1)
-matmul_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  float* __restrict__ y, int M, int N, int K, long long lda,
-                  long long ldw, int bm_step, int bn_step, int vec_a,
-                  int vec_b) {
-  using C = F32Cfg<ROWS, COLS, B_KMAJOR>;
-  constexpr int TM = C::TM, TN = C::TN;
-  extern __shared__ __align__(16) float f32_smem[];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int m0 = blockIdx.y * bm_step, n0 = blockIdx.x * bn_step;
-  const int row_end = min(M, m0 + bm_step);
-  const int col_end = min(N, n0 + bn_step);
-  const int nk = (K + F32_BK - 1) / F32_BK;
-
-  auto load = [&](int buf, int k0) {
-    float* As = f32_smem + buf * C::STAGE;
-    float* Bs = As + C::A_FLOATS;
-    for (int v = tid; v < ROWS * (F32_BK / 4); v += F32_THREADS) {
-      const int r = v / (F32_BK / 4), kc = (v % (F32_BK / 4)) * 4;
-      const int gm = m0 + r, gk = k0 + kc;
-      stage4(As + r * F32_PITCH + kc, x + (size_t)gm * lda + gk, x,
-             gm < row_end ? K - gk : 0, vec_a);
-    }
-    if constexpr (B_KMAJOR) {   // w[k][n] at n * ldw + k
-      for (int v = tid; v < COLS * (F32_BK / 4); v += F32_THREADS) {
-        const int n = v / (F32_BK / 4), kc = (v % (F32_BK / 4)) * 4;
-        const int gn = n0 + n, gk = k0 + kc;
-        stage4(Bs + n * F32_PITCH + kc, w + (size_t)gn * ldw + gk, w,
-               gn < col_end ? K - gk : 0, vec_b);
-      }
-    } else {                    // w[k][n] at k * ldw + n
-      for (int v = tid; v < F32_BK * (COLS / 4); v += F32_THREADS) {
-        const int k = v / (COLS / 4), nc = (v % (COLS / 4)) * 4;
-        const int gk = k0 + k, gn = n0 + nc;
-        stage4(Bs + k * COLS + nc, w + (size_t)gk * ldw + gn, w,
-               gk < K ? col_end - gn : 0, vec_b);
-      }
-    }
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  load(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < nk; ++s) {
-    if (s + 1 < nk) load((s + 1) & 1, (s + 1) * F32_BK);
-    cp_async_commit();
-    cp_async_wait<1>();          // slab s has landed
-    __syncthreads();
-    const float* As = f32_smem + (s & 1) * C::STAGE;
-    const float* Bs = As + C::A_FLOATS;
-#pragma unroll
-    for (int kk = 0; kk < F32_BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[(ty + 16 * i) * F32_PITCH + kk];
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        b[j] = B_KMAJOR ? Bs[(tx + 16 * j) * F32_PITCH + kk]
-                        : Bs[kk * COLS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();             // the buffer is free for slab s + 2
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty + 16 * i;
-    if (r >= row_end) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx + 16 * j;
-      if (c < col_end) y[(size_t)r * N + c] = acc[i][j];
-    }
-  }
-}
-
-template <int ROWS, int COLS, bool B_KMAJOR>
-cudaError_t launch_f32(const float* x, const float* w, float* y, int M,
-                       int N, int K, long long lda, long long ldw, int bm,
-                       int bn, int grid_m, int grid_n, int vec_a, int vec_b,
-                       cudaStream_t stream) {
-  using C = F32Cfg<ROWS, COLS, B_KMAJOR>;
-  auto kernel = matmul_f32_kernel<ROWS, COLS, B_KMAJOR>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  dim3 grid(grid_n, grid_m);
-  kernel<<<grid, F32_THREADS, C::SMEM, stream>>>(x, w, y, M, N, K, lda, ldw,
-                                                 bm, bn, vec_a, vec_b);
-  return cudaGetLastError();
-}
-
 }  // namespace
-
-// C entry point of variant D.  (bm, bn) are the effective (clamped) tiles
-// and the CTA strides, on a (grid_m, grid_n) grid; (rows, cols) the
-// compiled CTA tile covering them; ld_w the stride of w's non-unit
-// dimension (its rows when w_kmajor is 0, its columns when 1); vec_a and
-// vec_b say that x's and w's base and pitch are 16-byte aligned (and, for
-// a row-major w, bn a multiple of 4), so that its slabs load with
-// cp.async.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a CTA tile that is not compiled.
-extern "C" int repro_matmul_f32(const void* x, const void* w, void* y, int M,
-                                int N, int K, long long lda, long long ld_w,
-                                int w_kmajor, int bm, int bn, int rows,
-                                int cols, int grid_m, int grid_n, int vec_a,
-                                int vec_b, void* stream) {
-  auto xs = static_cast<const float*>(x);
-  auto ws = static_cast<const float*>(w);
-  auto ys = static_cast<float*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
-#define REPRO_F32_CASE(R_, C_)                                               \
-  if (rows == R_ && cols == C_)                                              \
-    return (int)(w_kmajor                                                    \
-                     ? launch_f32<R_, C_, true>(xs, ws, ys, M, N, K, lda,    \
-                                                ld_w, bm, bn, grid_m,        \
-                                                grid_n, vec_a, vec_b, st)    \
-                     : launch_f32<R_, C_, false>(xs, ws, ys, M, N, K, lda,   \
-                                                 ld_w, bm, bn, grid_m,       \
-                                                 grid_n, vec_a, vec_b, st));
-  REPRO_F32_CASE(16, 128)
-  REPRO_F32_CASE(16, 256)
-  REPRO_F32_CASE(16, 512)
-  REPRO_F32_CASE(32, 128)
-  REPRO_F32_CASE(32, 256)
-  REPRO_F32_CASE(32, 512)
-  REPRO_F32_CASE(64, 128)
-  REPRO_F32_CASE(64, 256)
-  REPRO_F32_CASE(64, 512)
-  REPRO_F32_CASE(128, 128)
-  REPRO_F32_CASE(128, 256)
-  REPRO_F32_CASE(256, 128)
-#undef REPRO_F32_CASE
-  return (int)cudaErrorInvalidValue;
-}
 
 // C entry point of variants A and B.  (bm, bn) are the effective
 // (clamped) tiles and the CTA strides; k_run the K each of the `splits`

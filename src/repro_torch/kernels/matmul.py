@@ -1,9 +1,10 @@
 """K1: tiled matmul ``x(M,K) @ w(K,N)`` as a hand-written Hopper kernel.
 
 Replaces the TPU kernel ``src/repro/kernels/matmul.py`` (``matmul_pallas``
-and ``_matmul_kernel``).  The CUDA source is ``csrc/matmul.cu``; a CTA owns
-the agent's (bm, bn) output tile, accumulates in f32 and writes the output
-in ``x.dtype``.  Four variants (``ops.matmul_launch_plan`` picks one):
+and ``_matmul_kernel``).  The CUDA sources are ``csrc/matmul.cu`` and, for
+f32 operands, ``csrc/matmul_f32.cu``; a CTA owns the agent's (bm, bn)
+output tile, accumulates in f32 and writes the output in ``x.dtype``.
+Four variants (``ops.matmul_launch_plan`` picks one):
 
 * ``tma_wgmma``: a ring of TMA loads into shared memory, one producer
   thread, two consumer warpgroups of ``wgmma``; ``w`` is read in place
@@ -16,18 +17,25 @@ in ``x.dtype``.  Four variants (``ops.matmul_launch_plan`` picks one):
 * ``unaligned``: operands TMA cannot take (a row pitch or pointer that is
   not a multiple of 16 bytes) go through the first kernel's loop
   (``mma.sync``, staged through static shared memory).
-* ``f32``: float32 operands (the MoE router's ``moe.router`` site, where
-  the reference's ``matmul_pallas`` computes in f32).  256 threads of
-  FFMA, each holding a register micro-tile of the CTA's output, with x
-  and w staged through two shared-memory buffers (``cp.async`` where the
-  pitch allows).  Every output sums K in order, so every legal tile gives
-  the same bits; no TF32, whose 10 mantissa bits would flip the router's
-  top-k at near ties against the eager path.
+* ``f32``: float32 operands (the MoE router's ``moe.router`` site and the
+  corpus's f32 sites, where the reference's ``matmul_pallas`` computes in
+  f32), ``csrc/matmul_f32.cu``.  FFMA, each of 256 threads holding a
+  register micro-tile; no TF32, whose 10 mantissa bits would flip the
+  router's top-k at near ties against the eager path.  A router's output
+  grid is a handful of tiles (16 at M = 2048, one at M = 4), so K is
+  split into ``ops.f32_split(K)`` runs (at most 8, from K alone), one CTA
+  each: each CTA sums its run in order into a workspace, and the last CTA
+  of a tile adds the partials in order of run, in one launch.  Every
+  output then has the same bits at every legal tile and every M.  At a
+  narrow N (Jamba's 16) the CTA computes only N's columns
+  (``plan.width``) and its threads go over rows, at decode only M's rows
+  (``plan.height``); 32-deep slabs stage through a ring of 2 to 8
+  ``cp.async`` stages.
 
 What bounds it on the H100: at prefill (M = 2048) the tensor-core rate,
 at decode (M = 4) reading ``w`` once from device memory; the ``f32``
 variant the FP32 rate outside the tensor cores (about 67 TFLOP/s), or
-at N = 16 reading ``x``.
+at N = 16 reading ``x``, at decode reading ``w``.
 
 On a CPU tensor :func:`repro_torch.kernels.ops.matmul` takes
 :func:`matmul_plain`; on a CUDA tensor it launches the kernel or raises.
@@ -52,8 +60,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 _TMA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                  + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 10
                  + [ctypes.c_void_p])
-_F32_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 9
+_F32_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p])
 _SMS: dict = {}                 # device index -> SM count
 _COUNTERS: dict = {}            # (device, stream) -> split-k tile counters
@@ -70,8 +78,8 @@ def matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def _fn(name, argtypes):
-    fn = getattr(build.load("matmul"), name)
+def _fn(name, argtypes, lib="matmul"):
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -95,7 +103,7 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """Per-tile arrival counters of the split variant.  They start at zero
+    """Per-tile arrival counters of the split variants.  They start at zero
     and the kernel puts each back to zero, so one buffer serves every call
     on one stream; calls on two streams may overlap, so each stream has
     its own."""
@@ -146,10 +154,19 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, bm: int, bn: int,
     if plan.variant == "f32":
         # a row-major w's 16-byte chunks start at column n0 = bn * j
         vec_b = vec_b and (w_kmajor or plan.bn % 4 == 0)
-        rc = _fn("repro_matmul_f32", _F32_ARGTYPES)(
-            x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, lda, ldw,
-            int(w_kmajor), plan.bm, plan.bn, plan.rows, plan.cols,
-            plan.grid_m, plan.grid_n, int(vec_a), int(vec_b), stream)
+        ws = counters = None
+        if plan.splits > 1:
+            ws = torch.empty((plan.splits, M, N), dtype=torch.float32,
+                             device=x.device)
+            counters = _counters(x.device, stream,
+                                 plan.grid_m * plan.grid_n)
+        rc = _fn("repro_matmul_f32", _F32_ARGTYPES, "matmul_f32")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), M, N, K,
+            lda, ldw, int(w_kmajor), plan.bm, plan.bn, plan.height,
+            plan.width, plan.k_run, plan.splits, plan.grid_m, plan.grid_n,
+            int(vec_a), int(vec_b), stream)
     elif plan.variant == "unaligned":
         rc = _fn("repro_matmul_unaligned_bf16", _ARGTYPES)(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), M, N, K, lda, swk,

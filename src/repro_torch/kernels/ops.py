@@ -34,7 +34,12 @@ launch plans and the kernels' own argument checks all call:
     kernel; :func:`matmul_launch_plan` picks the variant and, for a small
     output grid, the split over ``bk``.  In f32 the same tile runs the
     ``f32`` variant: 256 threads of FFMA, at most 128 accumulators a
-    thread, so the clause is the same.
+    thread, so the clause is the same.  That variant is bound by the FP32
+    rate outside the tensor cores (or, at a narrow N or at decode, by
+    reading x or w), and a router's grid is a handful of tiles, so it
+    splits K into :func:`f32_split` runs, one CTA each, a function of K
+    alone (a row's bits then do not depend on the batch), and computes
+    only the rows and columns a small M or N has.
   - attention: ``bq * ATTN_D_PAD <= 128 * 128`` (at most two consumer
     warpgroups of 64 rows, each holding its (64, 128) f32 accumulator),
     and the blocks must divide the sequence (``Sq % bq == Skv % bkv ==
@@ -80,6 +85,11 @@ ATTN_D_PAD = 128                # K2's head dim: two 64-column slabs
 MM_MAX_ROWS, MM_MAX_COLS = 256, 512
 L2_BAND_BYTES = 8 << 20         # the band of x a group of CTAs keeps in L2
 MM_K_STAGE = 128                # the deepest stage of K1's TMA ring
+F32_BK = 32                     # K depth of a slab of K1's f32 variant
+F32_MIN_RUN = 512               # the shortest run of K an f32 CTA walks
+F32_MAX_RUNS = 8                # the most runs of K an f32 call splits
+F32_MIN_WIDTH = 16              # the narrowest f32 column layout
+F32_MIN_HEIGHT = 4              # the lowest f32 row layout (decode)
 ATTN_WG_ROWS = 64               # query rows of a K2 consumer warpgroup
 ATTN_RING = 2                   # stages of K2's TMA ring (PERF.md, PR 14)
 ATTN_MAX_RING = 4
@@ -208,8 +218,9 @@ def matmul_tile_plan(M: int, N: int, K: int, tiles):
 
 class MatmulLaunch(NamedTuple):
     """How K1 runs one call: the variant, the clamped tiles (the CTA
-    strides), the compiled CTA tile, the output grid, the split of K and
-    the grouping of row blocks (``csrc/matmul.cu``)."""
+    strides), the compiled CTA tile, the output grid, the split of K, the
+    grouping of row blocks and the rows and columns a CTA computes
+    (``csrc/matmul.cu``, ``csrc/matmul_f32.cu``)."""
     variant: str        # "tma_wgmma", "split_k", "unaligned" or "f32"
     bm: int
     bn: int
@@ -221,17 +232,23 @@ class MatmulLaunch(NamedTuple):
     splits: int         # CTAs along K
     k_run: int          # K a CTA walks: CTA z takes [z, z + 1) * k_run
     group_m: int        # row blocks that run together
+    width: int          # columns a CTA computes: ``cols``, or in f32 at
+                        # a narrower N the power of two >= 16 covering N
+    height: int         # rows a CTA computes: ``rows``, or in f32 at M <=
+                        # 8 and width >= 128 the power of two >= 4 over M
 
 
 def matmul_launch_plan(M: int, N: int, K: int, tiles, sms: int,
                        aligned: bool = True,
                        dtype: str = KERNEL_DTYPE) -> Optional[MatmulLaunch]:
     """The launch of K1 for a legal tile (``None`` if illegal).  float32
-    operands run the ``f32`` variant, one CTA a tile walking all of K
-    (never ``split_k`` or ``tma_wgmma``; it stages through ``cp.async``
-    where the pitch allows, so ``aligned`` does not change it).  bf16
-    operands TMA cannot take (``aligned`` false) run the unaligned
-    variant.  An output grid smaller than ``sms`` splits K into at most
+    operands run the ``f32`` variant (never ``split_k`` or ``tma_wgmma``;
+    it stages through ``cp.async`` where the pitch allows, so ``aligned``
+    does not change it): K split into the runs of :func:`f32_split`, one
+    CTA each, the same for every tile, M, N and card, the partials added
+    in order of run, and the layout ``(height, width)`` narrowed to M and
+    N.  bf16 operands TMA cannot take (``aligned`` false) run the
+    unaligned variant.  An output grid smaller than ``sms`` splits K into at most
     ``sms // tiles`` runs of ``k_run``, a whole number of ``bk`` blocks
     (``split_k``), when ``bk`` is a multiple of the kernel's deepest
     stage, so that no stage of a run reads into the next; otherwise one
@@ -252,8 +269,13 @@ def _launch_plan(M, N, K, bm, bn, bk, sms, aligned, f32):
     bm, bn, bk, rows, cols = plan
     grid_m, grid_n = -(-M // bm), -(-N // bn)
     if f32:
+        splits, k_run = f32_split(K)
+        width = min(cols, int(_pow2_at_least(N, F32_MIN_WIDTH)))
+        height = rows
+        if width >= 128:
+            height = min(rows, int(_pow2_at_least(M, F32_MIN_HEIGHT)))
         return MatmulLaunch("f32", bm, bn, bk, rows, cols, grid_m, grid_n,
-                            1, K, 1)
+                            splits, k_run, 1, width, height)
     n_tiles = grid_m * grid_n
     nkb = -(-K // bk)
     splits, k_run = 1, K
@@ -266,7 +288,22 @@ def _launch_plan(M, N, K, bm, bn, bk, sms, aligned, f32):
                else "split_k" if splits > 1 else "tma_wgmma")
     band = max(1, L2_BAND_BYTES // max(1, bm * K * 2))
     return MatmulLaunch(variant, bm, bn, bk, rows, cols, grid_m, grid_n,
-                        splits, k_run, min(grid_m, band))
+                        splits, k_run, min(grid_m, band), cols, rows)
+
+
+def f32_split(K: int) -> Tuple[int, int]:
+    """``(runs, k_run)``: how K1's f32 variant splits K, from K alone.
+    Runs of ``k_run``, a multiple of the slab ``F32_BK`` and at least
+    ``F32_MIN_RUN``, at most ``F32_MAX_RUNS`` of them; the last may be
+    shorter.  A K of at most ``F32_MIN_RUN`` is one run (``k_run = K``).
+    Each run is summed in order and the runs' partials added in order of
+    run, so the bits of an output depend on K alone, not on the tile, M,
+    N or the card."""
+    K = int(K)
+    if K <= F32_MIN_RUN:
+        return 1, K
+    k_run = max(F32_MIN_RUN, _ceil_mult(-(-K // F32_MAX_RUNS), F32_BK))
+    return -(-K // k_run), k_run
 
 
 class AttentionLaunch(NamedTuple):

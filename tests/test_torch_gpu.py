@@ -1067,6 +1067,9 @@ def _f32_ran(fn):
     ((300, 640, 384), (64, 512, 4096), _W_T),
     ((300, 640, 384), (128, 256, 256), _W_ROW),
     ((300, 640, 384), (256, 128, 512), _W_T),
+    ((2048, 2048, 2048), (128, 128, 512), _W_ROW),   # the corpus's b.f32
+    ((4096, 128, 128), (128, 128, 128), _W_ROW),     # m.fft: one run
+    ((64, 40, 700), (64, 128, 128), _W_T),           # a 64-column layout
 ])
 def test_matmul_f32_variant_matches_the_f32_product(cuda, shape, tiles,
                                                     layout):
@@ -1103,15 +1106,37 @@ def test_matmul_f32_every_tile_gives_the_same_bits(cuda):
     assert torch.equal(ops.matmul(xu, w, tiles=(64, 128, 512)), y0)
 
 
-def test_matmul_f32_never_splits_k(cuda):
-    """At M = 4 the bf16 plan splits K over the SMs; the f32 one never."""
-    x = _f32_normal(54, 4, 12288, device=cuda)
-    w = _f32_normal(55, 12288, 4096, device=cuda)
+def test_matmul_f32_splits_k_by_k_alone(cuda):
+    """At M = 4 the bf16 plan splits K over the SMs by the output grid;
+    the f32 one splits it by K alone (``ops.f32_split``), the same runs at
+    every tile and M, one CTA a run, and stays within 1e-5 of the f32
+    product."""
+    M, N, K = 4, 4096, 12288
+    x = _f32_normal(54, M, K, device=cuda)
+    w = _f32_normal(55, K, N, device=cuda)
+    plans = {ops.matmul_launch_plan(m, N, K, t, 132, dtype="float32")[8:10]
+             for m in (4, 2048)
+             for t in [(8, 128, 512), (128, 128, 512), (32, 512, 4096)]}
+    assert plans == {ops.f32_split(K)} and ops.f32_split(K)[0] > 1
     y, ran = _f32_ran(lambda: ops.matmul(x, w, tiles=(8, 128, 512)))
-    assert ran["f32"] == 1 and ran["split_k"] == 0
-    assert ops.matmul_launch_plan(4, 4096, 12288, (8, 128, 512),
+    assert ran == {v: int(v == "f32") for v in kmm.VARIANTS}
+    assert ops.matmul_launch_plan(M, N, K, (8, 128, 512),
                                   132).variant == "split_k"
     assert float((y - x @ w).abs().max() / (x @ w).abs().max()) < K1_F32_TOL
+
+
+@pytest.mark.parametrize("N,K", [(128, 5120), (16, 4096)])
+def test_matmul_f32_rows_are_the_same_bits_at_every_m(cuda, N, K):
+    """A token's router logits do not depend on its batch: rows 0-3 of a
+    2048-row call equal a 4-row call of the same rows bitwise, at the
+    Llama-4 and Jamba routers' K, under the baseline tiles of each M and
+    PPO's router tile."""
+    x = _f32_normal(56, 2048, K, device=cuda)
+    w = _f32_normal(57, K, N, device=cuda)
+    big = ops.matmul(x, w, tiles=(128, 128, 512))
+    small = ops.matmul(x[:4].clone(), w, tiles=(8, 128, 512))
+    assert torch.equal(big[:4], small)
+    assert torch.equal(ops.matmul(x, w, tiles=(32, 128, 1024)), big)
 
 
 def test_runner_times_an_f32_site_with_f32_operands(cuda):

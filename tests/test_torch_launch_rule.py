@@ -260,7 +260,8 @@ def test_f32_matmul_tiles_are_legal_exactly_where_bf16_ones_are(corpus):
 def test_f32_attention_and_chunk_scan_sites_are_still_refused(corpus):
     """K2 and K3 take bf16 only: their f32 sites have no legal tile, on
     the card's rule and in the h100 cost grid, and the plans of K1 in
-    f32 never split K or take the TMA pipeline."""
+    f32 take neither ``split_k`` nor the TMA pipeline: they split K by K
+    alone (``ops.f32_split``) and keep the bf16 plan's tiles."""
     sites = [dataclasses.replace(s, dtype="float32") for s in corpus
              if s.kind in ("attention", "chunk_scan")]
     assert {s.kind for s in sites} == {"attention", "chunk_scan"}
@@ -276,5 +277,109 @@ def test_f32_attention_and_chunk_scan_sites_are_still_refused(corpus):
     for M, N, K in [(2048, 128, 5120), (4, 16, 4096), (4, 4096, 4096)]:
         for t in [(128, 128, 512), (8, 128, 128), (256, 128, 4096)]:
             p = ops.matmul_launch_plan(M, N, K, t, 132, dtype="float32")
-            assert p.variant == "f32" and p.splits == 1 and p.k_run == K
+            assert p.variant == "f32"
+            assert (p.splits, p.k_run) == ops.f32_split(K)
             assert p[1:6] == ops.matmul_launch_plan(M, N, K, t, 132)[1:6]
+
+
+_F32_TILES = [(128, 128, 512), (8, 128, 512), (32, 128, 1024),
+              (256, 128, 4096), (16, 512, 128), (64, 256, 256)]
+
+
+@pytest.mark.parametrize("K", [1, 128, 256, 512, 513, 700, 1024, 1536,
+                               2048, 4096, 5120, 12288, 65536])
+def test_f32_plan_splits_k_by_k_alone(K):
+    """K1's f32 plan splits K by K alone: the same ``(splits, k_run)`` at
+    every tile, M (4, 2048), N and SM count (114, 132), equal to
+    ``ops.f32_split(K)``; the runs cover K exactly, at most
+    ``F32_MAX_RUNS`` of them, each a multiple of the 32-deep slab and at
+    least 512 when there are several, one run (all of K) at K <= 512; the
+    tile fields are the bf16 plan's."""
+    want = ops.f32_split(K)
+    splits, k_run = want
+    assert 1 <= splits <= ops.F32_MAX_RUNS
+    assert (splits - 1) * k_run < K <= splits * k_run
+    if K <= ops.F32_MIN_RUN:
+        assert want == (1, K)
+    else:
+        assert splits > 1 and k_run % ops.F32_BK == 0
+        assert k_run >= ops.F32_MIN_RUN
+    for M in (4, 2048):
+        for N in (16, 128, 4096):
+            for t in _F32_TILES:
+                bf16 = ops.matmul_launch_plan(M, N, K, t, 132)
+                for sms in (114, 132):
+                    p = ops.matmul_launch_plan(M, N, K, t, sms,
+                                               dtype="float32")
+                    assert p.variant == "f32" and p.group_m == 1
+                    assert (p.splits, p.k_run) == want, (M, N, t, sms)
+                    assert p[1:6] == bf16[1:6]
+
+
+def _compiled_f32_layouts():
+    """The (rows, width) layouts ``csrc/matmul_f32.cu`` compiles, and its
+    slab depth and most runs, read from the source."""
+    import re
+    from pathlib import Path
+    src = (Path(ops.__file__).resolve().parent.parent / "csrc" /
+           "matmul_f32.cu").read_text()
+    layouts = {(int(r), int(w)) for r, w in
+               re.findall(r"^\s*REPRO_F32_CASE\((\d+), (\d+)\)", src, re.M)}
+    consts = dict(re.findall(r"constexpr int (F32_BK|F32_MAX_RUNS) = (\d+);",
+                             src))
+    return layouts, {k: int(v) for k, v in consts.items()}
+
+
+@pytest.mark.parametrize("M,N,K,tiles,width", [
+    (2048, 16, 4096, (128, 128, 512), 16),      # Jamba's router
+    (4, 16, 4096, (8, 128, 512), 16),
+    (2048, 128, 5120, (128, 128, 512), 128),    # Llama-4's router
+    (2048, 40, 700, (64, 128, 128), 64),
+    (300, 20, 384, (256, 512, 128), 32),
+    (4096, 4096, 128, (64, 512, 512), 512),
+    (2048, 2048, 2048, (128, 256, 512), 256),
+    (4, 128, 5120, (8, 128, 512), 128),         # Llama-4's router at decode
+    (7, 4096, 4096, (8, 512, 512), 512),
+    (1, 300, 64, (16, 256, 128), 256),
+])
+def test_f32_plan_column_layout(M, N, K, tiles, width):
+    """The f32 CTA computes only the columns its tile has: ``width`` is
+    the CTA tile's columns, or at a narrower N the power of two of at
+    least 16 covering N (Jamba's router: 16 of a 128-column tile); its
+    rows (``height``) are the CTA tile's, or at M <= 8 and a width of at
+    least 128 the power of two of at least 4 covering M (decode).  The
+    bf16 plans compute their whole CTA tile."""
+    p = ops.matmul_launch_plan(M, N, K, tiles, 132, dtype="float32")
+    assert p.width == width and p.height * p.width <= ops.MM_ACC_LIMIT
+    assert p.width <= p.cols and p.height <= p.rows
+    assert p.width >= min(N, p.bn) and p.grid_n == -(-N // p.bn)
+    assert p.height >= min(M, p.bm) and p.grid_m == -(-M // p.bm)
+    assert p.height * p.width >= 256      # an output a thread at least
+    want_h = p.rows if M > 8 or width < 128 else max(4, _pow2(M, 1))
+    assert p.height == want_h
+    bf16 = ops.matmul_launch_plan(M, N, K, tiles, 132)
+    assert (bf16.height, bf16.width) == (bf16.rows, bf16.cols)
+
+
+def test_f32_plans_ask_only_for_compiled_layouts(corpus):
+    """Every f32 plan at every legal tile of every corpus matmul shape
+    (and of the two MoE archs' serve sites) asks for a (rows, width)
+    layout ``csrc/matmul_f32.cu`` compiles and at most its runs; the
+    source's slab depth and most runs are the plan's."""
+    layouts, consts = _compiled_f32_layouts()
+    assert consts == {"F32_BK": ops.F32_BK,
+                      "F32_MAX_RUNS": ops.F32_MAX_RUNS}
+    assert len(layouts) == 33
+    sites = [s for s in corpus if s.kind == "matmul"]
+    sites += [s for a in ("llama4_maverick_400b", "jamba_v0_1_52b")
+              for s in _serve_sites(a) if s.kind == "matmul"]
+    asked = set()
+    for s in sites:
+        for t in _action_tiles(s):
+            p = ops.matmul_launch_plan(s.m, s.n, s.k, t, 132,
+                                       dtype="float32")
+            if p is not None:
+                assert (p.height, p.width) in layouts, (s.key(), t)
+                assert p.splits <= consts["F32_MAX_RUNS"]
+                asked.add((p.height, p.width))
+    assert {(128, 16), (128, 128), (16, 16), (4, 128)} <= asked
