@@ -43,13 +43,22 @@ Phases, each printed before the last line:
      FP32 rate (66.9 TFLOP/s), each [k1f32:...] line with its plan (the
      runs R of K and k_run, the grid, the height x width layout and the
      CTA tile), and K2 at each of their prefill attentions (GQA groups of
-     9, 16, 5 and 4, D = 96 at S = 768, D = 64 causal and not), each in
-     the served layout, after holding how often a pass
+     9, 16, 5 and 4, D = 96 at S = 768, D = 64 causal and not,
+     deepseek_v2_236b's mla.core at D = 192 with a value dim Dv = 128),
+     each in the served layout, after holding how often a pass
      calls each site against per_pass_launches; then K1's f32 variant at
      PPO's router tile (32, 128, 1024) at 2048x128x5120 and at the
      corpus's f32 sites b.f32 (2048x2048x2048) and m.fft (4096x128x128)
      under the baseline tiles, the same way, and the same bits at four
-     tiles and at M = 4 against M = 2048 for both routers' (N, K).  Each
+     tiles and at M = 4 against M = 2048 for the three routers' (N, K)
+     (DeepSeek-V2's N = 160 among them); K2 at mla.core beyond the
+     baseline tile: at a tile PPO can pick (64, 128) in the served layout
+     and in the measurement runner's layout (B=1, H=512, D=Dv=192,
+     contiguous), each with its plan (64-key stages, a ring of 2), a
+     small-width DeepSeek-V2 at MLA's full head dims injected against
+     eager (logits within LOGIT_TOL, 3 absorbed decode steps), and the
+     plan at the Qwen3-8B prefill (D = 128) held to the one it had
+     before K2 took D > 128.  Each
      shape prints the kernel's ms (the median over repeats
      of 20 calls back to back), the plain version's, one PyTorch call's where
      there is one (a yardstick only, never called by the port, timed the
@@ -173,18 +182,21 @@ Phases, each printed before the last line:
      4 dropped and a resume whose losses match within 1e-4 (one save's
      bytes and seconds; the directory deleted), and accum 2 against
      accum 1;
- 12. six more archs served (after phase 11, before phase 7): the
+ 12. seven more archs served (after phase 11, before phase 7): the
      seed-0 init of every ported arch at full width on the card, timed, at
      the depth it is served at (llama4_maverick_400b at 2 of its 48
-     layers, jamba_v0_1_52b at 8 of 32: one period each, as much as one
-     card holds beside the serve; the others at full depth); then
+     layers, jamba_v0_1_52b at 8 of 32: one period each, deepseek_v2_236b
+     at 4 of 60, four periods of one MoE block; as much as one card holds
+     beside the serve; the others at full depth); then
      starcoder2_7b (GELU MLP, GQA 36/4), chatglm3_6b (2-D RoPE, GQA
      32/2), phi3_vision_4_2b (a 256-row frontend.proj prefix, head dim
      96), seamless_m4t_medium (encoder-decoder, cross-attention, head dim
      64, vocab 256206), llama4_maverick_400b (a dense and a 128-expert
      top-1 MoE layer with a shared expert, GQA 40/8) and jamba_v0_1_52b
      (7 Mamba/SSD mixers and one attention, 4 MoE layers of 16 experts
-     top-2), one after another at full width, batch 4, prompt 512, 16
+     top-2) and deepseek_v2_236b (MLA: K2 at D = 192, Dv = 128 in the
+     prefill, the absorbed decode in plain PyTorch; 160 experts top-6 and
+     two shared), one after another at full width, batch 4, prompt 512, 16
      tokens: serve eager, then --autotune ppo --inject against the cost
      model (legality h100) with the counters zeroed just before and read
      just after, each pass's launches as per_pass_launches says, K1's f32
@@ -248,11 +260,18 @@ XLSTM = "xlstm_1_3b"
 STABLELM = "stablelm_3b"
 PHASE12_ARCHS = ("starcoder2_7b", "chatglm3_6b", "phi3_vision_4_2b",
                  "seamless_m4t_medium", "llama4_maverick_400b",
-                 "jamba_v0_1_52b")      # served in phase 12
+                 "jamba_v0_1_52b", "deepseek_v2_236b")  # served in phase 12
 # the depth each arch is served at on one card, at its published widths:
 # whole periods, as many as the 80 GB hold beside the serve (PERF.md §4)
 SERVE_LAYERS = {"llama4_maverick_400b": 2,     # one period, 37.4 GB bf16
-                "jamba_v0_1_52b": 8}           # one period, 26.5 GB bf16
+                "jamba_v0_1_52b": 8,           # one period, 26.5 GB bf16
+                "deepseek_v2_236b": 4}         # 4 periods of 1, 34 GB bf16
+# K2 at MLA (deepseek_v2_236b's mla.core, D = 128 + 64, Dv = 128) beyond
+# phase 12's baseline tile: a tile PPO can pick, in the served layout, and
+# the measurement runner's layout (B = 1, H = B * heads uncapped on the
+# card, D = Dv = 192, contiguous)
+MLA_PPO_TILE = (64, 128)
+MLA_RUNNER = dict(B=1, H=4 * 128, S=512, D=192, Dv=192)
 STEPS_12 = STEPS                        # PPO steps of a phase-12 fit
 # tests/test_system.py's PPO for the main-path loop: its NeuroVecConfig,
 # learning rate and budget, on dataset.generate(400, seed=0, base=sites)
@@ -527,7 +546,8 @@ def k1_f32_checks(gen) -> dict:
     router tile and at the corpus's f32 sites (baseline tiles), each
     against the f32 product, timed beside torch.matmul in f32 and its
     bound; then the same bits at four tiles and at M = 4 against M = 2048
-    for both routers' (N, K).  Returns the records by label."""
+    for the three routers' (N, K) (Llama-4's, Jamba's, DeepSeek-V2's).
+    Returns the records by label."""
     import torch
     from repro_torch.core.costmodel import baseline_matmul_tiles
     from repro_torch.kernels import ops
@@ -538,7 +558,7 @@ def k1_f32_checks(gen) -> dict:
                           shape="x".join(map(str, shape[:3])),
                           tiles=tuple(tiles))
         torch.cuda.empty_cache()
-    for N, K in ((128, 5120), (16, 4096)):
+    for N, K in ((128, 5120), (16, 4096), (160, 5120)):
         x = torch.randn((2048, K), generator=gen, device="cuda")
         w = torch.randn((K, N), generator=gen, device="cuda")
         y0 = ops.matmul(x, w, tiles=(128, 128, 512))
@@ -645,14 +665,18 @@ def k2_call(q, k, v, tiles, causal=True):
     return y, ran[0]
 
 
-def k2_work(B, H, Hkv, Sq, Skv, D, causal=True):
+def k2_work(B, H, Hkv, Sq, Skv, D, causal=True, Dv=None):
     """Operations and bytes of one call: the causal half of the two
-    products (Sq = Skv), q, k, v read once and out written once.  The
-    bound is bytes at the Qwen3-8B prefill: 42 MB at 3.35 TB/s (0.0125 ms)
-    against 8.6 GFLOP at 989 TFLOP/s (0.0087 ms)."""
+    products (Sq = Skv), Q.K^T at D and P.V at the value dim Dv (default
+    D), q, k, v read once and out written once.  The bound is bytes at
+    the Qwen3-8B prefill: 42 MB at 3.35 TB/s (0.0125 ms) against 8.6
+    GFLOP at 989 TFLOP/s (0.0087 ms); at DeepSeek-V2's served mla.core (H
+    = 128, D = 192, Dv = 128) 335 MB (0.100 ms) against 42.9 GFLOP (0.043
+    ms)."""
+    Dv = D if Dv is None else Dv
     pairs = Sq * (Sq + 1) / 2 if causal else Sq * Skv
-    return 4.0 * B * H * D * pairs, 2.0 * (2 * B * H * Sq * D
-                                           + 2 * B * Hkv * Skv * D)
+    return (2.0 * B * H * (D + Dv) * pairs,
+            2.0 * (B * H * Sq * (D + Dv) + B * Hkv * Skv * (D + Dv)))
 
 
 def k2_line(label, q, k, v, t, ref_out=None, causal=True):
@@ -664,7 +688,7 @@ def k2_line(label, q, k, v, t, ref_out=None, causal=True):
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import ops
     B, H, S, D = q.shape
-    Hkv = k.shape[1]
+    Hkv, Dv = k.shape[1], v.shape[-1]
     scale = D ** -0.5
     y, variant = k2_call(q, k, v, t, causal)
     yp = kfa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
@@ -688,12 +712,13 @@ def k2_line(label, q, k, v, t, ref_out=None, causal=True):
             q, k, v, is_causal=causal, scale=scale, enable_gqa=H != Hkv)
     lib_ms = time_ms_over(sdpa, [()])
     lib_dev = sum(device_ms_by_kernel(sdpa).values()) or None
-    flops, nbytes = k2_work(B, H, Hkv, S, k.shape[2], D, causal)
+    flops, nbytes = k2_work(B, H, Hkv, S, k.shape[2], D, causal, Dv)
     b, by = bound_s(flops, nbytes)
     share_ms = dev if dev is not None else ms
     dev_ratio = (f"{dev / lib_dev:.2f}x" if dev and lib_dev
                  else "not measured")
-    print(f"[k2:{label}] B={B} H={H} Hkv={Hkv} S={S} D={D} "
+    print(f"[k2:{label}] B={B} H={H} Hkv={Hkv} S={S} D={D}"
+          f"{'' if Dv == D else f' Dv={Dv}'} "
           f"{'causal' if causal else 'non-causal'} "
           f"tiles={t} variant={variant} |k-plain|={err:.3e} {err_ref}"
           f"ms={ms:.4f} device_ms="
@@ -707,6 +732,107 @@ def k2_line(label, q, k, v, t, ref_out=None, causal=True):
     return {"err": err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
             "lib_ms": lib_ms, "lib_device_ms": lib_dev, "bound_s": b,
             "flops": flops, "bytes": nbytes, "variant": variant}
+
+
+def k2_plan_line(label, S, D, t, strides=None, Dv=None):
+    """K2's launch plan at a shape, printed; returns it."""
+    from repro_torch.kernels import ops
+    p = ops.attention_launch_plan(S, S, D, *t, strides, Dv=Dv)
+    print(f"[k2-plan:{label}] S={S} D={D} Dv={Dv or D} tiles={t}: "
+          f"variant={p.variant} warpgroups={p.warpgroups} "
+          f"stage_keys={p.stage_keys} n_stages={p.n_stages} ring={p.ring} "
+          f"smem={p.smem}", flush=True)
+    return p
+
+
+def mla_small_model_check() -> dict:
+    """DeepSeek-V2 at a small width but MLA's full head dims (bf16, d
+    256, 4 heads, D = 128 + 64, Dv = 128, 2 layers of 4 experts top-2):
+    the prefill under the baseline program (K1, its f32 variant, K2 at D
+    = 192, Dv = 128) against eager at LOGIT_TOL, where routing seldom
+    flips (at full width, top-6 of 160, it flips on every batch row: phase
+    12 holds no row there), then 3 absorbed decode steps, finite."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.core.vectorizer import baseline_program, inject
+    from repro_torch.models.lm import build_model
+    cfg = get_config("deepseek_v2_236b").reduced(
+        dtype="bfloat16", d_model=256, n_heads=4, qk_nope_dim=128,
+        qk_rope_dim=64, v_head_dim=128, n_layers=2)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    prog = baseline_program(extract_serve_sites(model, 2, 128, 4))
+    tok = torch.randint(0, cfg.vocab_size, (2, 128), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1))
+    with torch.inference_mode():
+        le, _ = model.prefill(params, {"tokens": tok},
+                              model.make_cache(2, 132, device="cuda"))
+        with inject(prog):
+            cache = model.make_cache(2, 132, device="cuda")
+            lk, cache = model.prefill(params, {"tokens": tok}, cache)
+            ld = lk
+            for i in range(3):
+                ld, cache = model.decode_step(params, ld.argmax(-1)[:, None],
+                                              128 + i, cache)
+        torch.cuda.synchronize()
+    rel = float((lk - le).abs().max() / le.abs().max())
+    print(f"[mla:small] deepseek_v2_236b at d 256, 4 heads, D=192 Dv=128, 2 "
+          f"layers, bf16: injected vs eager prefill logits {rel:.4e} (tol "
+          f"{LOGIT_TOL}); 3 absorbed decode steps finite: "
+          f"{bool(torch.isfinite(ld).all())}", flush=True)
+    if rel >= LOGIT_TOL or not torch.isfinite(ld).all():
+        fail(f"MLA at a small width: injected logits {rel:.3e} off eager's")
+    return {"logits_rel": rel}
+
+
+def k2_mla_checks(gen):
+    """K2 at MLA's head dims beyond phase 12's baseline tile: DeepSeek-V2's
+    mla.core in the served layout (B=4, H=128, S=512, D=192, Dv=128,
+    causal; q and k the contiguous concatenations, v the einsum's view) at
+    a tile PPO can pick, and the measurement runner's layout (B=1, H=512,
+    D=Dv=192, contiguous) at the baseline tile; each with its plan (64-key
+    stages, a ring of 2), against its plain version, timed beside SDPA;
+    DeepSeek-V2 at a small width and MLA's full head dims, injected
+    against eager (:func:`mla_small_model_check`).  Then the plan at the
+    Qwen3-8B prefill (D = 128), which must be the one it had before K2
+    took D > 128.  Returns the records by label."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    B, H, S, D, Dv = 4, 128, 512, 192, 128
+    q, k = rnd(B, H, S, D), rnd(B, H, S, D)
+    v = rnd(B, S, H, Dv).transpose(1, 2)
+    t = MLA_PPO_TILE
+    p = k2_plan_line("mla served", S, D, t, tuple(
+        x.stride() for x in (q, k, v)), Dv)
+    if (p.variant, p.stage_keys, p.ring) != ("tma_wgmma", 64, 2):
+        fail(f"K2's plan at mla.core {p}")
+    out = {"served_ppo_tile": dict(k2_line("mla served", q, k, v, t),
+                                   tiles=t, plan=p._asdict())}
+    del q, k, v
+    torch.cuda.empty_cache()
+    r = MLA_RUNNER
+    q, k, v = (rnd(r["B"], r["H"], r["S"], d)
+               for d in (r["D"], r["D"], r["Dv"]))
+    p = k2_plan_line("mla runner", r["S"], r["D"], (128, 512), None, r["Dv"])
+    if (p.variant, p.stage_keys, p.ring) != ("tma_wgmma", 64, 2):
+        fail(f"K2's plan in the runner's layout at D = 192 {p}")
+    out["runner"] = dict(k2_line("mla runner", q, k, v, (128, 512)),
+                         tiles=(128, 512), plan=p._asdict())
+    del q, k, v
+    torch.cuda.empty_cache()
+    out["small_model"] = mla_small_model_check()
+    qwen = k2_plan_line("qwen3 prefill", 512, 128, (128, 512), (
+        (32 * 512 * 128, 512 * 128, 128, 1), (8 * 512 * 128, 512 * 128, 128, 1),
+        (512 * 8 * 128, 128, 8 * 128, 1)))
+    before = ("tma_wgmma", 128, 512, 2, 128, 4, 2,
+              2 * 2 * 64 * 128 * 2 + 2 * 4 * 128 * 128 + 1024)
+    if tuple(qwen) != before:
+        fail(f"K2's plan at D = 128 moved: {tuple(qwen)} != {before}")
+    return out
 
 
 def k2_checks(gen):
@@ -978,16 +1104,18 @@ def read_counts():
 
 def per_pass_launches(cfg):
     """Kernel launches of one prefill and of the GEN - 1 decode steps
-    under --inject: K1 at every matmul of a block (4 in the attention, 2
-    in a Mamba mixer, 3 in a gated SiLU MLP, 2 in a GELU one, 1 in an MoE
+    under --inject: K1 at every matmul of a block (4 in the attention, in
+    MLA 4 with a query latent and 3 without, 2 in a Mamba mixer, 3 in a gated SiLU MLP, 2 in a GELU one, 1 in an MoE
     MLP, its f32 router, and 3 more for its shared experts), the head and
     a vision frontend's projection (prefill only); K2 at prefill
     attention.  An encoder-decoder's encoder runs in the prefill only,
     and each decoder layer's cross-attention adds 4 matmuls and K2 in the
     prefill, 2 matmuls (q, o: its k/v are cached) a decode step.  The
-    mLSTM and SSD scans, the expert einsums and the other einsums stay
-    plain PyTorch."""
-    mixer = {"attn": (4, 1), "mamba": (2, 0), "mlstm": (2, 0),
+    mLSTM and SSD scans, the expert einsums and the other einsums (MLA's
+    up-projections and its absorbed decode, which runs no K2) stay plain
+    PyTorch."""
+    attn_mm = 3 if cfg.mla and not cfg.q_lora_rank else 4
+    mixer = {"attn": (attn_mm, 1), "mamba": (2, 0), "mlstm": (2, 0),
              "slstm": (3, 0)}
     mlp = {"dense": 3 if cfg.act == "silu" else 2, "none": 0,
            "moe": 1 + 3 * bool(cfg.n_shared_experts)}
@@ -2835,7 +2963,7 @@ def train_path(sl, gen):
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 12: the six archs phase 12 serves
+# phases 3 and 12: the seven archs phase 12 serves
 # ---------------------------------------------------------------------------
 
 class CountingRecorder:
@@ -2879,12 +3007,16 @@ def k2_inputs(cfg, site, gen):
     """q, k, v of an attention site in the layout the model passes them:
     q and k contiguous after RoPE, v the transposed view of its
     projection; without RoPE (or at the cross-attention) all three the
-    transposed views."""
+    transposed views.  MLA: q and k the contiguous concatenations at D =
+    qk_nope + qk_rope, v the up-projection's view at v_head_dim."""
     import torch
     B, H, Hkv, D = BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Dv = D
+    if cfg.mla:
+        D, Dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
 
-    def view(h, s_):
-        return torch.randn((B, s_, h, D), generator=gen,
+    def view(h, s_, d=D):
+        return torch.randn((B, s_, h, d), generator=gen,
                            device="cuda").bfloat16().transpose(1, 2)
 
     def contig(h, s_):
@@ -2892,7 +3024,7 @@ def k2_inputs(cfg, site, gen):
                            device="cuda").bfloat16()
     rot = cfg.rope != "none" and not site.site.startswith("xattn")
     mk = contig if rot else view
-    return mk(H, site.m), mk(Hkv, site.k), view(Hkv, site.k)
+    return mk(H, site.m), mk(Hkv, site.k), view(Hkv, site.k, Dv)
 
 
 def k2_key(cfg, site):
@@ -3346,6 +3478,7 @@ def main() -> int:
     k2 = k2_checks(gen)
     k2_d80, k2_small_err = k2_head_dim_checks(gen)
     torch.cuda.empty_cache()
+    k2_mla = k2_mla_checks(gen)
     xl_sites = extract_serve_sites(build_model(get_config(XLSTM)), BATCH,
                                    PROMPT, GEN)
     xl_scan = next(s for s in xl_sites if s.kind == "chunk_scan")
@@ -3464,12 +3597,12 @@ def main() -> int:
     print("[train] summary " + json.dumps(tr, default=str), flush=True)
     phase_done("11 train path")
 
-    # ---- phase 12: six more archs served (before the kernels
+    # ---- phase 12: seven more archs served (before the kernels
     # line: their launches count into the line's) ----
     p12_paths, p12 = serve_phase12(gen, p12_checks)
     by_path.update(p12_paths)
     print("[serve12] summary " + json.dumps(p12, default=str), flush=True)
-    phase_done("12 six archs served")
+    phase_done("12 seven archs served")
     print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}
@@ -3620,6 +3753,8 @@ def main() -> int:
              "flash_attention_by_variant"),
          "max_abs_err": max([r["err"] for r in k2.values()]
                             + [r["err"] for r in k2_d80.values()]
+                            + [r["err"] for label, r in k2_mla.items()
+                               if label != "small_model"]
                             + [k2_small_err]
                             + [r["err"] for a in p12_checks.values()
                                for r in a["k2"].values()]
@@ -3642,6 +3777,15 @@ def main() -> int:
                                 + [k2_small_err]),
              "work": f"one prefill of stablelm_3b ({sl['n_layers']} launches "
                      f"at head dim 80, tiles {sl['t_att']})"},
+         "mla": {label: {
+             "ms": r["ms"], "device_ms": r["device_ms"],
+             "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
+             "library_device_ms": r["lib_device_ms"],
+             "bound_ms": r["bound_s"] * 1e3,
+             "bound_by": bound_s(r["flops"], r["bytes"])[1],
+             "max_abs_err": r["err"], "tiles": r["tiles"], "plan": r["plan"]}
+             for label, r in k2_mla.items() if label != "small_model"},
+         "mla_small_model_logits_rel": k2_mla["small_model"]["logits_rel"],
          **arch_records("k2")},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/chunk_scan.cu",

@@ -5,7 +5,8 @@ A config fully determines the model.  Layer stacking is a repeating
 with each period slot's parameters stacked along a leading layer axis as
 in the reference (so converted weights map one to one).
 
-``get_config`` knows only the architectures the port serves so far.
+``PORTED_ARCHS`` lists the reference's ten architectures in its order
+(``ARCH_IDS``); ``get_config`` knows exactly these.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ import importlib
 from dataclasses import dataclass
 
 PORTED_ARCHS = ("starcoder2_7b", "qwen3_8b", "stablelm_3b", "chatglm3_6b",
-                "llama4_maverick_400b", "xlstm_1_3b", "phi3_vision_4_2b",
-                "seamless_m4t_medium", "jamba_v0_1_52b")
+                "deepseek_v2_236b", "llama4_maverick_400b", "xlstm_1_3b",
+                "phi3_vision_4_2b", "seamless_m4t_medium", "jamba_v0_1_52b")
 
 
 @dataclass(frozen=True)
@@ -165,6 +166,6 @@ SHAPES = {
 def get_config(arch: str) -> ModelConfig:
     arch = arch.replace("-", "_").replace(".", "_")
     if arch not in PORTED_ARCHS:
-        raise ValueError(f"arch {arch!r} is not ported yet; the port serves "
-                         f"{', '.join(PORTED_ARCHS)}")
+        raise ValueError(f"arch {arch!r} is not an arch of the port, which "
+                         f"serves {', '.join(PORTED_ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{arch}").CONFIG

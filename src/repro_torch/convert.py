@@ -4,9 +4,10 @@
 (the decoder's with its ``frontend_proj`` where it has one, the
 encoder-decoder's ``enc_blocks``, ``dec_blocks`` with their ``cross``
 and ``norm_x``, and ``enc_norm``, the xLSTM stack's; the MoE MLP's f32
-``router``, stacked ``ewi``/``ewg``/``ewo`` and ``shared_*`` and the
+``router``, stacked ``ewi``/``ewg``/``ewo`` and ``shared_*``, the
 Mamba mixer's ``in_proj``, ``conv``, f32 ``A_log``/``D``/``dt_bias``,
-``norm`` and ``out_proj`` among the leaves), and
+``norm`` and ``out_proj``, and MLA's ``wkv_a``, ``kv_norm``, ``w_uk``,
+``w_uv``, ``wo``, ``wq_a``, ``q_norm`` and ``wq_b`` among the leaves), and
 ``train_state_from_jax(np_state, cfg)`` its whole train state,
 with its leaves as numpy arrays, onto the port's.  The two trees have the
 same structure: each period slot's leaves stacked along a leading layer

@@ -24,6 +24,7 @@ import random
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+from repro_torch.configs.base import PORTED_ARCHS
 from repro_torch.models.compute import KernelSite
 
 _DTYPES = ("bfloat16", "float32")
@@ -38,9 +39,7 @@ _TOKEN_COUNTS = (8, 32, 128, 256, 512, 1024, 2048, 4096, 8192, 16384,
 _SEQS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 _HEAD_DIMS = (64, 80, 96, 128, 192)
 # the reference's ten assigned architectures, in its order
-_ARCHS = ("starcoder2_7b", "qwen3_8b", "stablelm_3b", "chatglm3_6b",
-          "deepseek_v2_236b", "llama4_maverick_400b", "xlstm_1_3b",
-          "phi3_vision_4_2b", "seamless_m4t_medium", "jamba_v0_1_52b")
+_ARCHS = PORTED_ARCHS
 
 
 def _mm(site, m, n, k, dtype="bfloat16", fused=0):
@@ -59,18 +58,12 @@ def _scan(site, q, p, n, batch, dtype="bfloat16"):
 
 
 def arch_sites() -> List[KernelSite]:
-    """Extract real sites from every architecture the port has (reduced
-    batch dims to keep extraction instant; shapes of the weights are
-    exact).  The reference's ``arch_sites`` walks its ten assigned
-    architectures; this one walks the same list, in the same order, cut
-    to ``PORTED_ARCHS``, and an extraction that fails raises."""
-    from repro_torch.configs.base import PORTED_ARCHS
+    """Extract real sites from the reference's ten assigned architectures,
+    in its order (reduced batch dims to keep extraction instant; shapes of
+    the weights are exact): the reference's ``arch_sites`` key for key.
+    An extraction that fails raises (the reference's skips it)."""
     from repro_torch.core.extractor import extract_arch_sites
-    out = []
-    for arch in _ARCHS:
-        if arch in PORTED_ARCHS:
-            out.extend(extract_arch_sites(arch))
-    return out
+    return [s for arch in _ARCHS for s in extract_arch_sites(arch)]
 
 
 def generate(n: int, seed: int = 0,

@@ -2,16 +2,24 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention_pallas / _flash_kernel).
 //
-// q (B, Hq, Sq, D), k and v (B, Hkv, Skv, D), each read through its own
-// strides (the model's v is the transposed view of its projection, strides
-// (S*H*D, D, H*D, 1)); out (B, Hq, Sq, D) contiguous.  GQA is read in
-// place: query head h uses KV head h / (Hq / Hkv).
+// q (B, Hq, Sq, D), k (B, Hkv, Skv, D) and v (B, Hkv, Skv, Dv), each read
+// through its own strides (the model's v is the transposed view of its
+// projection, strides (S*H*Dv, Dv, H*Dv, 1)); out (B, Hq, Sq, Dv)
+// contiguous.  GQA is read in place: query head h uses KV head
+// h / (Hq / Hkv).
 //
-// Head dims: D a multiple of 8 up to D_PAD = 128 (kernels/ops.py:
-// head_dim_ok).  Both variants compute in the layout of D_PAD: variant A's
-// tensor maps carry the true D, so TMA fills the columns past it with zeros
-// (Q.K^T over them adds nothing; the P.V columns past D are computed and
-// never stored); variant B masks its loads.  Both store only the first D
+// Head dims: D and the value dim Dv multiples of 8 up to 192, Dv padded no
+// wider than D (kernels/ops.py: head_dim_ok; MLA has D = 192, Dv = 128).
+// Both variants compute in 64-column slabs of a padded width (a template
+// parameter; ops.attn_d_pad): DQK = 128 (two slabs) for D <= 128, else 192
+// (three), for Q.K^T.  Variant A computes P.V in parts of 128 columns (two
+// slabs), one tile each: one part for Dv <= 128, two for Dv > 128 (each
+// part computes the scores anew: at D = Dv = 192, the runner's layout, 1.5x
+// the tensor work, and a consumer's O stays 64 registers).  Variant B
+// computes P.V at Dv's padded width (128, or 192).  Variant A's tensor maps
+// carry the true D and Dv, so TMA fills the columns past them with zeros
+// (Q.K^T over them adds nothing; the P.V columns past Dv are computed and
+// never stored); variant B masks its loads.  Both store only the first Dv
 // columns.  The scale comes from the caller (1/sqrt(D) at the true D).
 //
 // The function is the reference's: scores scaled, the causal mask bottom-
@@ -36,21 +44,27 @@
 //    stored).  Persistent: one CTA a SM walks tiles c, c + grid, ..., so
 //    that the load of a tile's Q and first stage overlaps the end of the
 //    tile before (at S = 512 a tile has at most 4 stages).  One producer
-//    thread loads each tile's Q and streams K and V tiles of stage_keys
-//    (128, or 64 where bkv < 128) x 128 through a ring of `ring` stages in
-//    dynamic shared memory, each with full-K, full-V and empty mbarriers (Q
-//    with a full and an empty one); 4-D tensor maps (D, S, H, B) over the
-//    tensors' own strides, 128-byte swizzle, rows past Sq or Skv read as
-//    zero.  Each consumer warpgroup computes S = Q.K^T with wgmma
-//    m64n{keys}k16 (Q and K K-major in shared memory), scales by
-//    scale*log2(e), masks and runs the online softmax in registers with
-//    exp2 (a row's statistics shared by its 4 threads), and feeds P,
-//    rounded to bf16 in registers, as the A operand of O += P.V (wgmma
-//    m64n128k16, V MN-major through the transpose bit, read in place).  A bkv above 128 is walked in 128-key stages with the
-//    rescale per stage: the same function up to rounding.  Under a causal
-//    mask only the stages that cross a warpgroup's diagonal are masked, and
-//    the heaviest query blocks come first.  The epilogue writes O / l in
-//    bf16 through a staging tile in shared memory, 16-byte stores.
+//    thread loads each tile's Q and streams K tiles of stage_keys x DQK and
+//    V tiles of stage_keys x 128 (the tile's part of V) through a ring of
+//    `ring` stages in dynamic shared memory (stage_keys 128, or 64 where
+//    bkv < 128 or DQK = 192), each with full-K, full-V and empty mbarriers
+//    (Q with a full and an empty one); 4-D tensor maps (D, S, H, B) over
+//    the tensors' own strides, 128-byte swizzle, rows past Sq or Skv read
+//    as zero.  Each consumer warpgroup computes S = Q.K^T with wgmma
+//    m64n{keys}k16 over DQK / 16 steps (Q and K K-major in shared memory,
+//    16 columns of a slab a step), scales by scale*log2(e), masks and runs
+//    the online softmax in registers with exp2 (a row's statistics shared
+//    by its 4 threads), and feeds P, rounded to bf16 in registers, as the A
+//    operand of O += P.V (wgmma m64n128k16, V MN-major through the
+//    transpose bit, read in place).  A bkv above the stage is walked in
+//    stages with the rescale per stage: the same function up to rounding.
+//    Under a causal mask only the stages that cross a warpgroup's diagonal
+//    are masked, and the heaviest query blocks come first.  The epilogue
+//    writes O / l in bf16 through a staging tile in shared memory, 16-byte
+//    stores.  At DQK = 192 a stage holds 64 keys: a ring of 2 fits beside
+//    Q and the staging (a 128-key stage of K at 192 and V at 128 takes 80
+//    KB, and only one would fit), and a consumer holds its scores (32 f32),
+//    P (16 registers) and O (64 f32) within its registers.
 // B. unaligned (an operand TMA cannot take).  The first kernel's loop: each
 //    warp owns 16 query rows, keys staged through shared memory in 64-key
 //    sub-slabs (V transposed), mma.sync m16n8k16.  No model path takes it.
@@ -65,14 +79,12 @@
 
 namespace {
 
-constexpr int D_PAD = 128;       // the head dim the kernels compute in
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
 // B. unaligned operands
 // ---------------------------------------------------------------------------
 
-constexpr int DP = D_PAD + 8;    // row pitch of Q and K tiles (bank spread)
 constexpr int KV_SUB = 64;       // keys staged per shared-memory pass
 constexpr int KVP = KV_SUB + 8;  // row pitch of the transposed V tile
 
@@ -87,17 +99,21 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, long long sd,
   return *reinterpret_cast<const uint4*>(e);
 }
 
+// DQK, DV: the padded widths of D and Dv (128 or 192).
+template <int DQK, int DV>
 __global__ void __launch_bounds__(256)
 flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
-                       int Sq, int Skv, int d, long long qsb, long long qsh,
-                       long long qss, long long qsd, long long ksb,
-                       long long ksh, long long kss, long long ksd,
+                       int Sq, int Skv, int d, int dv, long long qsb,
+                       long long qsh, long long qss, long long qsd,
+                       long long ksb, long long ksh, long long kss,
+                       long long ksd,
                        long long vsb, long long vsh, long long vss,
                        long long vsd, int bq, int bkv, int causal,
                        float scale, int vec_q, int vec_k, int vec_v) {
+  constexpr int DP = DQK + 8;    // row pitch of Q and K tiles (bank spread)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nwarps = blockDim.x >> 5;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -117,19 +133,19 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * vsb + hk * vsh;
 
   // ---- Q tile -> shared -> per-warp register fragments ----
-  for (int i = tid; i < nwarps * 16 * (D_PAD / 8); i += blockDim.x) {
-    const int r = i / (D_PAD / 8), c = (i % (D_PAD / 8)) * 8;
+  for (int i = tid; i < nwarps * 16 * (DQK / 8); i += blockDim.x) {
+    const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r < bq && c < d)
       val = load8(qb + (q0 + r) * qss + c * qsd, qsd, vec_q);
     *reinterpret_cast<uint4*>(Qs + r * DP + c) = val;
   }
   __syncthreads();
-  uint32_t qa[D_PAD / 16][4];
+  uint32_t qa[DQK / 16][4];
   {
     const __nv_bfloat16* qr = Qs + (warp * 16 + g) * DP;
 #pragma unroll
-    for (int kk = 0; kk < D_PAD / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       qa[kk][0] = ld_u32(qr + kk * 16 + 2 * t);
       qa[kk][1] = ld_u32(qr + 8 * DP + kk * 16 + 2 * t);
       qa[kk][2] = ld_u32(qr + kk * 16 + 2 * t + 8);
@@ -137,9 +153,9 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  float o[D_PAD / 8][4];
+  float o[DV / 8][4];
 #pragma unroll
-  for (int i = 0; i < D_PAD / 8; ++i)
+  for (int i = 0; i < DV / 8; ++i)
     o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
   float m_row[2] = {NEG_INF, NEG_INF}, l_row[2] = {0.f, 0.f};
   const int qpos0 = q0 + warp * 16 + g + q_off;   // row g; row g+8 is +8
@@ -151,18 +167,19 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
     for (int ks = kb; ks < kend; ks += KV_SUB) {
       if (can_skip && ks > cta_qmax) break;   // block-uniform
       // ---- stage K (row-major) and V (transposed) sub-slabs ----
-      for (int i = tid; i < KV_SUB * (D_PAD / 8); i += blockDim.x) {
-        const int r = i / (D_PAD / 8), c = (i % (D_PAD / 8)) * 8;
+      for (int i = tid; i < KV_SUB * (DQK / 8); i += blockDim.x) {
+        const int r = i / (DQK / 8), c = (i % (DQK / 8)) * 8;
         const bool ok = ks + r < kend;
         uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-        if (ok && c < d) {
-          kv = load8(kb_ + (ks + r) * kss + c * ksd, ksd, vec_k);
-          vv = load8(vb + (ks + r) * vss + c * vsd, vsd, vec_v);
-        }
+        if (ok && c < d) kv = load8(kb_ + (ks + r) * kss + c * ksd, ksd, vec_k);
+        if (ok && c < dv) vv = load8(vb + (ks + r) * vss + c * vsd, vsd, vec_v);
         *reinterpret_cast<uint4*>(Ks + r * DP + c) = kv;
-        const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+        if (c < DV) {       // DV <= DQK
+          const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) Vt[(c + e) * KVP + r] = ok ? ve[e] : zero;
+          for (int e = 0; e < 8; ++e)
+            Vt[(c + e) * KVP + r] = ok ? ve[e] : zero;
+        }
       }
       __syncthreads();
 
@@ -172,7 +189,7 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
       for (int nt = 0; nt < KV_SUB / 8; ++nt)
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D_PAD / 16; ++kk) {
+      for (int kk = 0; kk < DQK / 16; ++kk) {
 #pragma unroll
         for (int nt = 0; nt < KV_SUB / 8; ++nt) {
           const __nv_bfloat16* kr = Ks + (nt * 8 + g) * DP + kk * 16 + 2 * t;
@@ -220,7 +237,7 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
         l_row[hh] = l_row[hh] * corr[hh] + rs[hh];
       }
 #pragma unroll
-      for (int dt = 0; dt < D_PAD / 8; ++dt) {
+      for (int dt = 0; dt < DV / 8; ++dt) {
         o[dt][0] *= corr[0]; o[dt][1] *= corr[0];
         o[dt][2] *= corr[1]; o[dt][3] *= corr[1];
       }
@@ -234,7 +251,7 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
         pa[2] = pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]);
         pa[3] = pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3]);
 #pragma unroll
-        for (int dt = 0; dt < D_PAD / 8; ++dt) {
+        for (int dt = 0; dt < DV / 8; ++dt) {
           const __nv_bfloat16* vr = Vt + (dt * 8 + g) * KVP + j * 16 + 2 * t;
           mma_bf16_16816(o[dt], pa, ld_u32(vr), ld_u32(vr + 8));
         }
@@ -243,17 +260,17 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // ---- out = acc / max(l, 1e-30): the first d columns ----
-  __nv_bfloat16* ob = out + ((long long)bh * Sq + q0) * d;
+  // ---- out = acc / max(l, 1e-30): the first dv columns ----
+  __nv_bfloat16* ob = out + ((long long)bh * Sq + q0) * dv;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = warp * 16 + g + 8 * hh;
     if (r >= bq) continue;
     const float l = fmaxf(l_row[hh], 1e-30f);
 #pragma unroll
-    for (int dt = 0; dt < D_PAD / 8; ++dt) {
-      if (dt * 8 < d)
-        *reinterpret_cast<uint32_t*>(ob + r * d + dt * 8 + 2 * t) =
+    for (int dt = 0; dt < DV / 8; ++dt) {
+      if (dt * 8 < dv)
+        *reinterpret_cast<uint32_t*>(ob + r * dv + dt * 8 + 2 * t) =
             pack_bf16x2(o[dt][2 * hh] / l, o[dt][2 * hh + 1] / l);
     }
   }
@@ -264,17 +281,25 @@ flash_unaligned_kernel(const __nv_bfloat16* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 constexpr int WG_ROWS = 64;                 // query rows a consumer warpgroup
-constexpr int Q_WG_BYTES = WG_ROWS * D_PAD * 2;  // its Q tile: two 64 x 64
-                                                 // slabs
+constexpr int SLAB_COLS = 64;               // columns of a slab (128 bytes)
+constexpr int Q_SLAB = WG_ROWS * SLAB_COLS * 2;  // a 64 x 64 slab of Q
 constexpr int MAX_RING = 4;
 constexpr int SMEM_LIMIT = 232448;          // bytes a block may use on sm_90
 constexpr int SMEM_DYN = SMEM_LIMIT - 1024; // dynamic part (static: barriers)
 
-template <int KEYS>
+constexpr int V_COLS = 128;                 // V columns a tile computes
+constexpr int O_WG_BYTES = WG_ROWS * V_COLS * 2;  // a warpgroup's output
+                                                  // staging
+
+// A warpgroup's Q tile, and a stage of the ring: a K tile of DQK / 64 slabs
+// and a V tile of two slabs, of KEYS rows each.
+template <int KEYS, int DQK>
 struct StageCfg {
-  static constexpr int SLAB = KEYS * 128;   // KEYS rows x 64 columns of D
-  static constexpr int KV_BYTES = 2 * SLAB; // one K (or V) tile
-  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int Q_WG_BYTES = WG_ROWS * DQK * 2;
+  static constexpr int SLAB = KEYS * SLAB_COLS * 2;  // KEYS rows x 64 cols
+  static constexpr int K_BYTES = SLAB * (DQK / SLAB_COLS);
+  static constexpr int V_BYTES = SLAB * (V_COLS / SLAB_COLS);
+  static constexpr int STAGE = K_BYTES + V_BYTES;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -305,15 +330,17 @@ __device__ __forceinline__ int tile_stages(int q0, int bq, int q_off,
   return n_stages;
 }
 
-template <int NWG, int KEYS>
+// NCOL: the 128-column parts of V (and of the output) a (query block,
+// batch, head) is computed in, one tile each: 1, or 2 where Dv > 128.
+template <int NWG, int KEYS, int DQK, int NCOL>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  __nv_bfloat16* __restrict__ out, int B, int Hq, int Hkv,
-                 int Sq, int Skv, int d, int bq, int n_stages, int ring,
+                 int Sq, int Skv, int dv, int bq, int n_stages, int ring,
                  int causal, float scale_log2) {
-  using C = StageCfg<KEYS>;
+  using C = StageCfg<KEYS, DQK>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_k[MAX_RING];
   __shared__ __align__(8) uint64_t full_v[MAX_RING];
@@ -321,11 +348,11 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
   __shared__ __align__(8) uint64_t q_full, q_empty;
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint8_t* o_smem = smem + NWG * Q_WG_BYTES;      // output staging
-  uint8_t* ring_smem = o_smem + NWG * Q_WG_BYTES;
+  uint8_t* o_smem = smem + NWG * C::Q_WG_BYTES;   // output staging
+  uint8_t* ring_smem = o_smem + NWG * O_WG_BYTES;
 
   const int tid = threadIdx.x;
-  const int n_bh = B * Hq, n_qb = Sq / bq, n_tiles = n_qb * n_bh;
+  const int n_bh = B * Hq, n_qb = Sq / bq, n_tiles = n_qb * n_bh * NCOL;
   const int group = Hq / Hkv;
   const int q_off = Skv - Sq;
 
@@ -353,28 +380,29 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
       int s = 0, phase = 0, n = 0, it = 0;
       for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
         int qb, b, h;
-        tile_coords(tile, n_bh, n_qb, Hq, causal, qb, b, h);
+        tile_coords(tile / NCOL, n_bh, n_qb, Hq, causal, qb, b, h);
         const int q0 = qb * bq, hk = h / group;
+        const int v0 = (tile % NCOL) * V_COLS;   // the tile's V columns
         const int nst = tile_stages(q0, bq, q_off, n_stages, KEYS, causal);
         for (int i = 0; i < nst; ++i, ++n) {
           if (n >= ring) mbar_wait(&empty[s], phase ^ 1);
           uint8_t* st = ring_smem + s * C::STAGE;
-          mbar_expect_tx(&full_k[s], C::KV_BYTES);
-          for (int c = 0; c < 2; ++c)
-            tma_load_4d(st + c * C::SLAB, &map_k, c * 64, i * KEYS, hk, b,
-                        &full_k[s]);
-          mbar_expect_tx(&full_v[s], C::KV_BYTES);
-          for (int c = 0; c < 2; ++c)
-            tma_load_4d(st + C::KV_BYTES + c * C::SLAB, &map_v, c * 64,
-                        i * KEYS, hk, b, &full_v[s]);
+          mbar_expect_tx(&full_k[s], C::K_BYTES);
+          for (int c = 0; c < DQK / SLAB_COLS; ++c)
+            tma_load_4d(st + c * C::SLAB, &map_k, c * SLAB_COLS, i * KEYS,
+                        hk, b, &full_k[s]);
+          mbar_expect_tx(&full_v[s], C::V_BYTES);
+          for (int c = 0; c < V_COLS / SLAB_COLS; ++c)
+            tma_load_4d(st + C::K_BYTES + c * C::SLAB, &map_v,
+                        v0 + c * SLAB_COLS, i * KEYS, hk, b, &full_v[s]);
           if (++s == ring) { s = 0; phase ^= 1; }
           if (i == 0) {     // Q once the tile before has read its own
             if (it > 0) mbar_wait(&q_empty, (it - 1) & 1);
-            mbar_expect_tx(&q_full, NWG * Q_WG_BYTES);
+            mbar_expect_tx(&q_full, NWG * C::Q_WG_BYTES);
             for (int w = 0; w < NWG; ++w)
-              for (int c = 0; c < 2; ++c)
-                tma_load_4d(smem + w * Q_WG_BYTES + c * (Q_WG_BYTES / 2),
-                            &map_q, c * 64, q0 + w * WG_ROWS, h, b, &q_full);
+              for (int c = 0; c < DQK / SLAB_COLS; ++c)
+                tma_load_4d(smem + w * C::Q_WG_BYTES + c * Q_SLAB, &map_q,
+                            c * SLAB_COLS, q0 + w * WG_ROWS, h, b, &q_full);
           }
         }
       }
@@ -385,13 +413,13 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
     const int t = tid & 127, warp = t >> 5, lane = t & 31;
     const int row0 = warp * 16 + (lane >> 2);   // accumulator rows row0, +8
     const int col = 2 * (lane & 3);
-    const uint32_t q_addr = smem_u32(smem + wg * Q_WG_BYTES);
-    uint8_t* o_tile = o_smem + wg * Q_WG_BYTES;
+    const uint32_t q_addr = smem_u32(smem + wg * C::Q_WG_BYTES);
+    uint8_t* o_tile = o_smem + wg * O_WG_BYTES;
     int s = 0, phase = 0, it = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
       int qb, b, h;
-      tile_coords(tile, n_bh, n_qb, Hq, causal, qb, b, h);
-      const int q0 = qb * bq;
+      tile_coords(tile / NCOL, n_bh, n_qb, Hq, causal, qb, b, h);
+      const int q0 = qb * bq, v0 = (tile % NCOL) * V_COLS;
       const int nst = tile_stages(q0, bq, q_off, n_stages, KEYS, causal);
       const int qpos0 = q0 + wg * WG_ROWS + row0 + q_off;
       const int wg_qmin = q0 + wg * WG_ROWS + q_off;
@@ -404,7 +432,7 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(&q_full, it & 1);
       for (int i = 0; i < nst; ++i) {
         const uint32_t k_addr = smem_u32(ring_smem + s * C::STAGE);
-        const uint32_t v_addr = k_addr + C::KV_BYTES;
+        const uint32_t v_addr = k_addr + C::K_BYTES;
 
         // ---- S = Q K^T: 64 rows x KEYS keys, f32 ----
         float sc[KEYS / 2];
@@ -412,13 +440,27 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int e = 0; e < KEYS / 2; ++e) sc[e] = 0.f;
         mbar_wait(&full_k[s], phase);
         wgmma_fence();
+        if constexpr (DQK == 128) {
 #pragma unroll
-        for (int kk = 0; kk < D_PAD / 16; ++kk) {
-          const uint32_t off = (kk & 3) * 32;   // slab kk / 4, 16 columns
-          wgmma_tile<KEYS, 0>(
-              sc, make_desc(q_addr + (kk >> 2) * (Q_WG_BYTES / 2) + off, 16,
-                            1024),
-              make_desc(k_addr + (kk >> 2) * C::SLAB + off, 16, 1024));
+          for (int kk = 0; kk < DQK / 16; ++kk) {
+            const uint32_t off = (kk & 3) * 32;   // slab kk / 4, 16 columns
+            wgmma_tile<KEYS, 0>(
+                sc, make_desc(q_addr + (kk >> 2) * Q_SLAB + off, 16, 1024),
+                make_desc(k_addr + (kk >> 2) * C::SLAB + off, 16, 1024));
+          }
+        } else {
+          // 12 steps: each descriptor the stage's base plus a constant
+          // (the address field counts 16 bytes), made anew each stage so
+          // that no step's descriptor stays live beside O and S
+          uint64_t dq = make_desc(q_addr, 16, 1024);
+          uint64_t dk = make_desc(k_addr, 16, 1024);
+          asm volatile("" : "+l"(dq), "+l"(dk));
+#pragma unroll
+          for (int kk = 0; kk < DQK / 16; ++kk) {
+            const uint32_t off = (kk & 3) * 32;
+            wgmma_tile<KEYS, 0>(sc, dq + (((kk >> 2) * Q_SLAB + off) >> 4),
+                                dk + (((kk >> 2) * C::SLAB + off) >> 4));
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -521,12 +563,12 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
       const int rows = min(WG_ROWS, bq - wg * WG_ROWS);  // rows of the block
       __nv_bfloat16* ob =
-          out + (((size_t)b * Hq + h) * Sq + q0 + wg * WG_ROWS) * d;
+          out + (((size_t)b * Hq + h) * Sq + q0 + wg * WG_ROWS) * dv + v0;
 #pragma unroll
       for (int r8 = 0; r8 < WG_ROWS / 8; ++r8) {
         const int r = r8 * 8 + (t >> 4), c = t & 15;
-        if (r < rows && c * 8 < d)      // the first d columns only
-          *reinterpret_cast<uint4*>(ob + (size_t)r * d + c * 8) =
+        if (r < rows && v0 + c * 8 < dv)  // the first dv columns only
+          *reinterpret_cast<uint4*>(ob + (size_t)r * dv + c * 8) =
               *reinterpret_cast<const uint4*>(o_tile + r * 256 +
                                               ((c ^ (r & 7)) * 16));
       }
@@ -536,8 +578,8 @@ flash_tma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // A 4-D bf16 map over (d, S, H, B) with the tensor's strides (elements) of
 // its S, H and B dimensions; boxes of 64 x rows x 1 x 1, 128-byte swizzle;
-// out-of-bounds rows, and the columns of the two 64-column slabs past d,
-// read as zero.
+// out-of-bounds rows, and the columns of the 64-column slabs past d, read
+// as zero.
 bool make_map_4d(CUtensorMap* map, const void* ptr, int d, int S, int H,
                  int B, long long ss, long long sh, long long sb, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -563,18 +605,19 @@ int sm_count() {
   return count[dev];
 }
 
-template <int NWG, int KEYS>
+template <int NWG, int KEYS, int DQK, int NCOL>
 cudaError_t launch_tma(const CUtensorMap& mq, const CUtensorMap& mk,
                        const CUtensorMap& mv, __nv_bfloat16* out, int B,
-                       int Hq, int Hkv, int Sq, int Skv, int d, int bq,
+                       int Hq, int Hkv, int Sq, int Skv, int dv, int bq,
                        int n_stages, int ring, int causal, float scale_log2,
                        cudaStream_t stream) {
+  using C = StageCfg<KEYS, DQK>;
   // Q and the output staging, then the ring
   const int smem =
-      2 * NWG * Q_WG_BYTES + ring * StageCfg<KEYS>::STAGE + 1024;
+      NWG * (C::Q_WG_BYTES + O_WG_BYTES) + ring * C::STAGE + 1024;
   const int sms = sm_count();
   if (smem > SMEM_DYN || sms <= 0) return cudaErrorInvalidValue;
-  auto kernel = flash_tma_kernel<NWG, KEYS>;
+  auto kernel = flash_tma_kernel<NWG, KEYS, DQK, NCOL>;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -582,31 +625,71 @@ cudaError_t launch_tma(const CUtensorMap& mq, const CUtensorMap& mk,
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const int tiles = (Sq / bq) * B * Hq;
+  const int tiles = (Sq / bq) * B * Hq * NCOL;
   kernel<<<tiles < sms ? tiles : sms, (NWG + 1) * 128, smem, stream>>>(
-      mq, mk, mv, out, B, Hq, Hkv, Sq, Skv, d, bq, n_stages, ring, causal,
+      mq, mk, mv, out, B, Hq, Hkv, Sq, Skv, dv, bq, n_stages, ring, causal,
       scale_log2);
+  return cudaGetLastError();
+}
+
+// The padded width K2 computes a head dim in (kernels/ops.py:attn_d_pad),
+// or 0 for one it does not take (ops.head_dim_ok).
+int pad_dim(int d) {
+  if (d < 8 || d % 8 || d > 192) return 0;
+  return d <= 128 ? 128 : 192;
+}
+
+// Variant B at the padded widths DQK, DV: shared memory for the query
+// warps' Q rows and a 64-key K sub-slab at DQK, and the transposed V
+// sub-slab at DV.
+template <int DQK, int DV>
+cudaError_t launch_unaligned(const void* q, const void* k, const void* v,
+                             void* out, int B, int Hq, int Hkv, int Sq,
+                             int Skv, int D, int Dv, long long qsb,
+                             long long qsh, long long qss, long long qsd,
+                             long long ksb, long long ksh, long long kss,
+                             long long ksd, long long vsb, long long vsh,
+                             long long vss, long long vsd, int bq, int bkv,
+                             int causal, int vec_q, int vec_k, int vec_v,
+                             float scale, cudaStream_t stream) {
+  const int nwarps = (bq + 15) / 16;
+  const size_t smem = sizeof(__nv_bfloat16) *
+                      ((size_t)(nwarps * 16 + KV_SUB) * (DQK + 8) +
+                       (size_t)DV * KVP);
+  auto kernel = flash_unaligned_kernel<DQK, DV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(Sq / bq, B * Hq);
+  kernel<<<grid, nwarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      Hq, Hkv, Sq, Skv, D, Dv, qsb, qsh, qss, qsd, ksb, ksh, kss, ksd, vsb,
+      vsh, vss, vsd, bq, bkv, causal, scale, vec_q, vec_k, vec_v);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point of variant A.  D is the true head dim (a multiple of 8 up
-// to D_PAD); bq is the effective (clamped) query block,
-// warpgroups = ceil(bq / 64), stage_keys (64 or 128) the keys a ring stage
-// holds, n_stages = ceil(Skv / stage_keys), ring the stages of the ring
+// C entry point of variant A.  D and Dv are the true head and value dims
+// (multiples of 8 up to 192, Dv padded no wider than D); bq is the
+// effective (clamped) query block, warpgroups = ceil(bq / 64), stage_keys
+// (64 or 128; 64 at D > 128) the keys a ring stage holds, n_stages =
+// ceil(Skv / stage_keys), ring the stages of the ring
 // (kernels/ops.py:attention_launch_plan).  Strides are in elements; D is
 // contiguous.  Returns cudaGetLastError() after the launch,
 // cudaErrorInvalidValue for a plan the kernel does not take, or
 // cudaErrorNotSupported when the tensor maps cannot be made.
 extern "C" int repro_flash_fwd_tma_bf16(
     const void* q, const void* k, const void* v, void* out, int B, int Hq,
-    int Hkv, int Sq, int Skv, int D, long long qsb, long long qsh,
+    int Hkv, int Sq, int Skv, int D, int Dv, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, int bq, int warpgroups,
     int stage_keys, int n_stages, int ring, int causal, float scale,
     void* stream) {
-  if (D < 8 || D % 8 || D > D_PAD || bq < 1 || Sq % bq || Hkv < 1 ||
+  const int dqk = pad_dim(D), dvp = pad_dim(Dv);
+  if (dqk == 0 || dvp == 0 || dvp > dqk || bq < 1 || Sq % bq || Hkv < 1 ||
       Hq % Hkv ||
       warpgroups != (bq + WG_ROWS - 1) / WG_ROWS ||
       (long long)n_stages * stage_keys < Skv ||
@@ -616,51 +699,54 @@ extern "C" int repro_flash_fwd_tma_bf16(
   CUtensorMap mq, mk, mv;
   if (!make_map_4d(&mq, q, D, Sq, Hq, B, qss, qsh, qsb, WG_ROWS) ||
       !make_map_4d(&mk, k, D, Skv, Hkv, B, kss, ksh, ksb, stage_keys) ||
-      !make_map_4d(&mv, v, D, Skv, Hkv, B, vss, vsh, vsb, stage_keys))
+      !make_map_4d(&mv, v, Dv, Skv, Hkv, B, vss, vsh, vsb, stage_keys))
     return (int)cudaErrorNotSupported;
   const float scale_log2 = scale * 1.4426950408889634f;
   auto o = static_cast<__nv_bfloat16*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-#define REPRO_FA_CASE(W_, K_)                                                 \
-  if (warpgroups == W_ && stage_keys == K_)                                   \
-    return (int)launch_tma<W_, K_>(mq, mk, mv, o, B, Hq, Hkv, Sq, Skv, D,     \
-                                   bq, n_stages, ring, causal, scale_log2,    \
-                                   st);
-  REPRO_FA_CASE(1, 64)
-  REPRO_FA_CASE(1, 128)
-  REPRO_FA_CASE(2, 64)
-  REPRO_FA_CASE(2, 128)
+  const int ncol = dvp > V_COLS ? 2 : 1;        // Dv's 128-column parts
+#define REPRO_FA_CASE(W_, K_, DQ_, NC_)                                       \
+  if (warpgroups == W_ && stage_keys == K_ && dqk == DQ_ && ncol == NC_)      \
+    return (int)launch_tma<W_, K_, DQ_, NC_>(mq, mk, mv, o, B, Hq, Hkv, Sq,   \
+                                             Skv, Dv, bq, n_stages, ring,     \
+                                             causal, scale_log2, st);
+  REPRO_FA_CASE(1, 64, 128, 1)
+  REPRO_FA_CASE(1, 128, 128, 1)
+  REPRO_FA_CASE(2, 64, 128, 1)
+  REPRO_FA_CASE(2, 128, 128, 1)
+  REPRO_FA_CASE(1, 64, 192, 1)         // three slabs: 64-key stages
+  REPRO_FA_CASE(2, 64, 192, 1)
+  REPRO_FA_CASE(1, 64, 192, 2)         // Dv > 128: two column parts
+  REPRO_FA_CASE(2, 64, 192, 2)
 #undef REPRO_FA_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// C entry point of variant B.  D is the true head dim (a multiple of 8 up
-// to D_PAD); (bq, bkv) are the effective (clamped) blocks; strides in
-// elements, each tensor's four; vec_* say that a tensor's rows are
-// contiguous and 16-byte aligned.  Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a head dim the kernel does not take.
+
+// C entry point of variant B.  D and Dv are the true head and value dims
+// (multiples of 8 up to 192, Dv padded no wider than D); (bq, bkv) are the
+// effective (clamped) blocks; strides in elements, each tensor's four;
+// vec_* say that a tensor's rows are contiguous and 16-byte aligned.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for head dims the kernel does not take.
 extern "C" int repro_flash_fwd_unaligned_bf16(
     const void* q, const void* k, const void* v, void* out, int B, int Hq,
-    int Hkv, int Sq, int Skv, int D, long long qsb, long long qsh,
+    int Hkv, int Sq, int Skv, int D, int Dv, long long qsb, long long qsh,
     long long qss, long long qsd, long long ksb, long long ksh,
     long long kss, long long ksd, long long vsb, long long vsh,
     long long vss, long long vsd, int bq, int bkv, int causal, int vec_q,
     int vec_k, int vec_v, float scale, void* stream) {
-  if (D < 8 || D % 8 || D > D_PAD) return (int)cudaErrorInvalidValue;
-  const int nwarps = (bq + 15) / 16;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)nwarps * 16 * DP + KV_SUB * DP + D_PAD * KVP);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_unaligned_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Sq / bq, B * Hq);
-  flash_unaligned_kernel<<<grid, nwarps * 32, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Hq, Hkv, Sq, Skv, D, qsb, qsh, qss, qsd, ksb, ksh, kss, ksd, vsb, vsh,
-      vss, vsd, bq, bkv, causal, scale, vec_q, vec_k, vec_v);
-  return (int)cudaGetLastError();
+  const int dqk = pad_dim(D), dvp = pad_dim(Dv);
+  auto st = static_cast<cudaStream_t>(stream);
+#define REPRO_FA_CASE(DQ_, DV_)                                               \
+  if (dqk == DQ_ && dvp == DV_)                                               \
+    return (int)launch_unaligned<DQ_, DV_>(                                   \
+        q, k, v, out, B, Hq, Hkv, Sq, Skv, D, Dv, qsb, qsh, qss, qsd, ksb,    \
+        ksh, kss, ksd, vsb, vsh, vss, vsd, bq, bkv, causal, vec_q, vec_k,     \
+        vec_v, scale, st);
+  REPRO_FA_CASE(128, 128)
+  REPRO_FA_CASE(192, 128)
+  REPRO_FA_CASE(192, 192)
+#undef REPRO_FA_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -25,12 +25,17 @@ S=512, causal) the bytes, 42 MB of q, k, v and out (0.0125 ms) against
 0.0087 ms of the causal half's products; the scores never reach device
 memory and each K/V tile is loaded once a CTA for both warpgroups.
 
-Head dims: any multiple of 8 up to 128 (``ops.head_dim_ok``).  The kernel
-keeps its layout of two 64-column slabs, the padded 128: TMA's tensor
-maps carry the true D, so the columns past it load as zeros (``Q.K^T``
-over them adds nothing, the ``P.V`` columns past D are never stored), and
-the epilogue stores only the first D columns.  A D below 128 so pays the
-tensor work of 128 (StableLM-3B's 80: 1.6x its own).
+Head dims: D any multiple of 8 up to 192, and v's own value dim Dv
+likewise, padded no wider than D (``ops.head_dim_ok``; MLA's D = 192, Dv
+= 128).  The kernel computes ``Q.K^T`` in 64-column slabs, two (128) up
+to D = 128 and three (192) above (``ops.attn_d_pad``), and ``P.V`` in
+parts of 128 columns, one tile each (two where Dv > 128, each computing
+the scores anew): TMA's tensor maps carry the true D and Dv, so the
+columns past them load as zeros (``Q.K^T`` over them adds nothing, the
+``P.V`` columns past Dv are never stored), and the epilogue stores only
+the first Dv columns of the (B, Hq, Sq, Dv) output.  A D below its padded
+width so pays the tensor work of the padding (StableLM-3B's 80: 1.6x its
+own; the runner's D = Dv = 192: 1.5x, the scores twice).
 
 On a CPU tensor :func:`repro_torch.kernels.ops.flash_attention` takes
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel or
@@ -52,10 +57,10 @@ VARIANTS = ("tma_wgmma", "unaligned")
 launches = 0
 launches_by_variant = {v: 0 for v in VARIANTS}
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
-_TMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_TMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
                  + [ctypes.c_float, ctypes.c_void_p])
 _CALLS: dict = {}       # call signature -> (variant, C function, arguments)
@@ -82,8 +87,8 @@ def effective_blocks(Sq: int, Skv: int, bq: int, bkv: int):
 def flash_attention_plain(q, k, v, *, causal: bool, scale: float, bq: int,
                           bkv: int) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the online softmax over
-    ``bkv`` key blocks with f32 statistics.  q (B,Hq,Sq,D); k, v
-    (B,Hkv,Skv,D)."""
+    ``bkv`` key blocks with f32 statistics.  q (B,Hq,Sq,D); k (B,Hkv,Skv,D);
+    v (B,Hkv,Skv,Dv); out (B,Hq,Sq,Dv)."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     bq, bkv = effective_blocks(Sq, Skv, bq, bkv)
@@ -131,19 +136,21 @@ def _tma_strides(t: torch.Tensor):
 def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
     """Check a call and plan it: the variant, the C function, and its
     arguments between the four pointers and the scale."""
-    from repro_torch.kernels.ops import (ATTN_D_PAD, KERNEL_DTYPE,
+    from repro_torch.kernels.ops import (ATTN_D_MAX, KERNEL_DTYPE,
                                          attention_launch_plan, head_dim_ok,
                                          torch_dtype_ok)
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
     if not torch_dtype_ok(q, k, v, kind="attention"):
         raise TypeError(f"K2 takes {KERNEL_DTYPE}, got {q.dtype}/{k.dtype}/"
                         f"{v.dtype} (ops.dtype_ok)")
-    if not head_dim_ok(D) or k.shape[-1] != D or v.shape[-1] != D:
-        raise ValueError(f"K2 takes one head dim, a multiple of 8 up to "
-                         f"{ATTN_D_PAD} (ops.head_dim_ok), got q {D}, "
-                         f"k {k.shape[-1]}, v {v.shape[-1]}")
-    if k.shape != v.shape or k.shape[0] != B or Hq % Hkv:
+    if not head_dim_ok(D, Dv) or k.shape[-1] != D:
+        raise ValueError(f"K2 takes a head dim D (q, k) and a value dim Dv "
+                         f"(v), multiples of 8 up to {ATTN_D_MAX}, Dv "
+                         f"padded no wider than D (ops.head_dim_ok), got q "
+                         f"{D}, k {k.shape[-1]}, v {Dv}")
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or Hq % Hkv:
         raise ValueError(f"bad attention shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
@@ -152,13 +159,13 @@ def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
     strides = tuple(_tma_strides(t) for t in (q, k, v))
     plan = attention_launch_plan(
         Sq, Skv, D, bq, bkv, strides,
-        aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+        aligned=all(t.data_ptr() % 16 == 0 for t in (q, k, v)), Dv=Dv)
     if plan is None:
         raise TileError(f"attention tile {(bq, bkv)} cannot launch at "
                         f"Sq={Sq} Skv={Skv} D={D} (ops.tile_ok)")
     if plan.variant == "tma_wgmma":
         return plan.variant, _fn("repro_flash_fwd_tma_bf16", _TMA_ARGTYPES), (
-            B, Hq, Hkv, Sq, Skv, D, *strides[0][:3], *strides[1][:3],
+            B, Hq, Hkv, Sq, Skv, D, Dv, *strides[0][:3], *strides[1][:3],
             *strides[2][:3], plan.bq, plan.warpgroups, plan.stage_keys,
             plan.n_stages, plan.ring, int(causal))
     # 16-byte loads where a tensor's rows are contiguous and aligned
@@ -166,8 +173,8 @@ def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
                and all(st % 8 == 0 for st in t.stride()[:3]))
            for t in (q, k, v)]
     return plan.variant, _fn("repro_flash_fwd_unaligned_bf16", _ARGTYPES), (
-        B, Hq, Hkv, Sq, Skv, D, *q.stride(), *k.stride(), *v.stride(), plan.bq,
-        plan.bkv, int(causal), *vec)
+        B, Hq, Hkv, Sq, Skv, D, Dv, *q.stride(), *k.stride(), *v.stride(),
+        plan.bq, plan.bkv, int(causal), *vec)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, scale: float, bq: int,
@@ -185,7 +192,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float, bq: int,
     if hit is None:
         hit = _CALLS[key] = _prepare(q, k, v, bool(causal), bq, bkv)
     variant, fn, args = hit
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty(q.shape[:3] + v.shape[3:], dtype=q.dtype,
+                      device=q.device)
     rc = fn(*ptrs, out.data_ptr(), *args, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, f"flash-attention kernel ({variant})")

@@ -15,11 +15,14 @@ launch plans and the kernels' own argument checks all call:
   versions) any dtype runs; the other clauses still hold there, so a
   program tuned on the CPU names tiles the card launches at the same
   shapes in bf16.
-* head dim (:func:`head_dim_ok`, K2 at Sq > 1): D a multiple of 8 (TMA's
-  16-byte strides, the epilogue's 16-byte stores) up to ``ATTN_D_PAD`` =
-  128.  K2 computes every D in two 64-column slabs of the padded 128: TMA
-  fills the columns past D with zeros on load and the epilogue stores only
-  the first D.  ``Dv == D``.
+* head dim (:func:`head_dim_ok`, K2 at Sq > 1): D, and the value dim Dv
+  of v and the output (MLA: D = 192, Dv = 128), multiples of 8 (TMA's
+  16-byte strides, the epilogue's 16-byte stores) up to ``ATTN_D_MAX`` =
+  192, Dv padded no wider than D.  K2 computes each in 64-column slabs of
+  its padded width (:func:`attn_d_pad`: two slabs, 128, up to 128; three,
+  192, above): TMA fills the columns past D (Dv) with zeros on load and
+  the epilogue stores only the first Dv.  A site carries D alone; the
+  value dims of the models (Dv <= D) always pass.
 * the tile: the reference clamps are applied first: ``bm <= ceil8(M)``,
   ``bn, bk <= ceil128(N | K)`` for matmul and ``bq <= Sq``, ``bkv <= Skv``
   for attention.  The f32 accumulator of a CTA lives in registers, and
@@ -40,12 +43,13 @@ launch plans and the kernels' own argument checks all call:
     splits K into :func:`f32_split` runs, one CTA each, a function of K
     alone (a row's bits then do not depend on the batch), and computes
     only the rows and columns a small M or N has.
-  - attention: ``bq * ATTN_D_PAD <= 128 * 128`` (at most two consumer
-    warpgroups of 64 rows, each holding its (64, 128) f32 accumulator),
-    and the blocks must divide the sequence (``Sq % bq == Skv % bkv ==
-    0``).  A decode site (Sq == 1) never launches K2, so any positive tile
-    of a bf16 site is fine.  :func:`attention_launch_plan` picks the
-    variant, the warpgroups and the keys a stage of the TMA ring holds.
+  - attention: ``bq <= ATTN_MAX_BQ`` = 128 (at most two consumer
+    warpgroups of 64 rows, each holding a (64, 128) f32 accumulator), at
+    every head dim, and the blocks must divide the sequence (``Sq % bq ==
+    Skv % bkv == 0``).  A decode site (Sq == 1) never launches K2, so any
+    positive tile of a bf16 site is fine.  :func:`attention_launch_plan`
+    picks the variant, the warpgroups and the keys a stage of the TMA ring
+    holds.
   - chunk scan: the chunk ``Q`` is clamped to the sequence (``min(Q,
     S)``) and must be at most 1024 (its cumsum lives in shared memory, and
     so do a 64-row block's scores against the whole chunk); the state
@@ -79,9 +83,9 @@ KERNEL_DTYPES = {"matmul": ("bfloat16", "float32"),     # K1
                  "chunk_scan": ("bfloat16",)}           # K3
 ROUTES = ("cuda", "cpu")        # the card's kernels; the plain versions
 MM_ACC_LIMIT = 128 * 256        # f32 accumulator elements of a K1 CTA
-ATTN_ACC_LIMIT = 128 * 128      # f32 accumulator elements of a K2 CTA,
-                                # at the padded head dim
-ATTN_D_PAD = 128                # K2's head dim: two 64-column slabs
+ATTN_SLAB = 64                  # columns of a K2 slab (128 bytes, TMA's
+                                # swizzle width)
+ATTN_D_MAX = 192                # K2's widest head dim: three slabs
 MM_MAX_ROWS, MM_MAX_COLS = 256, 512
 L2_BAND_BYTES = 8 << 20         # the band of x a group of CTAs keeps in L2
 MM_K_STAGE = 128                # the deepest stage of K1's TMA ring
@@ -91,6 +95,7 @@ F32_MAX_RUNS = 8                # the most runs of K an f32 call splits
 F32_MIN_WIDTH = 16              # the narrowest f32 column layout
 F32_MIN_HEIGHT = 4              # the lowest f32 row layout (decode)
 ATTN_WG_ROWS = 64               # query rows of a K2 consumer warpgroup
+ATTN_MAX_BQ = 2 * ATTN_WG_ROWS  # two consumer warpgroups a CTA
 ATTN_RING = 2                   # stages of K2's TMA ring (PERF.md, PR 14)
 ATTN_MAX_RING = 4
 ATTN_SMEM_DYN = 232448 - 1024   # dynamic shared memory a K2 CTA may take
@@ -141,11 +146,24 @@ def torch_dtype_ok(*tensors, kind: Optional[str] = None) -> bool:
     return len(names) == 1 and bool(dtype_ok(names.pop(), kind=kind))
 
 
-def head_dim_ok(D):
-    """The rule's head-dim clause for K2 (elementwise): a multiple of 8 up
-    to the padded ``ATTN_D_PAD``."""
+def attn_d_pad(D):
+    """The width K2 computes a head dim in (elementwise): 128 (two slabs)
+    up to 128, ``ATTN_D_MAX`` (three) above."""
+    return np.where(np.asarray(D, np.int64) <= 2 * ATTN_SLAB, 2 * ATTN_SLAB,
+                    ATTN_D_MAX)
+
+
+def head_dim_ok(D, Dv=None):
+    """The rule's head-dim clause for K2 (elementwise): D and the value dim
+    ``Dv`` (default D) multiples of 8 up to ``ATTN_D_MAX``, Dv padded no
+    wider than D (the kernels compiled: (128, 128), (192, 128), (192,
+    192))."""
     D = np.asarray(D, np.int64)
-    return (D >= 8) & (D % 8 == 0) & (D <= ATTN_D_PAD)
+    Dv = D if Dv is None else np.asarray(Dv, np.int64)
+
+    def one(d):
+        return (d >= 8) & (d % 8 == 0) & (d <= ATTN_D_MAX)
+    return one(D) & one(Dv) & (attn_d_pad(Dv) <= attn_d_pad(D))
 
 
 def matmul_tiles_legal(M, N, K, bm, bn, bk, *, dtype=KERNEL_DTYPE,
@@ -166,7 +184,7 @@ def attention_tiles_legal(Sq, Skv, D, bq, bkv, *, dtype=KERNEL_DTYPE,
     pos = (bq > 0) & (bkv > 0)
     bq_e = np.maximum(np.minimum(bq, Sq), 1)
     bkv_e = np.maximum(np.minimum(bkv, Skv), 1)
-    launched = (head_dim_ok(D) & (bq_e * ATTN_D_PAD <= ATTN_ACC_LIMIT)
+    launched = (head_dim_ok(D) & (bq_e <= ATTN_MAX_BQ)
                 & (Sq % bq_e == 0) & (Skv % bkv_e == 0))
     # Sq == 1 (decode) never launches K2: it takes the plain branch
     return dtype_ok(dtype, route, "attention") & pos & (
@@ -315,7 +333,7 @@ class AttentionLaunch(NamedTuple):
     bq: int
     bkv: int
     warpgroups: int
-    stage_keys: int     # 128, or 64 where bkv < 128
+    stage_keys: int     # 128, or 64 where bkv < 128 or D > 128
     n_stages: int       # ceil(Skv / stage_keys)
     ring: int
     smem: int           # dynamic shared memory bytes (tma_wgmma): Q,
@@ -323,17 +341,28 @@ class AttentionLaunch(NamedTuple):
 
 
 def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
-                          strides=None,
-                          aligned: bool = True) -> Optional[AttentionLaunch]:
+                          strides=None, aligned: bool = True,
+                          Dv: Optional[int] = None
+                          ) -> Optional[AttentionLaunch]:
     """The launch of K2 for a legal tile (``None`` if the rule refuses the
-    tile or the head dim).  Shared memory is sized at the padded
-    head dim ``ATTN_D_PAD``.  ``strides`` are q's, k's and v's (elements;
+    tile or the head dims D and ``Dv``, default D).  Shared memory is
+    sized at D's padded width (:func:`attn_d_pad`) for Q and a stage's K
+    tile, and at 128 columns for a stage's V tile and the output staging:
+    the tma_wgmma variant computes P.V in parts of 128 columns, one tile
+    each (two where Dv > 128).  At D above 128 a stage holds 64 keys,
+    whatever ``bkv``: a ring of 2 then fits beside Q and the staging (at D
+    = 192 a 128-key stage would take 80 KB, and only one would fit), and a
+    consumer's scores and P fragments take half the registers beside its
+    (64, 128) accumulator.  At D <= 128 the plan is the first
+    redesign's, whatever Dv.  ``strides`` are q's, k's and v's (elements;
     ``None``: contiguous; a dimension of one element carries its
     contiguous stride) and ``aligned`` says their base pointers are
-    16-byte aligned.  TMA takes a tensor whose D is contiguous and whose
-    other strides are positive multiples of 16 bytes; an operand it cannot
-    take runs the unaligned variant."""
-    if not attention_tiles_legal(Sq, Skv, D, bq, bkv):
+    16-byte aligned.  TMA takes a tensor whose last dim is contiguous and
+    whose other strides are positive multiples of 16 bytes; an operand it
+    cannot take runs the unaligned variant."""
+    Dv = D if Dv is None else Dv
+    if not attention_tiles_legal(Sq, Skv, D, bq, bkv) or (
+            Sq > 1 and not head_dim_ok(D, Dv)):
         return None
     bq, bkv = min(bq, Sq), min(bkv, Skv)
     if Sq % bq or Skv % bkv:        # only at Sq == 1, which K2 never runs
@@ -342,16 +371,18 @@ def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
         st[3] == 1 and all(x > 0 and x % 8 == 0 for x in st[:3])
         for st in strides))
     wgs = -(-bq // ATTN_WG_ROWS)
-    keys = 128 if bkv >= 128 else 64    # blocks below 64 keys: 64 a stage
+    d_pad, v_cols = int(attn_d_pad(D)), 2 * ATTN_SLAB
+    # blocks below 128 keys, or three slabs: 64 keys a stage
+    keys = 128 if bkv >= 128 and d_pad == 2 * ATTN_SLAB else 64
     n_stages = -(-Skv // keys)
-    stage_bytes = 4 * keys * ATTN_D_PAD             # a K and a V tile, bf16
-    q_bytes = wgs * ATTN_WG_ROWS * ATTN_D_PAD * 2   # Q, and as much to
-                                                    # stage out
-    fit = (ATTN_SMEM_DYN - 1024 - 2 * q_bytes) // stage_bytes
+    stage_bytes = 2 * keys * (d_pad + v_cols)       # a K and a V tile, bf16
+    q_bytes = wgs * ATTN_WG_ROWS * d_pad * 2        # Q
+    o_bytes = wgs * ATTN_WG_ROWS * v_cols * 2       # the output staging
+    fit = (ATTN_SMEM_DYN - 1024 - q_bytes - o_bytes) // stage_bytes
     ring = max(1, min(ATTN_RING, fit, ATTN_MAX_RING, n_stages))
     return AttentionLaunch("tma_wgmma" if tma else "unaligned", bq, bkv,
                            wgs, keys, n_stages, ring,
-                           2 * q_bytes + ring * stage_bytes + 1024)
+                           q_bytes + o_bytes + ring * stage_bytes + 1024)
 
 
 class ChunkLaunch(NamedTuple):

@@ -413,7 +413,7 @@ def _check_kernel_sites(cfg, sites) -> None:
             f"{len(bad)} sites ({', '.join(sorted({s.site for s in bad}))})"
             f": K1 takes {' and '.join(ops.KERNEL_DTYPES['matmul'])}, K2 "
             f"and K3 {ops.KERNEL_DTYPE} only, and K2 attention head dims "
-            f"that are multiples of 8 up to {ops.ATTN_D_PAD}; those sites "
+            f"that are multiples of 8 up to {ops.ATTN_D_MAX}; those sites "
             f"have dtypes {dtypes} and attention head dims {dims} (the "
             f"reduced test config?); pass --full")
 

@@ -1,13 +1,14 @@
 """Per-BlockDesc init/apply: one period slot = mixer + optional MLP (the
-port of ``repro/models/blocks.py``): an attention, Mamba (SSD) or xLSTM
-``mlstm``/``slstm`` mixer, then a dense MLP (gated SiLU or plain GELU as
-``cfg.act`` says), an MoE MLP or none."""
+port of ``repro/models/blocks.py``): an attention (MLA where
+``cfg.mla``), Mamba (SSD) or xLSTM ``mlstm``/``slstm`` mixer, then a
+dense MLP (gated SiLU or plain GELU as ``cfg.act`` says), an MoE MLP or
+none."""
 from __future__ import annotations
 
 from typing import Optional
 
 from repro_torch.configs.base import BlockDesc, ModelConfig
-from repro_torch.models import attention, moe, ssm, xlstm
+from repro_torch.models import attention, mla, moe, ssm, xlstm
 from repro_torch.models.common import apply_mlp, apply_norm, mlp_init, norm_init
 
 
@@ -15,7 +16,8 @@ def block_init(cfg: ModelConfig, b: BlockDesc, draw, dtype, device):
     ln = cfg.norm == "layernorm"
     p = {"norm1": norm_init(cfg.d_model, dtype, device, bias=ln)}
     if b.kind == "attn":
-        p["mixer"] = attention.attn_init(cfg, draw, dtype, device)
+        p["mixer"] = (mla.mla_init(cfg, draw, dtype, device) if cfg.mla
+                      else attention.attn_init(cfg, draw, dtype, device))
     elif b.kind == "mamba":
         p["mixer"] = ssm.ssm_init(cfg, draw, dtype, device)
     elif b.kind == "mlstm":
@@ -34,6 +36,8 @@ def block_init(cfg: ModelConfig, b: BlockDesc, draw, dtype, device):
 def block_cache(cfg: ModelConfig, b: BlockDesc, batch: int, ctx: int, dtype,
                 device):
     if b.kind == "attn":
+        if cfg.mla:
+            return mla.make_mla_cache(cfg, batch, ctx, dtype, device)
         return attention.make_attn_cache(cfg, batch, ctx, dtype, device)
     if b.kind == "mamba":
         return ssm.make_ssm_cache(cfg, batch, dtype, device)
@@ -52,9 +56,9 @@ def block_apply(cfg: ModelConfig, b: BlockDesc, p, x, *, positions,
     into the stacked cache) is updated in place."""
     h = apply_norm(p["norm1"], x)
     if b.kind == "attn":
-        y = attention.apply_attn(cfg, p["mixer"], h, positions=positions,
-                                 causal=causal, cache=cache,
-                                 decode_pos=decode_pos)
+        attn = mla.apply_mla if cfg.mla else attention.apply_attn
+        y = attn(cfg, p["mixer"], h, positions=positions, causal=causal,
+                 cache=cache, decode_pos=decode_pos)
     elif b.kind == "mamba":
         y = ssm.apply_ssm(cfg, p["mixer"], h, cache=cache,
                           decode_pos=decode_pos)

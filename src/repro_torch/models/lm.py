@@ -1,7 +1,7 @@
 """Model builder (the port of ``repro/models/lm.py``: the decoder stacks
-of attention, Mamba and xLSTM blocks with dense or MoE MLPs, with a
-frontend prefix where the config has one, and the encoder-decoder with
-cross-attention; MLA waits).  ``build_model(cfg)``
+of attention (GQA or MLA), Mamba and xLSTM blocks with dense or MoE
+MLPs, with a frontend prefix where the config has one, and the
+encoder-decoder with cross-attention).  ``build_model(cfg)``
 returns a :class:`Model` of plain functions:
 
 * ``init(seed, device)``                          -> params
@@ -45,15 +45,6 @@ class Model:
     prefill: Callable
     decode_step: Callable
     make_cache: Callable
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """The port runs every block kind of the reference (attention, Mamba,
-    mLSTM and sLSTM mixers; dense and MoE MLPs) but MLA's attention."""
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet; the port runs attention, Mamba "
-            f"and xLSTM blocks with dense or MoE MLPs, not MLA")
 
 
 def _stacked(n: int, make):
@@ -316,7 +307,6 @@ def decode_step(cfg: ModelConfig, params, token, pos: int, cache):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    _check_ported(cfg)
     return Model(cfg=cfg,
                  init=functools.partial(model_init, cfg),
                  train_loss=functools.partial(train_loss, cfg),

@@ -310,13 +310,15 @@ def test_serve_site_keys_match_jax_at_full_width(arch):
 
 
 def test_arch_sites_walk_the_seven_ported_archs_in_the_references_order():
+    """All ten of the reference's archs are ported (DeepSeek-V2 last), so
+    ``arch_sites`` walks the whole list, in its order, leaving none out."""
     from repro_torch.core.dataset import _ARCHS
     assert [a for a in _ARCHS if a in PORTED_ARCHS] == [
         "starcoder2_7b", "qwen3_8b", "stablelm_3b", "chatglm3_6b",
-        "llama4_maverick_400b", "xlstm_1_3b", "phi3_vision_4_2b",
-        "seamless_m4t_medium", "jamba_v0_1_52b"]
-    assert [a for a in _ARCHS if a not in PORTED_ARCHS] == [
-        "deepseek_v2_236b"]
+        "deepseek_v2_236b", "llama4_maverick_400b", "xlstm_1_3b",
+        "phi3_vision_4_2b", "seamless_m4t_medium", "jamba_v0_1_52b"]
+    assert [a for a in _ARCHS if a not in PORTED_ARCHS] == []
+    assert list(PORTED_ARCHS) == list(_ARCHS)
 
 
 # ---------------------------------------------------------------------------

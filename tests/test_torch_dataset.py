@@ -90,12 +90,14 @@ def test_held_out_suites_are_the_reference(suite):
 
 
 def test_arch_sites_are_the_references_for_the_ported_archs():
-    """``arch_sites`` walks the reference's list cut to the ported archs:
-    its keys are the reference extractor's for those archs, in order."""
+    """``arch_sites`` walks the reference's list cut to the ported archs,
+    all ten of them since DeepSeek-V2: its keys are the reference
+    extractor's for those archs, in order."""
     want = [k for arch in ("starcoder2_7b", "qwen3_8b", "stablelm_3b",
-                           "chatglm3_6b", "llama4_maverick_400b",
-                           "xlstm_1_3b", "phi3_vision_4_2b",
-                           "seamless_m4t_medium", "jamba_v0_1_52b")
+                           "chatglm3_6b", "deepseek_v2_236b",
+                           "llama4_maverick_400b", "xlstm_1_3b",
+                           "phi3_vision_4_2b", "seamless_m4t_medium",
+                           "jamba_v0_1_52b")
             for k in _keys(jextract_arch_sites(arch))]
     assert _keys(dataset.arch_sites()) == want
 

@@ -330,10 +330,10 @@ def test_flash_library_holds_wgmma_and_tma_without_spills(cuda):
 
 
 def test_flash_kernel_refuses_other_head_dims(cuda):
-    """K2 takes head dims that are multiples of 8 up to 128 (the launch
+    """K2 takes head dims that are multiples of 8 up to 192 (the launch
     rule, ``ops.head_dim_ok``); others raise before any launch."""
     before = kfa.launches
-    for d in (20, 136, 192):
+    for d in (20, 200, 256):
         q = torch.zeros((1, 2, 64, d), dtype=torch.bfloat16, device=cuda)
         with pytest.raises(ValueError, match="head dim"):
             ops.flash_attention(q, q, q, causal=True, scale=0.1)
@@ -342,18 +342,19 @@ def test_flash_kernel_refuses_other_head_dims(cuda):
 
 def _flash_into_canary(q, k, v, causal, tiles):
     """K2 through its C entry point into an output buffer followed by a
-    canary: the output's rows are D apart, so a column at or past D
+    canary: the output's rows are Dv apart, so a column at or past Dv
     written by the last row lands on the canary.  Returns the output and
     the canary."""
     B, H, Sq, D = q.shape
-    n = B * H * Sq * D
+    Dv = v.shape[-1]
+    n = B * H * Sq * Dv
     buf = torch.full((n + 1024,), 7.0, dtype=torch.bfloat16, device=q.device)
     variant, fn, args = kfa._prepare(q, k, v, causal, *tiles)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), *args,
             float(D ** -0.5), torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     torch.cuda.synchronize()
-    return variant, buf[:n].view(B, H, Sq, D), buf[n:]
+    return variant, buf[:n].view(B, H, Sq, Dv), buf[n:]
 
 
 @pytest.mark.parametrize("d", [80, 64, 96, 40, 16])
@@ -1125,12 +1126,13 @@ def test_matmul_f32_splits_k_by_k_alone(cuda):
     assert float((y - x @ w).abs().max() / (x @ w).abs().max()) < K1_F32_TOL
 
 
-@pytest.mark.parametrize("N,K", [(128, 5120), (16, 4096)])
+@pytest.mark.parametrize("N,K", [(128, 5120), (16, 4096), (160, 5120)])
 def test_matmul_f32_rows_are_the_same_bits_at_every_m(cuda, N, K):
     """A token's router logits do not depend on its batch: rows 0-3 of a
     2048-row call equal a 4-row call of the same rows bitwise, at the
-    Llama-4 and Jamba routers' K, under the baseline tiles of each M and
-    PPO's router tile."""
+    Llama-4, Jamba and DeepSeek-V2 (N = 160: two column tiles, the second
+    32 wide) routers' K, under the baseline tiles of each M and PPO's
+    router tile."""
     x = _f32_normal(56, 2048, K, device=cuda)
     w = _f32_normal(57, K, N, device=cuda)
     big = ops.matmul(x, w, tiles=(128, 128, 512))
@@ -1192,3 +1194,127 @@ def test_moe_archs_under_inject_match_eager_on_the_card(cuda, arch):
         torch.cuda.synchronize()
     assert kmm.launches_by_variant["f32"] - before["f32"] == n_moe
     assert float((lk - le).abs().max() / le.abs().max()) < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): K2 at head dims up to 192 with a value dim of its own
+# ---------------------------------------------------------------------------
+
+def _mla_inputs(B, h, S, d, dv, layout, device, seed=70):
+    """q, k at D and v at Dv; under the model's layout (``models/mla.py``)
+    q and k are contiguous concatenations and v the (b, s, h, d) einsum
+    output seen as (b, h, s, d); the runner's layout is contiguous."""
+    q = _normal(seed, B, h, S, d, device=device)
+    k = _normal(seed + 1, B, h, S, d, device=device)
+    if layout == _MODEL:
+        v = _normal(seed + 2, B, S, h, dv, device=device).transpose(1, 2)
+    else:
+        v = _normal(seed + 2, B, h, S, dv, device=device)
+    return q, k, v
+
+
+@pytest.mark.parametrize("d,dv,layout,causal,tiles", [
+    (192, 128, _MODEL, True, (128, 512)),       # mla.core, the baseline
+    (192, 128, _MODEL, True, (64, 128)),        # a tile PPO can pick
+    (192, 128, _MODEL, False, (128, 256)),
+    (192, 192, _CONTIG, True, (128, 512)),      # the runner's D = Dv = 192
+    (192, 192, _CONTIG, False, (64, 64)),
+    (136, 136, _CONTIG, True, (128, 128)),      # a third slab partly past D
+    (192, 64, _MODEL, True, (128, 512)),        # Dv in two slabs, one empty
+])
+def test_flash_kernel_at_mla_head_dims(cuda, d, dv, layout, causal, tiles):
+    """K2 at D > 128 (three 64-column slabs of Q.K^T, 64-key stages) with a
+    value dim of its own (P.V over two or three slabs), against its plain
+    version at the true dims and the scale 1/sqrt(D); the output is (B,
+    H, S, Dv) and nothing is written at or past column Dv."""
+    B, h, S = 2, 8, 512
+    q, k, v = _mla_inputs(B, h, S, d, dv, layout, cuda)
+    p = ops.attention_launch_plan(S, S, d, *tiles, Dv=dv)
+    assert p.stage_keys == 64 and p.ring == 2
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=causal, scale=d ** -0.5, tiles=tiles))
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
+    yp = kfa.flash_attention_plain(q, k, v, causal=causal, scale=d ** -0.5,
+                                   bq=tiles[0], bkv=tiles[1])
+    assert y.shape == (B, h, S, dv) and torch.isfinite(y.float()).all()
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+    variant, yc, canary = _flash_into_canary(q, k, v, causal, tiles)
+    assert variant == "tma_wgmma" and torch.equal(yc, y)
+    assert bool((canary == 7.0).all())
+
+
+@pytest.mark.parametrize("d,dv", [(192, 128), (192, 192), (136, 136)])
+def test_flash_unaligned_variant_at_mla_head_dims(cuda, d, dv):
+    """The unaligned variant (q 2 bytes into its storage) at three slabs
+    of D and a value dim of its own."""
+    q = _normal(80, 1, 4, 256, d + 1, device=cuda)[..., 1:]
+    k = _normal(81, 1, 4, 256, d, device=cuda)
+    v = _normal(82, 1, 4, 256, dv, device=cuda)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=d ** -0.5, tiles=(64, 128)))
+    assert ran == {"tma_wgmma": 0, "unaligned": 1}
+    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=d ** -0.5,
+                                   bq=64, bkv=128)
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+    variant, yc, canary = _flash_into_canary(q, k, v, True, (64, 128))
+    assert variant == "unaligned" and torch.equal(yc, y)
+    assert bool((canary == 7.0).all())
+
+
+def test_flash_kernel_at_head_dim_128_runs_the_plan_before_mla(cuda):
+    """At D = Dv = 128 (Qwen3-8B's prefill in the served layout) the call
+    passes the C entry point the arguments of the plan it had before K2
+    took D > 128: 128-key stages, a ring of 2, two warpgroups."""
+    q, k, v = _attention_inputs(4, 32, 8, 512, 512, _MODEL, cuda, seed=90)
+    variant, _, args = kfa._prepare(q, k, v, True, 128, 512)
+    assert variant == "tma_wgmma"
+    assert args[5:7] == (128, 128)
+    assert args[-6:] == (128, 2, 128, 4, 2, 1)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=128 ** -0.5, tiles=(128, 512)))
+    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=128 ** -0.5,
+                                   bq=128, bkv=512)
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+
+
+def test_flash_refuses_a_value_dim_past_192_before_the_device(cuda):
+    """Dv = 200 raises in the wrapper's check, before any launch or any
+    allocation on the card."""
+    q = torch.zeros((1, 2, 64, 192), dtype=torch.bfloat16, device=cuda)
+    v = torch.zeros((1, 2, 64, 200), dtype=torch.bfloat16, device=cuda)
+    before, mem = kfa.launches, torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="value dim"):
+        kfa.flash_attention_cuda(q, q, v, causal=True, scale=0.1, bq=64,
+                                 bkv=64)
+    assert kfa.launches == before
+    assert torch.cuda.memory_allocated() == mem
+
+
+def test_deepseek_under_inject_matches_eager_on_the_card(cuda):
+    """A bf16 reduced DeepSeek-V2 at MLA's full head dims (D = 128 + 64,
+    Dv = 128): its prefill under the baseline program runs K2 at D = 192,
+    Dv = 128 once a layer and the f32 router once a MoE layer, and its
+    logits lie near eager's; three absorbed decode steps follow."""
+    cfg = get_config("deepseek_v2_236b").reduced(
+        dtype="bfloat16", d_model=256, n_heads=4, qk_nope_dim=128,
+        qk_rope_dim=64, v_head_dim=128, n_layers=2)
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda)
+    sites = extract_serve_sites(model, 2, 128, 4)
+    prog = baseline_program(sites)
+    tok = torch.randint(0, cfg.vocab_size, (2, 128), device=cuda)
+    with torch.inference_mode():
+        le, _ = model.prefill(params, {"tokens": tok},
+                              model.make_cache(2, 132, device=cuda))
+        before = (dict(kmm.launches_by_variant), kfa.launches)
+        with inject(prog):
+            cache = model.make_cache(2, 132, device=cuda)
+            lk, cache = model.prefill(params, {"tokens": tok}, cache)
+            for i in range(3):
+                lk_d, cache = model.decode_step(
+                    params, lk.argmax(-1)[:, None], 128 + i, cache)
+        torch.cuda.synchronize()
+    assert kmm.launches_by_variant["f32"] - before[0]["f32"] == 2 * 4
+    assert kfa.launches - before[1] == 2
+    assert float((lk - le).abs().max() / le.abs().max()) < 5e-2
+    assert torch.isfinite(lk_d).all()

@@ -368,12 +368,13 @@ def _first_kernel_attention_legal(Sq, Skv, D, bq, bkv):
 
 def _attention_rule(Sq, Skv, D, bq, bkv, dtype):
     """The K2 launch rule with its dtype and head-dim clauses, written out:
-    bf16 only; at Sq > 1 a head dim that is a multiple of 8 up to 128,
-    where the first kernel's rule holds at the padded head dim 128 (at D =
-    128 that rule, unchanged)."""
+    bf16 only; at Sq > 1 a head dim that is a multiple of 8 up to 192,
+    where the first kernel's rule holds at the head dim 128 (at D = 128
+    that rule, unchanged; above 128 the same two warpgroups of 64 query
+    rows)."""
     if dtype != "bfloat16":
         return False
-    if Sq > 1 and (D % 8 or not 8 <= D <= 128):
+    if Sq > 1 and (D % 8 or not 8 <= D <= 192):
         return False
     return _first_kernel_attention_legal(Sq, Skv, 128, bq, bkv)
 
@@ -392,10 +393,10 @@ def _attention_site_shapes():
     shapes |= {(sq, skv, 128) for sq in lens for skv in lens + (384,)}
     shapes |= {(256, 128, 128), (96, 96, 128), (192, 192, 128),
                (512, 512, 64), (512, 512, 80)}
-    # the head dims of the corpus (and of stablelm_3b, 80), and some K2
-    # refuses: not a multiple of 8, or past 128
+    # the head dims of the corpus (and of stablelm_3b, 80; deepseek's
+    # mla.core, 192), and some K2 refuses: not a multiple of 8, or past 192
     shapes |= {(sq, 512, d) for sq in (1, 256, 512)
-               for d in (16, 40, 64, 80, 96, 192, 20, 136)}
+               for d in (16, 40, 64, 80, 96, 192, 20, 136, 200, 256)}
     return sorted(shapes)
 
 
@@ -408,7 +409,8 @@ def test_attention_legal_set_is_unchanged():
     every attention site shape and in bf16 and f32: attention_tiles_legal
     and tile_ok agree with the rule written out above.  At head dim 128 in
     bf16 (every qwen3_8b site) that is the first kernel's rule, unchanged;
-    the other head dims launch at the padded 128, and f32 never."""
+    the other head dims up to 192 launch the blocks of 128, and f32
+    never."""
     n_legal = n_all = 0
     for (Sq, Skv, D), dtype in itertools.product(_attention_site_shapes(),
                                                  ("bfloat16", "float32")):
@@ -436,9 +438,11 @@ def _model_strides(B, H, S, D):
 def test_attention_launch_plan_covers_every_legal_tile():
     """Every legal tile, at every head dim the rule admits, plans the
     tma_wgmma variant with one or two 64-row warpgroups covering bq, 64- or
-    128-key stages that cover Skv, whose edges fall on the bkv block edges
-    where bkv >= 64 (or the block is the whole sequence), and a ring whose
-    shared memory, counted at the padded head dim 128, fits;
+    128-key stages (64 above D = 128) that cover Skv, whose edges fall on
+    the bkv block edges where bkv >= 64 (or the block is the whole
+    sequence), and a ring of at least 2 stages (where Skv has them) whose
+    shared memory, counted at the padded head dim (128, or 192 above),
+    fits;
     a tile whose blocks do not divide the sequence (legal at Sq == 1,
     where K2 never runs) plans nothing; the model's
     strided v and the runner's contiguous layout plan tma_wgmma, and an
@@ -457,15 +461,16 @@ def test_attention_launch_plan_covers_every_legal_tile():
             assert p.variant == "tma_wgmma" and (p.bq, p.bkv) == (bq, bkv)
             assert p.warpgroups in (1, 2)
             assert (p.warpgroups - 1) * 64 < bq <= p.warpgroups * 64
-            assert p.stage_keys == (128 if bkv >= 128 else 64)
+            assert p.stage_keys == (128 if bkv >= 128 and D <= 128 else 64)
             assert (p.n_stages - 1) * p.stage_keys < Skv
             assert p.n_stages * p.stage_keys >= Skv
             if bkv >= 64:        # the action space's blocks: 128 and up
                 assert bkv % p.stage_keys == 0 or bkv == Skv
             assert 1 <= p.ring <= min(ops.ATTN_MAX_RING, p.n_stages)
             assert p.ring >= min(2, p.n_stages)
-            assert p.smem == (2 * p.warpgroups * 64 * ops.ATTN_D_PAD * 2
-                              + p.ring * 4 * p.stage_keys * ops.ATTN_D_PAD
+            pad = 128 if D <= 128 else 192      # V and the staging: 128
+            assert p.smem == (p.warpgroups * 64 * (pad + 128) * 2
+                              + p.ring * 2 * p.stage_keys * (pad + 128)
                               + 1024)
             assert p.smem <= 232448 - 1024
     assert n > 0
@@ -500,8 +505,8 @@ def _emulate_tma_kernel(q, k, v, *, causal, scale, tiles):
     them), the causal skip of whole stages, masks on edge stages only,
     the online softmax in the log2 domain, P rounded to bf16."""
     B, Hq, Sq, D = q.shape
-    Hkv, Skv = k.shape[1], k.shape[2]
-    p = ops.attention_launch_plan(Sq, Skv, D, *tiles)
+    Hkv, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    p = ops.attention_launch_plan(Sq, Skv, D, *tiles, Dv=Dv)
     keys, bq = p.stage_keys, p.bq
     c = scale * 1.4426950408889634
     k = k.repeat_interleave(Hq // Hkv, 1).float()
@@ -510,7 +515,7 @@ def _emulate_tma_kernel(q, k, v, *, causal, scale, tiles):
     k = torch.nn.functional.pad(k, (0, 0, 0, pad))
     v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     qz = torch.nn.functional.pad(q.float(), (0, 0, 0, 128))
-    out = torch.empty(B, Hq, Sq, D)
+    out = torch.empty(B, Hq, Sq, Dv)
     q_off = Skv - Sq
     for q0 in range(0, Sq, bq):
         nst = p.n_stages
@@ -522,7 +527,7 @@ def _emulate_tma_kernel(q, k, v, *, causal, scale, tiles):
             qpos = torch.arange(r0, r0 + 64) + q_off
             m = torch.full((B, Hq, 64, 1), ops.kfa.NEG_INF)
             l = torch.zeros((B, Hq, 64, 1))
-            o = torch.zeros((B, Hq, 64, D))
+            o = torch.zeros((B, Hq, 64, Dv))
             for i in range(nst):
                 k0 = i * keys
                 x = qw @ k[:, :, k0:k0 + keys].transpose(-1, -2) * c
@@ -574,6 +579,77 @@ def test_tma_kernel_walk_matches_the_plain_version(sq, skv, hq, hkv, tiles,
         mean = v.float().mean(2, keepdim=True).repeat_interleave(
             hq // hkv, 1)
         assert float((got[:, :, :sq - skv] - mean).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("d,dv,sq,skv,tiles,causal", [
+    (192, 128, 256, 256, (128, 512), True),   # mla.core: 64-key stages
+    (192, 128, 128, 384, (64, 128), True),    # one warpgroup, Sq < Skv
+    (192, 192, 256, 256, (128, 256), False),  # the runner's D = Dv
+    (136, 136, 96, 200, (128, 256), True),    # a ragged last stage
+    (24, 16, 64, 64, (64, 64), True),         # the reduced MLA: two slabs
+])
+def test_tma_kernel_walk_matches_the_plain_version_at_mla_head_dims(
+        d, dv, sq, skv, tiles, causal):
+    """The kernel's walk at MLA's head dims (q and k at D, v and the
+    output at Dv, the plan's 64-key stages above D = 128) computes the
+    plain version's function, as at D = 128."""
+    q = torch.from_numpy(_normal(14, 1, 4, sq, d)).bfloat16()
+    k = torch.from_numpy(_normal(15, 1, 4, skv, d)).bfloat16()
+    v = torch.from_numpy(_normal(16, 1, 4, skv, dv)).bfloat16()
+    want = kfa.flash_attention_plain(q, k, v, causal=causal,
+                                     scale=d ** -0.5, bq=tiles[0],
+                                     bkv=tiles[1]).float()
+    got = _emulate_tma_kernel(q, k, v, causal=causal, scale=d ** -0.5,
+                              tiles=tiles).float()
+    assert got.shape == (1, 4, sq, dv) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) < 2e-2
+
+
+def _first_redesign_plan(Sq, Skv, D, bq, bkv, strides=None, aligned=True):
+    """K2's launch plan before it took head dims above 128 (PRs 14-23),
+    written out: two 64-column slabs, 128-key stages where bkv >= 128,
+    and shared memory for Q, as much for the output, and the ring."""
+    if not _attention_rule(Sq, Skv, D, bq, bkv, "bfloat16"):
+        return None
+    bq, bkv = min(bq, Sq), min(bkv, Skv)
+    if Sq % bq or Skv % bkv:
+        return None
+    tma = aligned and (strides is None or all(
+        st[3] == 1 and all(x > 0 and x % 8 == 0 for x in st[:3])
+        for st in strides))
+    wgs = -(-bq // 64)
+    keys = 128 if bkv >= 128 else 64
+    n_stages = -(-Skv // keys)
+    stage_bytes = 4 * keys * 128
+    q_bytes = wgs * 64 * 128 * 2
+    fit = (232448 - 1024 - 1024 - 2 * q_bytes) // stage_bytes
+    ring = max(1, min(2, fit, 4, n_stages))
+    return ("tma_wgmma" if tma else "unaligned", bq, bkv, wgs, keys,
+            n_stages, ring, 2 * q_bytes + ring * stage_bytes + 1024)
+
+
+def test_attention_plan_at_head_dims_up_to_128_is_the_first_redesigns():
+    """At every D <= 128 (a Dv of its own up to 128 too) the legal set and
+    the launch plan are what they were before K2 took D > 128: the same
+    variant, warpgroups, stage keys, ring and shared memory, so no served
+    head dim's K2 time can move."""
+    n = 0
+    for Sq, Skv, D in _attention_site_shapes():
+        if D > 128:
+            continue
+        for t in itertools.product(_ATTN_BLOCKS, _ATTN_KV_BLOCKS):
+            want = _first_redesign_plan(Sq, Skv, D, *t)
+            for dv in (D, 16, 64, 128):
+                got = ops.attention_launch_plan(Sq, Skv, D, *t, Dv=dv)
+                assert (None if got is None else tuple(got)) == want, (
+                    Sq, Skv, D, dv, t)
+            n += want is not None
+        if Sq == Skv:
+            strided = _model_strides(2, 8, Sq, D)
+            got = ops.attention_launch_plan(Sq, Skv, D, 128, 512, strided)
+            assert (None if got is None else tuple(got)) == \
+                _first_redesign_plan(Sq, Skv, D, 128, 512, strided)
+    assert n > 0
 
 
 def test_cpu_tensors_take_the_plain_version():

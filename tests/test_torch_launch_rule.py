@@ -60,18 +60,19 @@ def _parent_rule(site, tiles):
 def _refused(site):
     """The sites the kernels take no tile of: a dtype their kernel does
     not take (K1 bf16 and f32, K2 and K3 bf16 only), or prefill attention
-    at a head dim that is not a multiple of 8 up to 128."""
+    at a head dim that is not a multiple of 8 up to 192."""
     dtypes = ("bfloat16", "float32") if site.kind == "matmul" else \
         ("bfloat16",)
     return site.dtype not in dtypes or (
         site.kind == "attention" and site.m > 1
-        and (site.n % 8 or not 8 <= site.n <= 128))
+        and (site.n % 8 or not 8 <= site.n <= 192))
 
 
 def _rule(site, tiles):
     """The rule written out: the per-kernel dtype and the head-dim
     clauses, then the parent's tile clause (the same in f32 for K1) with
-    K2's accumulator at the padded head dim."""
+    K2's accumulator counted at the head dim 128 (two warpgroups of 64
+    query rows at every head dim)."""
     if _refused(site):
         return False
     if site.kind == "attention" and site.m > 1:
@@ -184,7 +185,11 @@ def test_stablelm_sites_launch_at_head_dim_80():
     assert (p.variant, p.warpgroups, p.stage_keys, p.ring) == (
         "tma_wgmma", 2, 128, 2)
     assert p.smem == 2 * 2 * 64 * 128 * 2 + 2 * 4 * 128 * 128 + 1024
-    for d in (20, 136, 192):
+    for d in (136, 192):
+        p = ops.attention_launch_plan(512, 512, d, 128, 512)
+        assert (p.variant, p.warpgroups, p.stage_keys, p.ring) == (
+            "tma_wgmma", 2, 64, 2)
+    for d in (20, 200, 256):
         assert ops.attention_launch_plan(512, 512, d, 128, 512) is None
 
 
@@ -207,8 +212,9 @@ def test_kernels_refuse_what_the_rule_refuses():
     assert not ops.torch_dtype_ok(torch.ones(2))
     assert not ops.torch_dtype_ok(torch.ones(2, dtype=torch.bfloat16),
                                   torch.ones(2))
-    assert list(ops.head_dim_ok([8, 16, 20, 64, 80, 96, 128, 136])) == [
-        True, True, False, True, True, True, True, False]
+    assert list(ops.head_dim_ok([8, 16, 20, 64, 80, 96, 128, 136, 192,
+                                 200, 256])) == [
+        True, True, False, True, True, True, True, True, True, False, False]
     q = torch.ones((1, 2, 16, 80))
     with pytest.raises(TypeError, match="bfloat16"):
         kfa.flash_attention_cuda(q, q, q, causal=True, scale=0.1, bq=16,

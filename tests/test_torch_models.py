@@ -228,8 +228,9 @@ def test_unknown_mode_and_arch_raise():
     with pytest.raises(ValueError, match="mode"):
         with compute.compute_mode("pallas"):
             pass
-    with pytest.raises(ValueError, match="not ported"):
-        get_config("deepseek_v2_236b")
+    with pytest.raises(ValueError, match="not an arch of the port"):
+        get_config("deepseek_v3_671b")
+    get_config("deepseek_v2_236b")          # the last arch, ported
 
 
 @pytest.mark.parametrize("change", [
@@ -240,10 +241,34 @@ def test_unknown_mode_and_arch_raise():
     dict(mla=True, n_layers=2, period=(BlockDesc("mamba", "dense"),
                                        BlockDesc("attn", "moe")))])
 def test_unported_model_paths_are_refused(change):
+    """MLA, the last block kind the port refused, is ported: these four MLA
+    configs (no query latent, with a MoE MLP, beside a dense attention
+    block, beside a Mamba mixer) build, and their prefill logits are the
+    reference's ``xla`` mode's (its Pallas mode cannot run MLA's value
+    dim, which differs from the head dim)."""
     import dataclasses
-    cfg = dataclasses.replace(get_config("qwen3_8b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(cfg)
+    from repro.configs.base import BlockDesc as JBlockDesc
+    moe = any(b.mlp == "moe" for b in change.get("period", ()))
+    extra = dict(n_experts=4, moe_top_k=2, moe_d_ff=64) if moe else {}
+
+    def cfg(get, block):
+        c = dict(change, **extra)
+        if "period" in c:
+            c["period"] = tuple(block(b.kind, b.mlp) for b in c["period"])
+        return dataclasses.replace(get("qwen3_8b"), **c).reduced()
+    jcfg, tcfg = cfg(jget_config, JBlockDesc), cfg(get_config, BlockDesc)
+    assert tcfg.mla and tcfg.q_lora_rank == 0 and tcfg.kv_lora_rank == 32
+    jm, tm = jbuild_model(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    tok = _tokens(9, 2, 8)
+    lj, _ = jax.jit(jm.prefill)(jp, {"tokens": jnp.asarray(tok)},
+                                jm.make_cache(2, 10, jnp.float32))
+    with torch.no_grad():
+        lt, _ = tm.prefill(tp, {"tokens": torch.from_numpy(tok).long()},
+                           tm.make_cache(2, 10, device="cpu"))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=LOGIT_ATOL,
+                               rtol=0)
 
 
 # ---------------------------------------------------------------------------
