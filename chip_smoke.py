@@ -208,7 +208,30 @@ Phases, each printed before the last line:
      phase 3 did not check; phase 3 already held K1 at each of their
      matmul shapes and K2 at each of their prefill attentions (non-causal
      at D = 64 among them) under the baseline tiles;
- 13. each phase's wall seconds, then the last line:
+ 13. the tuning service and the latency-SLO serving layer (after phase
+     12, before the kernels line): serve --autotune brute --serving
+     --inject on the full-width qwen3_8b (36 layers, batch 4, prompt 512,
+     16 tokens) with the counters zeroed just before and read just after:
+     one fused dispatch and one CUDA graph capture, the program equal to
+     the host's brute force over CostModelEnv(legality="h100"), every
+     tile launchable, each pass's launches as per_pass_launches says with
+     no unaligned variant, the injected prefill logits within LOGIT_TOL of
+     phase 4's eager run (the same seeded weights and prompts), prefill
+     ms and decode tok/s, and K1 and K2 at each tuned tile no earlier
+     phase checked; the fused tuner on the card against the host's brute
+     force over the ten-arch corpus (dataset.arch_sites()) under h100 and
+     tpu_v5e (and its CPU route under tpu_v5e), one replay's device ms
+     beside the host argmin's ms; the fused surrogate route (phase 10's
+     model) against SurrogateOracle's brute labels; 8 brute/model and 2
+     PPO sessions (discrete and cont2, 300 steps on Qwen3-8B's sites) on
+     one TuningService(serving=True), each submitting 3 requests over its
+     slice of the corpus from its own thread, every program its solo tune
+     and FIFO within a session, with the serving p50/p99, batches and
+     health; cont1, cont2 and two_agents fitted 300 steps and tuned
+     through the server, every tile launchable; MetricsServer scraped on
+     127.0.0.1; a measured brute session through AsyncOracle over phase
+     6's timing DB, 0 pairs timed and phase 6's program;
+ 14. each phase's wall seconds, then the last line:
      {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
@@ -3365,6 +3388,493 @@ def serve_phase12(gen, checked):
     return by_path, summary
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the tuning service and the latency-SLO serving layer
+# ---------------------------------------------------------------------------
+
+SERVING_STEPS = 300         # PPO steps of a serving-phase fit
+N_BRUTE_SESSIONS = 8        # brute/model sessions on one TuningService
+REQUESTS_PER_SESSION = 3    # tune_async requests a session's thread submits
+REPLAY_REPS = 20            # CUDA-event timings of one fused replay
+
+
+def _median_ms(fn, reps: int) -> float:
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def _replay_ms(tuner, reps: int = REPLAY_REPS) -> float:
+    """Median device ms of one replay of ``tuner``'s only captured graph
+    (CUDA events around each replay)."""
+    import torch
+    (graph, *_), = tuner._graphs.values()
+    ts = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def expected_program(sites, oracle):
+    """The brute-force program as the vectorizer assembles it: the argmin
+    of ``oracle.cost_grid``, each action's tiles from the action space."""
+    from repro_torch.core.agents.brute import brute_force_labels
+    from repro_torch.core.vectorizer import TileProgram
+    acts = brute_force_labels(oracle, sites)
+    return TileProgram({s.key(): tuple(int(t) for t in
+                                       oracle.space.tiles(s.kind, a))
+                        for s, a in zip(sites, acts)})
+
+
+def serving_serve(q_eager, k1_done, k2_done, gen):
+    """(1) serve --autotune brute --serving --inject on the full-width
+    Qwen3-8B, counters zeroed just before and read just after."""
+    import torch
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.env import CostModelEnv
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    argv = ["--arch", ARCH, "--full", "--batch", str(BATCH), "--prompt-len",
+            str(PROMPT), "--gen", str(GEN), "--autotune", "brute",
+            "--serving", "--inject"]
+    print(f"[serving] serve.run({argv})", flush=True)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = serve.run(serve.parse_args(argv))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    cfg, tun = res.model.cfg, res.tuning
+    st = tun["serving"]
+    want = expected_program(res.sites, CostModelEnv(DEFAULT,
+                                                    legality="h100"))
+    if res.prog.tiles != want.tiles:
+        diff = {k: (res.prog.tiles.get(k), v) for k, v in want.tiles.items()
+                if res.prog.tiles.get(k) != v}
+        fail(f"serving: the fused program differs from the host brute "
+             f"force under h100 at {diff}")
+    bad = [s.key() for s in res.sites
+           if not ops.tile_ok(s, res.prog.tiles[s.key()])]
+    if bad:
+        fail(f"serving: tuned tiles that cannot launch: {bad}")
+    if st["serving_fused_dispatches_total"] != 1 or \
+            st["serving_fused_traces_total"] != 1 or tun["health"] != "ok":
+        fail(f"serving: the tune took {st['serving_fused_dispatches_total']} "
+             f"fused dispatches and {st['serving_fused_traces_total']} "
+             f"graph captures (want 1 and 1), health {tun['health']}")
+    want_pre, want_dec = per_pass_launches(cfg)
+    if res.launches != {"prefill": want_pre, "decode": want_dec}:
+        fail(f"serving: launch counts by pass {res.launches}")
+    n_pre = 1 + len(res.prefill_ms_runs)
+    n_dec = 1 + len(res.decode_tok_s_runs)
+    total = {k: tun["launches"][k] + want_pre[k] * n_pre + want_dec[k] * n_dec
+             for k in counts}
+    if counts != total or any(tun["launches"].values()):
+        fail(f"serving: total launch counts {counts} != {total} (tuning "
+             f"{tun['launches']})")
+    path_variants("serving:qwen3_8b:brute", counts)
+    logits = res.prefill_logits
+    if logits.shape != (BATCH, cfg.vocab_size) or \
+            not torch.isfinite(logits).all() or res.seq.shape != (BATCH, GEN):
+        fail(f"serving: logits {tuple(logits.shape)} / tokens "
+             f"{tuple(res.seq.shape)}")
+    rel = float((logits - q_eager["logits"]).abs().max()
+                / q_eager["logits"].abs().max())
+    agree = float((res.seq == q_eager["seq"]).float().mean())
+    if rel >= LOGIT_TOL:
+        fail(f"serving: injected prefill logits {rel:.3e} off eager's")
+    print(f"[serving:qwen3_8b] launches in the run: {counts}; by pass "
+          f"{res.launches}; wall {wall:.1f} s (fit and tune "
+          f"{tun['fit_s']:.2f} s); fused dispatches "
+          f"{st['serving_fused_dispatches_total']}, graph captures "
+          f"{st['serving_fused_traces_total']}, tune p50 "
+          f"{st['serving_tune_p50_ms']:.3f} ms, health {tun['health']}; "
+          f"program = host brute force under h100 at {len(res.sites)} "
+          f"sites; injected vs eager (phase 4) prefill logits relative "
+          f"{rel:.4e} (tol {LOGIT_TOL}), greedy tokens agree "
+          f"{agree * 100:.1f}%; prefill ms {res.prefill_ms:.2f} of "
+          f"{[round(t, 2) for t in res.prefill_ms_runs]}, decode tok/s "
+          f"{res.decode_tok_s:.2f} of "
+          f"{[round(t, 2) for t in res.decode_tok_s_runs]}; "
+          f"TPU-v5e-modelled speedup {res.modelled_speedup:.3f}x (cost "
+          f"model, not measured)", flush=True)
+    print(f"[serving:qwen3_8b] tuned tiles: " + ", ".join(
+        f"{s.site}@M={s.m}:{tuple(res.prog.tiles[s.key()])}"
+        for s in res.sites), flush=True)
+    # K1 and K2 at each tuned tile no earlier phase held against its
+    # plain version
+    new_k1, new_k2 = {}, {}
+    for s in res.sites:
+        t = tuple(res.prog.tiles[s.key()])
+        if s.kind == "matmul":
+            shape = (s.m, s.n, s.k, s.site == "lm_head")
+            if (shape, t) not in k1_done:
+                _, _, _, rec = k1_agree(shape, t, gen)
+                k1_done.add((shape, t))
+                new_k1[f"{s.site}@M={s.m}:{t}"] = rec["rel"]
+        elif s.kind == "attention" and s.m > 1:
+            t_att = tuple(min(a, b) for a, b in zip(t[:2], (PROMPT, PROMPT)))
+            if t_att not in k2_done:
+                H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+                q = torch.randn((BATCH, H, PROMPT, D), generator=gen,
+                                device="cuda").bfloat16()
+                k = torch.randn((BATCH, Hkv, PROMPT, D), generator=gen,
+                                device="cuda").bfloat16()
+                v = torch.randn((BATCH, Hkv, PROMPT, D), generator=gen,
+                                device="cuda").bfloat16()
+                y, variant = k2_call(q, k, v, t_att)
+                yp = kfa.flash_attention_plain(q, k, v, causal=True,
+                                               scale=D ** -0.5,
+                                               bq=t_att[0], bkv=t_att[1])
+                err = float((y.float() - yp.float()).abs().max())
+                if err >= K2_TOL:
+                    fail(f"serving: K2 at {t_att}: abs err {err:.3e}")
+                k2_done.add(t_att)
+                new_k2[str(t_att)] = err
+    print(f"[serving:qwen3_8b] K1 at the {len(new_k1)} tuned tiles no "
+          f"earlier phase checked (rel err vs the f32 product, tol "
+          f"{K1_TOL}): {new_k1}; K2 at {len(new_k2)} new tiles: {new_k2}",
+          flush=True)
+    out = {"wall_s": wall, "fit_and_tune_s": tun["fit_s"],
+           "prefill_ms": res.prefill_ms,
+           "prefill_ms_runs": res.prefill_ms_runs,
+           "decode_tok_s": res.decode_tok_s,
+           "decode_tok_s_runs": res.decode_tok_s_runs,
+           "logits_rel": rel, "tokens_agree": agree,
+           "fused_dispatches": st["serving_fused_dispatches_total"],
+           "graph_captures": st["serving_fused_traces_total"],
+           "tune_p50_ms": st["serving_tune_p50_ms"],
+           "k1_new_tiles": new_k1, "k2_new_tiles": new_k2,
+           "modelled_speedup": res.modelled_speedup}
+    sites = res.sites
+    del res
+    torch.cuda.empty_cache()
+    return counts, out, sites
+
+
+def serving_fused_vs_host(corpus):
+    """(2) The fused tuner on the card against the host's brute force over
+    the ten-arch corpus, under h100 and tpu_v5e (and the CPU route under
+    tpu_v5e); one replay's device ms beside the host argmin's ms."""
+    import numpy as np
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.agents.brute import brute_force_labels
+    from repro_torch.core.env import CostModelEnv
+    from repro_torch.serving import FusedTuner
+    out = {}
+    for leg in ("h100", "tpu_v5e"):
+        env = CostModelEnv(DEFAULT, legality=leg)
+        tuner = FusedTuner(DEFAULT, legality=leg, device="cuda")
+        got = tuner.actions(corpus)
+        want = brute_force_labels(env, corpus)
+        if not np.array_equal(got, want):
+            rows = np.flatnonzero((got != want).any(1))
+            fail(f"serving: the fused tuner ({leg}) differs from the host "
+                 f"brute force at {[corpus[i].key() for i in rows[:5]]}")
+        cpu = None
+        if leg == "tpu_v5e":
+            cpu = FusedTuner(DEFAULT, legality=leg, device="cpu")
+            if not np.array_equal(got, cpu.actions(corpus)):
+                fail("serving: the fused tuner on the card differs from its "
+                     "CPU route under tpu_v5e")
+        call_ms = _median_ms(lambda: tuner.actions(corpus), REPLAY_REPS)
+        host_ms = _median_ms(lambda: brute_force_labels(env, corpus),
+                             REPLAY_REPS)
+        cpu_ms = (_median_ms(lambda: cpu.actions(corpus), REPLAY_REPS)
+                  if cpu is not None else None)
+        replay = _replay_ms(tuner)
+        if tuner.trace_count != 1:
+            fail(f"serving: {tuner.trace_count} graph captures for one "
+                 f"bucket")
+        out[leg] = {"sites": len(corpus), "bucket": tuner.last_padded_batch,
+                    "replay_device_ms": replay, "call_ms": call_ms,
+                    "host_argmin_ms": host_ms, "cpu_route_ms": cpu_ms}
+        print(f"[serving:fused] {leg}: {len(corpus)} corpus sites (bucket "
+              f"{tuner.last_padded_batch}) = host brute force"
+              f"{' = the CPU route' if cpu is not None else ''}; one "
+              f"replay {replay:.4f} device ms (CUDA events, median of "
+              f"{REPLAY_REPS}); a whole call (pack, copy, replay, copy) "
+              f"{call_ms:.3f} ms; the host grid and argmin {host_ms:.3f} ms"
+              + (f"; the CPU route {cpu_ms:.3f} ms" if cpu_ms else ""),
+              flush=True)
+    return out
+
+
+def serving_surrogate(sites):
+    """(3) The fused surrogate route against SurrogateOracle's brute
+    labels, with phase 10's surrogate."""
+    import numpy as np
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.agents.brute import brute_force_labels
+    from repro_torch.serving import FusedTuner
+    from repro_torch.surrogate import SurrogateOracle, load_surrogate
+    model = load_surrogate(str(ROOT / "build" / "surrogate_ckpt"),
+                           device="cuda")
+    oracle = SurrogateOracle(DEFAULT, model, legality="h100")
+    tuner = FusedTuner(DEFAULT, surrogate=model, legality="h100",
+                       device="cuda")
+    got = tuner.actions(sites)
+    want = brute_force_labels(oracle, sites)
+    if not np.array_equal(got, want):
+        rows = np.flatnonzero((got != want).any(1))
+        grid = oracle.cost_grid([sites[i] for i in rows])
+        fail(f"serving: the fused surrogate route differs from "
+             f"SurrogateOracle at {[sites[i].key() for i in rows]} "
+             f"(oracle's best two: {np.sort(grid, 1)[:, :2].tolist()})")
+    replay = _replay_ms(tuner)
+    print(f"[serving:surrogate] phase 10's surrogate (ensemble "
+          f"{model.ensemble}) in the fused route = SurrogateOracle's brute "
+          f"labels at {len(sites)} sites; one replay {replay:.4f} device ms",
+          flush=True)
+    return {"sites": len(sites), "replay_device_ms": replay}
+
+
+def _ppo_logit_spread(agent, sites, bucket):
+    """Largest difference of the policy outputs of ``sites`` computed
+    alone and in a batch of ``bucket`` rows (cuBLAS picks its algorithm by
+    M)."""
+    import torch
+    ctx, mask, vs = agent.feats(sites)
+    pad = bucket - len(sites)
+    big = [torch.cat([t, t[:1].expand(pad, *t.shape[1:])])
+           for t in (ctx, mask, vs)]
+    with torch.no_grad():
+        a, _ = agent._forward(ctx, mask, vs)
+        b, _ = agent._forward(*big)
+    if isinstance(a, list):
+        a, b = torch.cat(a, 1), torch.cat(b, 1)[:len(sites)]
+    else:
+        b = b[:len(sites)]
+    ok = a > -1e29
+    return float((a - b)[ok].abs().max())
+
+
+def serving_sessions(corpus, qsites, sl_sites, sl_db, brute_measured):
+    """(4) concurrent sessions on one TuningService(serving=True); (5) a
+    measured session through AsyncOracle against phase 6's DB; (6) each
+    continuous PPO mode fitted and tuned through the server; (7) the
+    MetricsServer scraped over localhost."""
+    import threading
+    import urllib.request
+
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.core.agents import PPOAgent
+    from repro_torch.core.env import CostModelEnv
+    from repro_torch.core.protocols import AsyncOracle
+    from repro_torch.core.vectorizer import program_speedup
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRegistry, MetricsServer
+    from repro_torch.service import TuningService
+    from repro_torch.serving import bucket_size
+    out = {}
+    reg = MetricsRegistry()
+    env = CostModelEnv(DEFAULT, legality="h100")
+    with TuningService(DEFAULT, serving={"max_wait_ms": 20.0},
+                       device="cuda", metrics=reg) as svc:
+        sessions = []
+        for i in range(N_BRUTE_SESSIONS):
+            s = svc.open_session(agent="brute", oracle="model")
+            sessions.append((s, corpus[i::N_BRUTE_SESSIONS]))
+        fit_s = {}
+        for j, mode in enumerate(("discrete", "cont2")):
+            s = svc.open_session(agent=PPOAgent(DEFAULT, mode=mode,
+                                                device="cuda"),
+                                 oracle="model")
+            t0 = time.perf_counter()
+            s.fit(qsites, total_steps=SERVING_STEPS)
+            fit_s[mode] = time.perf_counter() - t0
+            sessions.append((s, corpus[j::2]))
+        for s, sl in sessions[:N_BRUTE_SESSIONS]:
+            s.fit(sl)
+        # each session's solo tune, as it resolves without the server
+        solo = {s.name: s._tune(sl).tiles for s, sl in sessions}
+        parts = {s.name: [sl[k::REQUESTS_PER_SESSION]
+                          for k in range(REQUESTS_PER_SESSION)]
+                 for s, sl in sessions}
+        order, results, errors = {}, {}, []
+        barrier = threading.Barrier(len(sessions))
+
+        def client(sess):
+            try:
+                barrier.wait()
+                futs = []
+                for k, p in enumerate(parts[sess.name]):
+                    f = sess.tune_async(p, slo_ms=10_000.0)
+                    f.add_done_callback(
+                        lambda _f, k=k: order.setdefault(sess.name,
+                                                         []).append(k))
+                    futs.append(f)
+                merged = {}
+                for f in futs:
+                    merged.update(f.result(timeout=300).tiles)
+                results[sess.name] = merged
+            except Exception as e:
+                errors.append(e)
+                barrier.abort()
+
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s, _ in sessions]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        conc_wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        for s, sl in sessions:
+            if results.get(s.name) != solo[s.name]:
+                fail(f"serving: session {s.name} ({s.agent.name}) got "
+                     f"another program under the server than solo")
+            if order.get(s.name) != list(range(REQUESTS_PER_SESSION)):
+                fail(f"serving: session {s.name} resolved in order "
+                     f"{order.get(s.name)}, not FIFO")
+        spread = {s.agent.mode: _ppo_logit_spread(
+            s.agent, sl, bucket_size(len(corpus)))
+            for s, sl in sessions[N_BRUTE_SESSIONS:]}
+        st = svc.server.stats()
+        health = svc.health()
+        if health != "ok" or st["serving_shed_total"] or \
+                st["serving_deadline_misses_total"]:
+            fail(f"serving: health {health}, shed "
+                 f"{st['serving_shed_total']}, deadline misses "
+                 f"{st['serving_deadline_misses_total']}")
+        out["concurrent"] = {
+            "sessions": len(sessions),
+            "requests": st["serving_requests_total"],
+            "tune_p50_ms": st["serving_tune_p50_ms"],
+            "tune_p99_ms": st["serving_tune_p99_ms"],
+            "batches": st["serving_batches_total"],
+            "batch_requests_max": st["serving_batch_requests_max"],
+            "batch_requests_hist": st["serving_batch_requests_hist"],
+            "fused_dispatches": st["serving_fused_dispatches_total"],
+            "graph_captures": st["serving_fused_traces_total"],
+            "agent_batches": st["serving_agent_batches_total"],
+            "health": health, "wall_s": conc_wall,
+            "ppo_fit_s": fit_s, "ppo_max_logit_diff_solo_vs_bucket": spread}
+        print(f"[serving:sessions] {N_BRUTE_SESSIONS} brute/model sessions "
+              f"and 2 PPO sessions (discrete, cont2; {SERVING_STEPS} steps "
+              f"on Qwen3-8B's sites, fit {fit_s['discrete']:.2f} s and "
+              f"{fit_s['cont2']:.2f} s), {REQUESTS_PER_SESSION} requests "
+              f"each from its own thread over its slice of the {len(corpus)}"
+              f"-site corpus: every program = the session's solo tune, FIFO "
+              f"within each session; serving_tune_p50_ms "
+              f"{st['serving_tune_p50_ms']:.3f}, p99 "
+              f"{st['serving_tune_p99_ms']:.3f}; {st['serving_batches_total']}"
+              f" batches (requests a batch {st['serving_batch_requests_hist']},"
+              f" serving_batch_requests_max "
+              f"{st['serving_batch_requests_max']}), fused dispatches "
+              f"{st['serving_fused_dispatches_total']} (captures "
+              f"{st['serving_fused_traces_total']}), agent forwards "
+              f"{st['serving_agent_batches_total']}; PPO logits solo vs a "
+              f"bucket of {bucket_size(len(corpus))}: largest difference "
+              f"{spread}; health {health}; wall {conc_wall:.2f} s",
+              flush=True)
+        # (6) the continuous modes (and two_agents), each fitted on
+        # Qwen3-8B's serve sites and tuned through the AgentBatch route
+        modes = {}
+        for mode in ("cont1", "cont2", "two_agents"):
+            s = svc.open_session(agent=PPOAgent(DEFAULT, mode=mode,
+                                                device="cuda"),
+                                 oracle="model")
+            t0 = time.perf_counter()
+            s.fit(qsites, total_steps=SERVING_STEPS)
+            fit = time.perf_counter() - t0
+            prog = s.tune(qsites)
+            bad = [x.key() for x in qsites
+                   if not ops.tile_ok(x, prog.tiles[x.key()])]
+            if bad:
+                fail(f"serving: {mode} tuned tiles that cannot launch: {bad}")
+            sp = program_speedup(prog, qsites, env)
+            modes[mode] = {"fit_s": fit, "modelled_speedup": sp,
+                           "reward_last": s.agent.history[-1]["reward_mean"]}
+            print(f"[serving:ppo:{mode}] {SERVING_STEPS} steps on "
+                  f"{len(qsites)} Qwen3-8B serve sites against "
+                  f"CostModelEnv(h100): fit {fit:.2f} s, tuned through the "
+                  f"server (AgentBatch), every tile launches; "
+                  f"TPU-v5e-modelled speedup {sp:.3f}x (cost model, not an "
+                  f"H100 measurement)", flush=True)
+        out["ppo_modes"] = modes
+        # (7) the registry over HTTP
+        with MetricsServer(port=0, registry=reg) as srv:
+            port = srv.port
+            text = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=30
+            ).read().decode()
+        series = sorted({ln.split("{")[0].split(" ")[0]
+                         for ln in text.splitlines()
+                         if ln.startswith("serving_")})
+        need = {"serving_requests_total", "serving_batches_total",
+                "serving_fused_dispatches_total", "serving_queue_depth",
+                "serving_tune_seconds_count", "serving_health"}
+        if not need <= set(series):
+            fail(f"serving: the scrape lacks {sorted(need - set(series))}")
+        out["metrics_series"] = len(series)
+        print(f"[serving:metrics] MetricsServer on 127.0.0.1:{port}: "
+              f"{len(text)} bytes, {len(series)} serving_* series",
+              flush=True)
+    # (5) a measured session through AsyncOracle against phase 6's DB
+    with TuningService(DEFAULT, transport="inproc", db_path=str(sl_db),
+                       device="cuda", metrics=False) as svc:
+        s = svc.open_session(agent="brute", oracle="measured")
+        if not isinstance(s.oracle, AsyncOracle):
+            fail("serving: the measured session holds no AsyncOracle")
+        t0 = time.perf_counter()
+        prog = s.fit(sl_sites).tune(sl_sites)
+        wall = time.perf_counter() - t0
+        tst = s.stats()["transport"]
+        health = s.health()
+    timed = tst["transport_timed_pairs_total"]
+    if timed or health != "ok" or prog.tiles != brute_measured:
+        fail(f"serving: the measured session timed {timed} pairs, health "
+             f"{health}, program equal to phase 6's: "
+             f"{prog.tiles == brute_measured}")
+    out["measured_session"] = {"timed": timed,
+                               "hits": tst["transport_hits_total"],
+                               "health": health, "wall_s": wall}
+    print(f"[serving:measured] StableLM-3B's {len(sl_sites)} serve sites, "
+          f"brute force through AsyncOracle over phase 6's timing DB: "
+          f"{timed} pairs timed, {tst['transport_hits_total']} DB hits, "
+          f"health {health}, program = phase 6's measured brute program; "
+          f"{wall:.2f} s", flush=True)
+    return out
+
+
+def serving_phase(q_eager, k1_done, k2_done, gen, sl):
+    """Phase 13: the service and serving layer.  Returns ``(counts,
+    summary)``: the launches of the --serving --inject serve, and every
+    step's numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import dataset
+    from repro_torch.core.extractor import extract_serve_sites
+    from repro_torch.models.lm import build_model
+    counts, out, qsites = serving_serve(q_eager, k1_done, k2_done, gen)
+    t0 = time.perf_counter()
+    corpus = dataset.arch_sites()
+    print(f"[serving] the ten-arch corpus: {len(corpus)} sites extracted in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    out["fused"] = serving_fused_vs_host(corpus)
+    sl_sites = extract_serve_sites(build_model(get_config(STABLELM)), BATCH,
+                                   PROMPT, GEN)
+    out["surrogate"] = serving_surrogate(list(qsites) + list(sl_sites))
+    out.update(serving_sessions(corpus, qsites, sl_sites, sl["db"],
+                                sl["brute_tiles"]))
+    torch.cuda.empty_cache()
+    return counts, out
+
+
 def sass_check() -> None:
     """K1's, K2's and K3's libraries must hold Hopper's wgmma (HGMMA) and
     TMA load (UTMALDG) instructions, K1's f32 library FFMA and no
@@ -3429,8 +3939,12 @@ def main() -> int:
               f"(src/repro_torch missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import itertools
+
     from repro_torch.configs import get_config
+    from repro_torch.configs.neurovec import DEFAULT as NV
     from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.kernels import ops
     from repro_torch.core.extractor import extract_serve_sites
     from repro_torch.kernels import build
     from repro_torch.models.lm import build_model
@@ -3475,6 +3989,12 @@ def main() -> int:
     sweep_site = next(s for s in sites if s.kind == "matmul" and s.m > 1
                       and s.site == "attn.q")
     k1_sweep(sweep_site, gen)
+    # (shape, tiles) pairs K1 was held at, for phase 13
+    k1_done = {(shape, tuple(baseline_tiles(s))) for shape, s in shapes.items()}
+    k1_done |= {((sweep_site.m, sweep_site.n, sweep_site.k, False), t)
+                for t in itertools.product(NV.bm_choices, NV.bn_choices,
+                                           NV.bk_choices)
+                if ops.tile_ok(sweep_site, t)}
     k2 = k2_checks(gen)
     k2_d80, k2_small_err = k2_head_dim_checks(gen)
     torch.cuda.empty_cache()
@@ -3498,6 +4018,7 @@ def main() -> int:
             shape = (s.m, s.n, s.k, s.site == "lm_head")
             k1_tuned[s.key()] = k1_check(shape, prog[s.key()],
                                          f"tuned:{s.site}", gen)
+            k1_done.add((shape, tuple(prog[s.key()])))
             # lm_head runs once in the prefill and once in the decode step
             per_site_launches[s.key()] = (2 if s.site == "lm_head"
                                           else model.cfg.n_layers)
@@ -3520,7 +4041,9 @@ def main() -> int:
     by_path = {"qwen3_8b modelled": counts}
     q_res, by_path["qwen3_8b measured"], _ = measured_path(
         ARCH, params, prompts, extra=p5_extra, eager=q_eager)
-    del q_res, params, prompts, q_eager
+    # phase 13 serves these seeded weights and prompts again
+    q_eager = {"logits": q_eager["logits"], "seq": q_eager["seq"]}
+    del q_res, params, prompts
     torch.cuda.empty_cache()
     x_res, by_path["xlstm_1_3b measured"], x_eager = measured_path(
         XLSTM, extra=p5_extra)
@@ -3603,6 +4126,16 @@ def main() -> int:
     by_path.update(p12_paths)
     print("[serve12] summary " + json.dumps(p12, default=str), flush=True)
     phase_done("12 seven archs served")
+
+    # ---- phase 13: the tuning service and the serving layer (before the
+    # kernels line: the --serving --inject serve's launches count there) ----
+    t0 = time.perf_counter()
+    by_path["qwen3_8b serving brute"], serving = serving_phase(
+        q_eager, k1_done, set(k2), gen, sl)
+    serving["wall_s"] = time.perf_counter() - t0
+    print("[serving] summary " + json.dumps(serving, default=str),
+          flush=True)
+    phase_done("13 service and serving")
     print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}

@@ -31,8 +31,12 @@ Timings may run in this process, in a pool of subprocess workers
 ``db_path`` or ``program_store`` attaches the shared artifact service.
 
 The facade runs on the card unless ``device="cpu"`` is asked for; without
-CUDA it raises.  The reference's tuning service and ``AsyncOracle`` are
-not ported yet.
+CUDA it raises.  The next altitude is :class:`TuningService`
+(``repro_torch.service``): one shared measurement transport, many
+sessions, each an agent and an oracle behind an :class:`AsyncOracle`, and
+with ``serving=`` a deadline-aware batch server whose brute-force tunes
+over the cost model run as one fused device dispatch
+(``repro_torch.serving``).
 """
 from __future__ import annotations
 
@@ -55,29 +59,33 @@ from repro_torch.core.agents import (AGENT_NAMES, BruteForceAgent,
 from repro_torch.core.env import (ActionSpace, CostModelEnv, MeasuredEnv,
                                   set_strict_actions)
 from repro_torch.core.extractor import extract_arch_sites, extract_sites
-from repro_torch.core.protocols import (Agent, MeasureTransport, Oracle,
+from repro_torch.core.protocols import (Agent, AsyncOracle,
+                                        MeasureTransport, Oracle,
                                         resolve_health)
 from repro_torch.core.vectorizer import (TileProgram, baseline_program,
                                          inject, program_speedup)
 from repro_torch.device import resolve_device
 from repro_torch.measure import (TRANSPORT_NAMES, MeasureRunner,
-                                 make_measured_env, make_transport,
-                                 open_measure_db, resolve_surrogate)
+                                 WorkerPoolTransport, make_measured_env,
+                                 make_transport, open_measure_db,
+                                 resolve_surrogate)
 from repro_torch.obs import (MetricsRegistry, ObsHandle, Tracer,
                              get_registry, instrument_oracle_stack,
                              instrument_program_store, resolve_obs,
                              to_chrome_trace)
+from repro_torch.service import SessionHandle, TuningService
 from repro_torch.surrogate import (SurrogateModel, SurrogateOracle,
                                    load_surrogate, save_surrogate,
                                    train_from_db)
 
 __all__ = [
     "NeuroVectorizer",
-    "Agent", "Oracle", "MeasureTransport",
+    "Agent", "Oracle", "MeasureTransport", "AsyncOracle",
     "AGENT_NAMES", "make_agent", "default_embed_fn",
     "NeuroVecConfig", "DEFAULT", "ActionSpace",
     "CostModelEnv", "MeasuredEnv", "set_strict_actions",
     "make_measured_env", "make_transport", "TRANSPORT_NAMES",
+    "WorkerPoolTransport", "TuningService", "SessionHandle",
     "TileProgram", "baseline_program", "inject", "program_speedup",
     "extract_sites", "extract_arch_sites",
     "ArtifactError", "save_agent", "load_agent", "agent_fingerprint",

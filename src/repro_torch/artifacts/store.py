@@ -39,9 +39,16 @@ def sites_fingerprint(sites: Sequence) -> str:
 def oracle_fingerprint(oracle) -> str:
     """Oracle identity for the store key: type + config hash + legality,
     plus the transport's measurement-conditions fingerprint when one is
-    attached."""
-    transport = getattr(getattr(oracle, "measure_fn", None), "transport",
-                        None)
+    attached.  :class:`~repro_torch.core.protocols.AsyncOracle` is
+    unwrapped."""
+    from repro_torch.core.protocols import AsyncOracle
+
+    transport = None
+    if isinstance(oracle, AsyncOracle):
+        transport, oracle = oracle.transport, oracle.oracle
+    if transport is None:
+        transport = getattr(getattr(oracle, "measure_fn", None),
+                            "transport", None)
     cfg = getattr(oracle, "cfg", None)
     try:
         from repro_torch.configs.neurovec import cfg_to_dict

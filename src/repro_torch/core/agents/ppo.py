@@ -1,7 +1,12 @@
 """PPO contextual bandit in PyTorch (paper §2.3, §3.3, §4); the port of
-``repro/core/agents/ppo.py`` in its ``discrete`` mode (three masked
-categorical heads over the factor indices, the configuration the paper
-found best).  The continuous ablation modes wait.
+``repro/core/agents/ppo.py``.  The action-space modes of Fig. 6:
+
+* ``discrete`` (default): three masked categorical heads over the factor
+  indices, the configuration the paper found best;
+* ``cont1``: one Gaussian output decoding to a flattened action index;
+* ``cont2``: one Gaussian output per head, each decoded to its index;
+* ``two_agents``: independent categorical heads (the reference computes
+  it as ``discrete``, under its own name).
 
 One episode = one site.  A single network embeds the site (code2vec
 analogue, trained end to end) and emits a joint action.  The parameter
@@ -26,7 +31,8 @@ from repro_torch.core.env import ActionSpace
 from repro_torch.core.protocols import AGENT_STATE_VERSION, check_agent_state
 from repro_torch.device import resolve_device
 
-MODES = ("discrete",)
+MODES = ("discrete", "cont1", "cont2", "two_agents")
+_CONTINUOUS = ("cont1", "cont2")
 
 
 def _tree_map(fn, tree):
@@ -60,11 +66,14 @@ def _mlp(params, x):
     return x
 
 
-def agent_init(gen, nv: NeuroVecConfig, head_sizes, device):
+def agent_init(gen, nv: NeuroVecConfig, head_sizes, device,
+               mode: str = "discrete"):
     hid = list(nv.hidden)
+    n_out = (sum(head_sizes) if mode not in _CONTINUOUS
+             else (2 if mode == "cont1" else 2 * len(head_sizes)))
     return {"embedder": emb.embedder_init(gen, device),
             "trunk": _mlp_init(gen, [emb.EMBED_DIM] + hid, device),
-            "pi": _mlp_init(gen, [hid[-1], sum(head_sizes)], device),
+            "pi": _mlp_init(gen, [hid[-1], n_out], device),
             "vf": _mlp_init(gen, [hid[-1], 1], device)}
 
 
@@ -81,11 +90,16 @@ def _head_logits(head_sizes, out, valid_sizes):
     return logits
 
 
-def policy_forward(params, head_sizes, contexts, mask, valid_sizes):
+def policy_forward(params, head_sizes, contexts, mask, valid_sizes,
+                   mode: str = "discrete"):
+    """-> (per-head logits, value), or for a continuous mode ((B, 2n)
+    Gaussian parameters ``[mu, logstd]``, value)."""
     code = emb.embed_sites(params["embedder"], contexts, mask)
     h = torch.tanh(_mlp(params["trunk"], code))
     out = _mlp(params["pi"], h)
     v = _mlp(params["vf"], h)[:, 0]
+    if mode in _CONTINUOUS:
+        return out, v
     return _head_logits(head_sizes, out, valid_sizes), v
 
 
@@ -97,6 +111,76 @@ def _logp_ent(logits_list, actions):
         p = lp.exp()
         ent = ent - (p * torch.where(p > 0, lp, torch.zeros_like(lp))).sum(-1)
     return logps, ent
+
+
+# continuous helpers (Fig. 6 ablations) -------------------------------------
+
+def _n_cont(mode: str, n_heads: int = 3) -> int:
+    return 1 if mode == "cont1" else n_heads
+
+
+def _cont_decode(raw, valid_sizes, mode):
+    """Map continuous samples in R to (B, 3) action indices: the sigmoid
+    of each output cut into as many equal bins as there are indices."""
+    if mode == "cont1":
+        u = torch.sigmoid(raw[:, 0])
+        n_flat = (valid_sizes[:, 0] * valid_sizes[:, 1]
+                  * valid_sizes[:, 2]).to(torch.float32)
+        flat = torch.minimum((u * n_flat).to(torch.int32),
+                             (n_flat - 1).to(torch.int32))
+        s1 = valid_sizes[:, 1] * valid_sizes[:, 2]
+        a0 = torch.div(flat, s1, rounding_mode="floor")
+        a1 = torch.div(flat, valid_sizes[:, 2], rounding_mode="floor") \
+            % valid_sizes[:, 1]
+        a2 = flat % valid_sizes[:, 2]
+        return torch.stack([a0, a1, a2], -1).long()
+    u = torch.sigmoid(raw)                                    # (B, 3)
+    return torch.minimum((u * valid_sizes).to(torch.int32),
+                         valid_sizes - 1).long()
+
+
+def _gauss(out, n):
+    return out[:, :n], torch.clamp(out[:, n:], -3.0, 1.0)
+
+
+def sample_continuous(out, valid_sizes, mode, eps):
+    """Draw ``raw = mu + exp(logstd) * eps`` for a given standard normal
+    ``eps`` (the agent draws it from its own generator): (raw, logp,
+    entropy)."""
+    mu, logstd = _gauss(out, _n_cont(mode, valid_sizes.shape[1]))
+    raw = mu + torch.exp(logstd) * eps
+    logp = (-0.5 * (eps ** 2) - logstd
+            - 0.5 * math.log(2 * math.pi)).sum(-1)
+    ent = (logstd + 0.5 * math.log(2 * math.pi * math.e)).sum(-1)
+    return raw, logp, ent
+
+
+def logp_continuous(out, raw, mode, n_heads):
+    mu, logstd = _gauss(out, _n_cont(mode, n_heads))
+    z = (raw - mu) / torch.exp(logstd)
+    logp = (-0.5 * (z ** 2) - logstd - 0.5 * math.log(2 * math.pi)).sum(-1)
+    ent = (logstd + 0.5 * math.log(2 * math.pi * math.e)).sum(-1)
+    return logp, ent
+
+
+def _bin_logits(n: int) -> np.ndarray:
+    """(n,) raw values of the bin centres of ``n`` indices: the decode's
+    inverse, ``logit((a + 0.5) / n)``."""
+    u = (np.arange(n, dtype=np.float64) + 0.5) / n
+    return np.log(u) - np.log1p(-u)
+
+
+def _cont_joint_logdensity(mu, logstd, sizes, mode) -> np.ndarray:
+    """One row's Gaussian log-density (up to a constant) at the bin centre
+    of every flat action, in ``cost_grid`` order."""
+    std = np.exp(logstd)
+    if mode == "cont1":
+        z = (_bin_logits(int(np.prod(sizes))) - mu[0]) / std[0]
+        return -0.5 * z ** 2 - logstd[0]
+    parts = [-0.5 * ((_bin_logits(n) - mu[h]) / std[h]) ** 2 - logstd[h]
+             for h, n in enumerate(sizes)]
+    return (parts[0][:, None, None] + parts[1][None, :, None]
+            + parts[2][None, None, :]).reshape(-1)
 
 
 @dataclass
@@ -111,18 +195,21 @@ class PPOAgent:
 
     def __post_init__(self):
         if self.mode not in MODES:
-            raise NotImplementedError(f"PPO mode {self.mode!r} is not ported "
-                                      f"yet (ported: {MODES})")
+            raise ValueError(f"unknown PPO mode {self.mode!r} (modes: "
+                             f"{MODES})")
         self._dev = resolve_device(self.device)
         self.space = ActionSpace(self.nv)
         self.head_sizes = self.space.head_sizes
         init_gen = torch.Generator(device=self._dev).manual_seed(self.seed)
         self.params = agent_init(init_gen, self.nv, self.head_sizes,
-                                 self._dev)
+                                 self._dev, self.mode)
         self.opt = self._adam_init(self.params)
         self._lr = self.lr if self.lr is not None else self.nv.lr
         self._gen = torch.Generator(device=self._dev).manual_seed(
             self.seed + 777)
+        # the reference's sampling key, kept for its loader only (the port
+        # samples from self._gen): a loaded state's, else one from the seed
+        self._rng_key = np.array([0, (self.seed + 777) % 2 ** 32], np.uint32)
         self.history: List[dict] = []
         self.last_minibatch_count = 0
 
@@ -155,16 +242,33 @@ class PPOAgent:
                 torch.as_tensor(vs, device=self._dev))
 
     # -- acting -----------------------------------------------------------
+    @property
+    def continuous(self) -> bool:
+        return self.mode in _CONTINUOUS
+
+    def _forward(self, ctx, mask, vs):
+        return policy_forward(self.params, self.head_sizes, ctx, mask, vs,
+                              self.mode)
+
     @torch.no_grad()
     def sample_actions(self, sites, feats=None):
-        """Stochastic draw: (actions, raw, logp, value) as numpy arrays."""
+        """Stochastic draw: (actions, raw, logp, value) as numpy arrays;
+        ``raw`` is the continuous sample (the actions as floats in the
+        categorical modes)."""
         ctx, mask, vs = feats if feats is not None else self.feats(sites)
-        logits, v = policy_forward(self.params, self.head_sizes, ctx, mask,
-                                   vs)
+        out, v = self._forward(ctx, mask, vs)
+        if self.continuous:
+            n = _n_cont(self.mode, len(self.head_sizes))
+            eps = torch.randn((out.shape[0], n), generator=self._gen,
+                              device=self._dev)
+            raw, logp, _ = sample_continuous(out, vs, self.mode, eps)
+            a = _cont_decode(raw, vs, self.mode).cpu().numpy()
+            return (a, raw.cpu().numpy(), logp.cpu().numpy(),
+                    v.cpu().numpy())
         acts = torch.stack([torch.multinomial(torch.softmax(lg, -1), 1,
                                               generator=self._gen)[:, 0]
-                            for lg in logits], -1)
-        logp, _ = _logp_ent(logits, acts)
+                            for lg in out], -1)
+        logp, _ = _logp_ent(out, acts)
         a = acts.cpu().numpy()
         return a, a.astype(np.float32), logp.cpu().numpy(), v.cpu().numpy()
 
@@ -174,30 +278,92 @@ class PPOAgent:
         """(n, 3) action indices; ``sample=False`` is greedy deployment.
 
         ``legal`` ((n, A) bool over flat actions, laid out as
-        ``CostModelEnv.cost_grid``) restricts the greedy pick to the most
-        probable legal joint action; with every action legal that is the
-        per-head argmax."""
+        ``CostModelEnv.cost_grid``) restricts the greedy pick to legal
+        actions; a row with none raises ``ValueError``.  In the
+        categorical modes the pick is the most probable legal joint
+        action, which with every action legal is the per-head argmax.  In
+        ``cont1``/``cont2`` it is the decode of the mean when that is
+        legal; otherwise the legal flat action whose bin centre, mapped
+        back to raw space through the decode's inverse (``logit((a +
+        0.5) / n)`` per head), has the highest Gaussian log-density under
+        ``(mu, exp(logstd))``, the first such on ties.  So with every
+        action legal the pick is the reference's greedy decode."""
         if sample:
             return self.sample_actions(sites, feats=feats)[0]
+        return self._greedy(sites, feats, legal)
+
+    @torch.no_grad()
+    def _greedy(self, sites, feats, legal) -> np.ndarray:
         ctx, mask, vs = feats if feats is not None else self.feats(sites)
-        logits, _ = policy_forward(self.params, self.head_sizes, ctx, mask,
-                                   vs)
+        out, _ = self._forward(ctx, mask, vs)
+        keys = [s.key() for s in sites]
+        if self.continuous:
+            n = _n_cont(self.mode, len(self.head_sizes))
+            greedy = _cont_decode(out[:, :n], vs, self.mode).cpu().numpy()
+            if legal is None:
+                return greedy
+            mu, logstd = (t.double().cpu().numpy() for t in _gauss(out, n))
+            return self._masked_continuous(greedy, mu, logstd,
+                                           vs.cpu().numpy(), legal, keys)
         if legal is None:
-            return torch.stack([lg.argmax(-1) for lg in logits],
+            return torch.stack([lg.argmax(-1) for lg in out],
                                -1).cpu().numpy()
+        return self._masked_categorical(
+            [torch.log_softmax(lg, -1).cpu().numpy() for lg in out],
+            vs.cpu().numpy(), legal, keys)
+
+    @staticmethod
+    def _masked_categorical(lp, vs, legal, keys) -> np.ndarray:
         legal = np.asarray(legal, bool)
-        lp = [torch.log_softmax(lg, -1).cpu().numpy() for lg in logits]
-        out = np.empty((len(sites), 3), np.int64)
-        for i, s in enumerate(sites):
-            s0, s1, s2 = self.space.valid_sizes(s.kind)
+        out = np.empty((len(keys), 3), np.int64)
+        for i, key in enumerate(keys):
+            s0, s1, s2 = (int(x) for x in vs[i])
             joint = (lp[0][i, :s0, None, None] + lp[1][i, None, :s1, None]
                      + lp[2][i, None, None, :s2]).reshape(-1)
             ok = legal[i, :joint.size]
             if not ok.any():
-                raise ValueError(f"no legal action for site {s.key()}")
+                raise ValueError(f"no legal action for site {key}")
             flat = int(np.argmax(np.where(ok, joint, -np.inf)))
-            out[i] = self.space.unflatten(s.kind, flat)
+            out[i] = (flat // (s1 * s2), (flat // s2) % s1, flat % s2)
         return out
+
+    def _masked_continuous(self, greedy, mu, logstd, vs, legal,
+                           keys) -> np.ndarray:
+        legal = np.asarray(legal, bool)
+        out = greedy.astype(np.int64)
+        for i, key in enumerate(keys):
+            sizes = tuple(int(x) for x in vs[i])
+            s0, s1, s2 = sizes
+            ok = legal[i, :s0 * s1 * s2]
+            if not ok.any():
+                raise ValueError(f"no legal action for site {key}")
+            a = out[i]
+            if ok[(a[0] * s1 + a[1]) * s2 + a[2]]:
+                continue
+            dens = _cont_joint_logdensity(mu[i], logstd[i], sizes, self.mode)
+            flat = int(np.argmax(np.where(ok, dens, -np.inf)))
+            out[i] = (flat // (s1 * s2), (flat // s2) % s1, flat % s2)
+        return out
+
+    def act_bucketed(self, sites, *, bucket: Optional[int] = None,
+                     feats=None, legal=None) -> np.ndarray:
+        """Greedy :meth:`act` with the batch padded to ``bucket`` rows by
+        repeating row 0 (``legal`` likewise), for the serving batcher;
+        returns the first ``n`` rows.  The forward is row-independent, so
+        a row's action is :meth:`act`'s (a different batch size may take
+        another matmul algorithm, so a logit may differ in its last bits
+        and flip a near-tie)."""
+        n = len(sites)
+        ctx, mask, vs = feats if feats is not None else self.feats(sites)
+        if bucket is not None and bucket > n and n:
+            pad = bucket - n
+            ctx, mask, vs = (torch.cat([t, t[:1].expand(pad, *t.shape[1:])])
+                             for t in (ctx, mask, vs))
+            sites = list(sites) + [sites[0]] * pad
+            if legal is not None:
+                legal = np.asarray(legal, bool)
+                legal = np.concatenate([legal, np.repeat(legal[:1], pad, 0)])
+        return self._greedy(sites, (ctx, mask, vs), legal)[:n]
 
     @torch.no_grad()
     def code_vectors(self, sites) -> np.ndarray:
@@ -208,10 +374,13 @@ class PPOAgent:
                                mask).cpu().numpy()
 
     # -- PPO update ---------------------------------------------------------
-    def _loss(self, ctx, mask, vs, actions, old_logp, rewards):
-        logits, v = policy_forward(self.params, self.head_sizes, ctx, mask,
-                                   vs)
-        logp, ent = _logp_ent(logits, actions)
+    def _loss(self, ctx, mask, vs, actions, raw, old_logp, rewards):
+        out, v = self._forward(ctx, mask, vs)
+        if self.continuous:
+            logp, ent = logp_continuous(out, raw, self.mode,
+                                        len(self.head_sizes))
+        else:
+            logp, ent = _logp_ent(out, actions)
         adv = rewards - v.detach()
         adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-6)
         ratio = torch.exp(logp - old_logp)
@@ -238,6 +407,7 @@ class PPOAgent:
         ctx, mask, vs = feats if feats is not None else self.feats(sites)
         dev = self._dev
         data = (ctx, mask, vs, torch.as_tensor(actions, device=dev).long(),
+                torch.as_tensor(raw, dtype=torch.float32, device=dev),
                 torch.as_tensor(old_logp, device=dev),
                 torch.as_tensor(rewards, dtype=torch.float32, device=dev))
         n = len(sites)
@@ -281,19 +451,22 @@ class PPOAgent:
 
     # -- persistence ----------------------------------------------------------
     def state_dict(self) -> dict:
-        """Params, Adam state and lr in the reference's layout (numpy)."""
+        """Params, Adam state, lr and mode in the reference's layout
+        (numpy), with an ``rng_key`` so that the reference loads it."""
         to_np = lambda t: t.detach().cpu().numpy()
         return {"version": AGENT_STATE_VERSION, "name": self.name,
                 "mode": self.mode, "lr": float(self._lr),
                 "params": _tree_map(to_np, self.params),
-                "opt": _tree_map(to_np, self.opt)}
+                "opt": _tree_map(to_np, self.opt),
+                "rng_key": self._rng_key.copy()}
 
     def load_state(self, state: dict, seed: Optional[int] = None
                    ) -> "PPOAgent":
         """Load a ``state_dict`` of this package or of the JAX package
         (leaves as numpy arrays).  Params and opt are taken verbatim; the
         reference's ``rng_key`` cannot drive a ``torch.Generator``, so the
-        sampling stream is re-seeded from ``seed`` (default: the agent's)."""
+        sampling stream is re-seeded from ``seed`` (default: the agent's);
+        the key is kept, and :meth:`state_dict` writes it back."""
         check_agent_state(state, self.name)
         if state["mode"] != self.mode:
             raise ValueError(f"state was trained in mode {state['mode']!r}; "
@@ -315,5 +488,7 @@ class PPOAgent:
                                       dtype=torch.int32)}
         self._gen = torch.Generator(device=self._dev).manual_seed(
             (self.seed if seed is None else seed) + 777)
+        if "rng_key" in state:
+            self._rng_key = np.array(state["rng_key"], np.uint32)
         self._lr = float(state["lr"])
         return self

@@ -4,8 +4,9 @@ protocol of a reward source, agent-state versioning for
 ``Agent.load_state`` implementations, the :class:`MeasureTransport`
 contract of how measurements execute, and :func:`resolve_health`.  All
 three protocols are ``runtime_checkable``: ``isinstance`` checks that the
-members are present, not their signatures.  The ``AsyncOracle`` adapter is
-not ported yet."""
+members are present, not their signatures.  :class:`AsyncOracle` puts an
+oracle and its transport behind one handle, as the tuning service's
+sessions hold them."""
 from __future__ import annotations
 
 from typing import Protocol, Sequence, runtime_checkable
@@ -163,3 +164,81 @@ def resolve_health(oracle, transport=None) -> str:
     if t_h == "down" and getattr(oracle, "can_degrade", False):
         return "degraded"
     return t_h
+
+
+class AsyncOracle:
+    """A synchronous :class:`Oracle` and its :class:`MeasureTransport`
+    behind one handle: the adapter the tuning service's sessions talk to.
+
+    The Oracle surface delegates to ``oracle`` (so ``isinstance(x,
+    Oracle)`` holds and agents train against it unchanged), and so does
+    ``legality`` (the launch rule the oracle prices tiles under, which the
+    legal mask of a tune and the serving route read); the asynchronous
+    surface exposes the transport underneath: :meth:`submit_tiles` returns
+    raw futures for callers that overlap measurement with other work, and
+    :meth:`drain`/:meth:`close` manage its lifecycle.  ``transport=None``
+    adapts a purely synchronous oracle (the analytic ``CostModelEnv``);
+    closing never closes a transport the adapter did not receive."""
+
+    def __init__(self, oracle: Oracle, transport=None):
+        self.oracle = oracle
+        self.transport = transport
+
+    # -- Oracle delegation ---------------------------------------------------
+    @property
+    def cfg(self):
+        return self.oracle.cfg
+
+    @property
+    def space(self):
+        return self.oracle.space
+
+    @property
+    def legality(self):
+        return getattr(self.oracle, "legality", None)
+
+    def baseline_costs(self, sites: Sequence) -> np.ndarray:
+        return self.oracle.baseline_costs(sites)
+
+    def costs_batch(self, sites: Sequence, actions) -> np.ndarray:
+        return self.oracle.costs_batch(sites, actions)
+
+    def rewards_batch(self, sites: Sequence, actions) -> np.ndarray:
+        return self.oracle.rewards_batch(sites, actions)
+
+    def speedups_batch(self, sites: Sequence, actions) -> np.ndarray:
+        return self.oracle.speedups_batch(sites, actions)
+
+    def cost_grid(self, sites: Sequence) -> np.ndarray:
+        return self.oracle.cost_grid(sites)
+
+    def tiles_costs(self, sites: Sequence, tiles) -> np.ndarray:
+        return self.oracle.tiles_costs(sites, tiles)
+
+    # -- async surface -------------------------------------------------------
+    def submit_tiles(self, sites: Sequence, tiles) -> Sequence:
+        """Futures of raw seconds per explicit ``(site, tiles)`` pair: the
+        overlap path (submit, do other work, ``drain()``, collect)."""
+        if self.transport is None:
+            raise RuntimeError("AsyncOracle has no transport "
+                               "(synchronous oracle): use tiles_costs")
+        return self.transport.submit(sites, tiles)
+
+    def drain(self) -> None:
+        if self.transport is not None:
+            self.transport.drain()
+
+    def close(self) -> None:
+        if self.transport is not None:
+            self.transport.close()
+
+    def health(self) -> str:
+        """``ok | degraded | down`` for this oracle and transport
+        (:func:`resolve_health`)."""
+        return resolve_health(self.oracle, self.transport)
+
+    def __enter__(self) -> "AsyncOracle":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -53,23 +53,31 @@ def tune(sites: List[KernelSite], agent, space: ActionSpace,
     argmax."""
     if not sites:
         return TileProgram()
-    legal = None if env is None else np.isfinite(env.cost_grid(sites))
-    if legal is not None:
-        for s, row in zip(sites, legal):
-            if not row.any():
-                raise ValueError(f"no legal action for site {s.key()}")
+    legal = None if env is None else legal_mask(sites, env)
     actions = np.asarray(agent.act(sites, sample=False, legal=legal))
     return TileProgram({s.key(): tuple(int(t) for t in space.tiles(s.kind, a))
                         for s, a in zip(sites, actions)})
 
 
+def legal_mask(sites: List[KernelSite], env) -> np.ndarray:
+    """(n, A) bool: the actions ``env`` prices as legal (a finite cost);
+    ``ValueError`` naming the first site that has none."""
+    legal = np.isfinite(env.cost_grid(sites))
+    for s, row in zip(sites, legal):
+        if not row.any():
+            raise ValueError(f"no legal action for site {s.key()}")
+    return legal
+
+
 def mask_env(oracle):
     """The oracle whose finite prices give :func:`tune` its legal mask: for
     a measuring oracle, the cost model under its config and legality (the
-    same legal set, and the mask times nothing); any other, itself."""
-    if getattr(oracle, "measure_fn", None) is not None and \
-            hasattr(oracle, "legality"):
-        return CostModelEnv(oracle.cfg, legality=oracle.legality)
+    same legal set, and the mask times nothing); any other, itself.  An
+    ``AsyncOracle`` is judged by the oracle it wraps."""
+    inner = getattr(oracle, "oracle", oracle)
+    if getattr(inner, "measure_fn", None) is not None and \
+            hasattr(inner, "legality"):
+        return CostModelEnv(inner.cfg, legality=inner.legality)
     return oracle
 
 

@@ -42,8 +42,17 @@ Warm starts and telemetry: ``--agent-ckpt DIR`` restores a fitted agent
 saved by ``NeuroVectorizer.save`` or ``save_agent`` and skips the fit;
 ``--program-store PATH`` memoizes finished tile programs (a site set seen
 before is a lookup, no agent inference); ``--trace-out`` appends the
-tuning span tree (session, fit, tune, submit/drain) to a JSONL trace and
-``--metrics-out`` writes the metrics registry's final snapshot.
+tuning span tree (session, fit, tune, submit/drain) to a JSONL trace,
+``--metrics-out`` writes the metrics registry's final snapshot and
+``--metrics-port N`` serves the live registry in Prometheus text on
+``http://127.0.0.1:N/metrics`` for the run (0 picks a free port).
+
+``--serving`` tunes through the latency-SLO serving path
+(``repro_torch.service.TuningService(serving=...)``): the tune request is
+admitted to the deadline-aware batch server under ``--slo-ms`` and, for
+brute force over the cost model, runs as one fused device dispatch (one
+CUDA graph replay on the card); it prints the server's latency
+quantiles, shed count, fused dispatches and health.
 
 After one untimed pass, prefill ms is the median of ``PREFILL_REPS``
 timed prefills and decode tokens/s the median of ``DECODE_REPS`` timed
@@ -117,6 +126,13 @@ def parse_args(argv=None):
                     help="tune the serving kernels' tiles with this agent")
     ap.add_argument("--autotune-steps", type=int, default=2000,
                     help="RL budget for --autotune ppo")
+    ap.add_argument("--serving", action="store_true",
+                    help="tune through the latency-SLO serving path "
+                         "(repro_torch.serving): requests are admitted to "
+                         "a deadline-aware batch server and executed as "
+                         "fused device dispatches")
+    ap.add_argument("--slo-ms", type=float, default=100.0,
+                    help="per-request tune SLO budget for --serving")
     ap.add_argument("--tiles", default=None,
                     help="load a saved TileProgram instead of tuning")
     ap.add_argument("--save-tiles", default=None)
@@ -160,6 +176,9 @@ def parse_args(argv=None):
     ap.add_argument("--metrics-out", default=None,
                     help="write the final metrics snapshot to this JSON "
                          "file")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve the live metrics registry in Prometheus "
+                         "text format on this HTTP port (0 = ephemeral)")
     ap.add_argument("--inject", action="store_true",
                     help="run the model through the kernels with the tiles")
     ap.add_argument("--device", default="cuda",
@@ -167,6 +186,15 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.inject and not (args.autotune or args.tiles):
         ap.error("--inject requires a tile plan: pass --autotune or --tiles")
+    if args.serving and (args.tiles or not args.autotune):
+        ap.error("--serving tunes through the batch server: pass "
+                 "--autotune and no --tiles (which loads a finished plan)")
+    if args.serving and args.prune_topk is not None:
+        ap.error("--prune-topk is not supported on the --serving path")
+    if args.serving and args.trace_out:
+        ap.error("--trace-out records the facade span tree; it does not "
+                 "apply to --serving (use --metrics-out for serving_* "
+                 "series)")
     if args.autotune and args.tiles:
         ap.error("pass --autotune or --tiles, not both")
     if args.gen < 1 or args.batch < 1 or args.prompt_len < 1:
@@ -198,6 +226,9 @@ def parse_args(argv=None):
     if args.trace_out and not args.autotune:
         ap.error("--trace-out records the tuning span tree: pass "
                  "--autotune (loading --tiles produces no spans)")
+    if args.metrics_port is not None and not 0 <= args.metrics_port < 65536:
+        ap.error(f"--metrics-port must be in [0, 65536), got "
+                 f"{args.metrics_port}")
     return args
 
 
@@ -234,6 +265,52 @@ def _measured_env(args, device, legality):
     return env
 
 
+def _serving_plan(args, sites, device, legality):
+    """Tune through ``TuningService(serving=...)``: the request is admitted
+    to the deadline-aware batch server under ``--slo-ms`` and, for brute
+    force over the cost model, runs as one fused device dispatch.
+    Returns ``(prog, tuning)``: ``tuning`` holds ``fit_s`` (the fit and
+    the tune), the server's ``serving`` stats, its ``health`` and the
+    session's ``session`` stats."""
+    from repro_torch.service import TuningService
+    svc_kw = {}
+    if args.program_store:
+        svc_kw["program_store"] = args.program_store
+    oracle = "model"
+    if args.measured:
+        oracle = "measured"
+        svc_kw.update(
+            db_path=args.measure_db, transport=args.transport,
+            workers=(args.workers if args.transport == "pool" else None))
+        if args.transport == "socket":
+            svc_kw["hosts"] = args.hosts.split(",")
+        else:
+            svc_kw["reps"] = args.measure_reps
+    with TuningService(DEFAULT, serving={"slo_ms": args.slo_ms},
+                       device=device, legality=legality, **svc_kw) as svc:
+        sess = svc.open_session(agent=args.autotune, oracle=oracle,
+                                agent_ckpt=args.agent_ckpt or None)
+        t0 = time.perf_counter()
+        if not args.agent_ckpt:
+            fit_kw = ({"total_steps": args.autotune_steps}
+                      if args.autotune == "ppo" else {})
+            sess.fit(sites, **fit_kw)
+        prog = sess.tune(sites)            # admitted under the SLO budget
+        tuning = {"fit_s": time.perf_counter() - t0,
+                  "serving": svc.server.stats(),
+                  "health": svc.server.health(), "session": sess.stats()}
+    st = tuning["serving"]
+    # the server reports fused counters only once a fused tuner exists (the
+    # reference's print raises KeyError for any other agent)
+    print(f"[serve] serving: p50 {st['serving_tune_p50_ms']:.2f} ms, "
+          f"p99 {st['serving_tune_p99_ms']:.2f} ms "
+          f"(slo {args.slo_ms:.0f} ms), shed: "
+          f"{st['serving_shed_total']}, fused dispatches: "
+          f"{st.get('serving_fused_dispatches_total', 0)}, "
+          f"health: {tuning['health']}", flush=True)
+    return prog, tuning
+
+
 def _tile_plan(args, sites, device):
     """Tune (or load) a TileProgram for the serving sites.
 
@@ -247,7 +324,9 @@ def _tile_plan(args, sites, device):
     ``stats``, ``health``, ``backend_key``, ``failures``,
     ``breaker_open``, ``pruned_pairs``: the pairs the surrogate priced
     instead, ``picks``: per site the pick, its price, the fastest tile
-    timed and every timed tile's seconds)."""
+    timed and every timed tile's seconds).  Under ``--serving`` the tune
+    goes through the batch server instead (:func:`_serving_plan`, whose
+    ``tuning`` this is)."""
     legality = legality_for(device)
     env, nv = CostModelEnv(DEFAULT, legality=legality), None
     tuning = {"measured": bool(args.measured)}
@@ -257,6 +336,11 @@ def _tile_plan(args, sites, device):
         if missing:
             print(f"[serve] WARNING: the tile plan misses sites that run at "
                   f"baseline tiles: {', '.join(missing)}", file=sys.stderr)
+    elif args.serving:
+        prog, served = _serving_plan(args, sites, device, legality)
+        tuning.update(served)
+        if args.save_tiles:
+            prog.save(args.save_tiles)
     else:
         from repro_torch.api import NeuroVectorizer
         from repro_torch.artifacts import load_agent
@@ -293,7 +377,7 @@ def _tile_plan(args, sites, device):
                   f"{st['misses']} misses, {nv.agent_inferences} agent "
                   f"inferences ({st['entries']} stored programs)")
     sp = program_speedup(prog, sites, env)
-    if args.measured:
+    if args.measured and not args.serving:
         _report_measured(args, env, prog, sites, sp, tuning)
         env.measure_fn.transport.close()    # workers, DB handles
     else:
@@ -540,7 +624,14 @@ def run(args, params=None, prompts=None, frontend_embeds=None,
 
 
 def main(argv=None) -> ServeResult:
-    return run(parse_args(argv))
+    args = parse_args(argv)
+    if args.metrics_port is None:
+        return run(args)
+    from repro_torch.obs import MetricsServer
+    with MetricsServer(port=args.metrics_port) as srv:
+        print(f"[serve] metrics: http://127.0.0.1:{srv.port}/metrics "
+              f"(Prometheus text format)", flush=True)
+        return run(args)
 
 
 if __name__ == "__main__":

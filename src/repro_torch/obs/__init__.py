@@ -6,18 +6,23 @@ tuning stack.
   ``snapshot()`` and Prometheus ``render_prom()``.
 * :mod:`~repro_torch.obs.trace` — JSONL span tracing + ``to_chrome_trace()``.
 * :mod:`~repro_torch.obs.instrument` — wrap the live measured env, its
-  surrogate, its transport (in process, pool or fleet) and DB, and the
-  program store into a registry without behavior change.
+  surrogate, its transport (in process, pool or fleet) and DB, the
+  program store and the batch server into a registry without behavior
+  change.
+* :mod:`~repro_torch.obs.exporter` — :class:`MetricsServer`, the stdlib
+  HTTP endpoint serving a registry's Prometheus text on ``/metrics``.
 
-The facade wires all of this by default into the process-wide registry
-(:func:`get_registry`); tracing is opt-in (``NeuroVectorizer(trace=
-"t.jsonl")``).  The HTTP exporter (``MetricsServer``) is not ported yet.
+The facade and the tuning service wire all of this by default into the
+process-wide registry (:func:`get_registry`); tracing is opt-in
+(``NeuroVectorizer(trace="t.jsonl")``).
 """
+from repro_torch.obs.exporter import MetricsServer
 from repro_torch.obs.instrument import (ObsHandle, instrument_db,
                                         instrument_env, instrument_fleet,
                                         instrument_oracle_stack,
                                         instrument_pool,
                                         instrument_program_store,
+                                        instrument_serving,
                                         instrument_surrogate,
                                         instrument_transport)
 from repro_torch.obs.metrics import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge,
@@ -34,7 +39,7 @@ __all__ = [
     "ObsHandle", "instrument_transport", "instrument_pool",
     "instrument_fleet", "instrument_db", "instrument_env",
     "instrument_surrogate", "instrument_program_store",
-    "instrument_oracle_stack",
+    "instrument_serving", "instrument_oracle_stack", "MetricsServer",
     "resolve_obs",
 ]
 

@@ -2,8 +2,7 @@
 port — no behavior change, by construction; the port of
 ``repro/obs/instrument.py`` for the measured env, its surrogate, its
 transports (in process, the worker pool and the socket fleet) and timing
-DB, and the program store.  The serving instrumentation comes with that
-layer.
+DB, the program store and the batch server.
 
 Every ``instrument_*`` function takes a *live instance* and wraps its
 methods on the instance (never the class: two transports can feed two
@@ -39,7 +38,7 @@ from .trace import NULL_TRACER
 __all__ = ["ObsHandle", "instrument_transport", "instrument_pool",
            "instrument_fleet", "instrument_db", "instrument_env",
            "instrument_surrogate", "instrument_program_store",
-           "instrument_oracle_stack"]
+           "instrument_serving", "instrument_oracle_stack"]
 
 _MARK = "_obs_instrumented"
 
@@ -344,6 +343,74 @@ def instrument_program_store(store, registry: MetricsRegistry
             entries.set(len(store))
         except Exception:
             pass
+    h.add_collector(collect)
+    return h
+
+
+# -- serving ------------------------------------------------------------------
+def instrument_serving(server, registry: MetricsRegistry
+                       ) -> Optional[ObsHandle]:
+    """:class:`~repro_torch.serving.Server`: queue-wait and end-to-end tune
+    latency histograms plus a batch-size histogram via the server's
+    ``request_observer`` seam (the serving analogue of the pool's
+    ``job_observer``), a queue-depth/health gauge collector, and clamped
+    counter mirrors for requests/sheds/deadline-misses/batches and the
+    fused one-dispatch counters."""
+    if server is None or _marked(server, registry):
+        return None
+    h = ObsHandle(registry)
+    qwait = registry.histogram("serving_queue_wait_seconds",
+                               "per-request time in the admission queue")
+    lat = registry.histogram("serving_tune_seconds",
+                             "end-to-end request latency (admit -> result)")
+    bsize = registry.histogram("serving_batch_requests",
+                               "requests coalesced per flushed batch")
+    depth = registry.gauge("serving_queue_depth",
+                           "requests awaiting a batch")
+    health = registry.gauge("serving_health", "0=ok 1=degraded 2=down")
+
+    def observer(event: str, queue_wait_s: float = 0.0,
+                 latency_s: float = 0.0, batch_requests: int = 0,
+                 **_fields) -> None:
+        if event == "complete":
+            qwait.observe(queue_wait_s)
+            lat.observe(latency_s)
+        elif event == "store_hit":
+            lat.observe(latency_s)
+        elif event == "batch":
+            bsize.observe(batch_requests)
+    server.request_observer = observer
+
+    sync = _delta_sync(registry, {
+        "serving_requests_total": "serving_requests_total",
+        "serving_shed_total": "serving_shed_total",
+        "serving_deadline_misses_total": "serving_deadline_misses_total",
+        "serving_batches_total": "serving_batches_total",
+        "serving_store_hits_total": "serving_store_hits_total",
+        "serving_fused_dispatches_total": "serving_fused_dispatches_total",
+        "serving_fused_traces_total": "serving_fused_traces_total",
+    }, server.stats, help_map={
+        "serving_requests_total": "tune requests admitted (incl. warm)",
+        "serving_shed_total": "requests rejected at max_queue depth",
+        "serving_deadline_misses_total":
+            "requests whose SLO budget expired before execution",
+        "serving_batches_total": "batches flushed",
+        "serving_store_hits_total":
+            "requests answered by program lookup at admission",
+        "serving_fused_dispatches_total":
+            "fused cost-grid device dispatches",
+        "serving_fused_traces_total": "fused cost-grid graph captures",
+    })
+
+    def collect() -> None:
+        sync()
+        try:
+            s = server.stats()
+        except Exception:
+            return
+        depth.set(s.get("serving_queue_depth", 0))
+        health.set(_HEALTH_CODE.get(s.get("health", "ok"), 0.0))
+
     h.add_collector(collect)
     return h
 

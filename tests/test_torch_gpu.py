@@ -1318,3 +1318,75 @@ def test_deepseek_under_inject_matches_eager_on_the_card(cuda):
     assert kfa.launches - before[1] == 2
     assert float((lk - le).abs().max() / le.abs().max()) < 5e-2
     assert torch.isfinite(lk_d).all()
+
+
+# ---------------------------------------------------------------------------
+# the serving layer on the card: the fused tuner's graph and the batcher
+# (the card's machine has no JAX: the port's CPU route stands in for the
+# JAX package here)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def corpus_sites():
+    from repro_torch.core import dataset
+    return dataset.arch_sites()
+
+
+@pytest.mark.parametrize("legality", ["h100", "cpu", "tpu_v5e"])
+def test_fused_tuner_on_the_card_matches_its_cpu_route(cuda, corpus_sites,
+                                                       legality):
+    """Over the ten-arch corpus the card's graph picks what the CPU route
+    picks, at the same f32 costs bit for bit (the analytic kernels are
+    IEEE elementwise operations), in one dispatch and one capture."""
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.serving import FusedTuner
+    gpu = FusedTuner(DEFAULT, legality=legality, device="cuda")
+    cpu = FusedTuner(DEFAULT, legality=legality, device="cpu")
+    got, want = gpu._run(corpus_sites), cpu._run(corpus_sites)
+    np.testing.assert_array_equal(got[:, :6], want[:, :6])
+    np.testing.assert_array_equal(got[:, 6], want[:, 6])
+    assert gpu.dispatch_count == 1 and gpu.trace_count == 1
+    gpu.actions(corpus_sites[:70])          # the same bucket: no capture
+    assert gpu.trace_count == 1 and gpu.dispatch_count == 2
+
+
+def test_fused_graph_replay_equals_the_eager_pipeline(cuda, corpus_sites):
+    import torch
+    from repro_torch.configs.neurovec import DEFAULT
+    from repro_torch.serving import FusedTuner, bucket_size
+    from repro_torch.serving.fused import _pack_sites
+    tuner = FusedTuner(DEFAULT, legality="h100", device="cuda")
+    sites = corpus_sites[:40]
+    replayed = tuner._run(sites)
+    packed = torch.from_numpy(_pack_sites(sites, bucket_size(len(sites)),
+                                          "h100")).cuda()
+    eager = tuner._nograd_impl(packed).cpu().numpy()[:len(sites)]
+    np.testing.assert_array_equal(replayed, eager)
+    # a second bucket captures a second graph; both replay correctly
+    again = tuner._run(corpus_sites)
+    assert tuner.trace_count == 2
+    np.testing.assert_array_equal(again[:40], replayed)
+
+
+@pytest.mark.parametrize("mode", ["discrete", "cont1", "cont2",
+                                  "two_agents"])
+def test_agent_batch_ppo_on_the_card_batched_equals_solo(cuda, mode):
+    """AgentBatch's bucketed forward against each request's solo act, on
+    the card, with the legal masks of legality h100 (the bucket's batch
+    size may take another cuBLAS algorithm than a request's alone)."""
+    from repro_torch.configs.neurovec import NeuroVecConfig
+    from repro_torch.core.agents import PPOAgent
+    from repro_torch.core.env import CostModelEnv
+    from repro_torch.core import dataset
+    from repro_torch.serving import AgentBatch
+    nv = NeuroVecConfig(train_batch=64, sgd_minibatch=32, ppo_epochs=2)
+    env = CostModelEnv(nv, legality="h100")
+    sites = [s for s in dataset.generate(80, seed=3)
+             if np.isfinite(env.cost_grid([s])).any()]
+    agent = PPOAgent(nv, mode=mode, device="cuda").fit(sites, env,
+                                                       total_steps=128)
+    reqs = [sites[:5], sites[5:17], sites[17:30]]
+    solo = [agent.act(r, legal=np.isfinite(env.cost_grid(r))) for r in reqs]
+    got = AgentBatch(agent).act_many(reqs, [env] * len(reqs))
+    for a, b in zip(got, solo):
+        np.testing.assert_array_equal(a, b)
