@@ -231,7 +231,24 @@ Phases, each printed before the last line:
      through the server, every tile launchable; MetricsServer scraped on
      127.0.0.1; a measured brute session through AsyncOracle over phase
      6's timing DB, 0 pairs timed and phase 6's program;
- 14. each phase's wall seconds, then the last line:
+ 14. several ranks and the dry-run (after phase 13, before the kernels
+     line): phase 11's depth-2 StableLM-3B (batch 4, seq 512, 5 steps)
+     through the train driver twice, in subprocesses: on its mesh path
+     over a one-rank NCCL group (torchrun's environment set by hand,
+     --model-parallel 1: DTensor state, the step under the sharding
+     hints) and on the plain one-card path; every loss equal within 1e-5
+     relative, finite grad norms, ms a step of each from CUDA events with
+     the DTensor path's host overhead as their difference, and each
+     peak (torch.cuda.max_memory_allocated); the dry-run's run_cell at
+     that config on a one-rank fake mesh, its argument bytes equal to the
+     state's bytes on the card plus the int32 batch, its peak beside the
+     card's; run_cell for qwen3_8b train_4k and deepseek_v2_236b
+     decode_32k on the fake 16x16 mesh (traced on the CPU in two
+     subprocesses while the card trains), each with its per-device peak
+     against an H100's 80 GB, flops, collective MiB by kind and trace
+     seconds (counts on fake tensors); compressed_psum on a one-rank NCCL
+     mesh equal to its input's int8 round trip;
+ 15. each phase's wall seconds, then the last line:
      {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
@@ -3851,6 +3868,207 @@ def serving_sessions(corpus, qsites, sl_sites, sl_db, brute_measured):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: several ranks and the dry-run
+# ---------------------------------------------------------------------------
+
+DIST_RTOL = 1e-5            # the mesh path's losses vs the plain path's
+PRODUCTION_CELLS = (("qwen3_8b", "train_4k"), ("deepseek_v2_236b",
+                                               "decode_32k"))
+H100_BYTES = 80e9           # an H100's device memory (80 GB)
+
+_TRAIN_RUN = r"""
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+import torch
+from repro_torch.configs import get_config
+from repro_torch.launch import train
+from repro_torch.optim.adamw import _leaves
+cfg = dataclasses.replace(get_config("stablelm_3b"), n_layers=int(sys.argv[1]))
+res = train.run(train.parse_args(sys.argv[2:]), cfg=cfg)
+state_bytes = sum(
+    (t.to_local() if type(t).__name__ == "DTensor" else t).nbytes
+    for t in _leaves(res.state))
+print("RESULT " + json.dumps({
+    "losses": res.losses, "grad_norms": res.grad_norms,
+    "fwd_bwd_ms": res.fwd_bwd_ms, "optimizer_ms": res.optimizer_ms,
+    "peak_bytes": res.peak_bytes, "state_bytes": state_bytes,
+    "mesh": None if res.mesh is None else list(res.mesh.mesh_dim_names)}))
+"""
+
+_CELL_RUN = r"""
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch.launch.dryrun import run_cell
+print("RESULT " + json.dumps(run_cell(sys.argv[1], sys.argv[2], False)))
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def _result(proc_out: str, label: str) -> dict:
+    for ln in proc_out.splitlines():
+        if ln.startswith("RESULT "):
+            return json.loads(ln[len("RESULT "):])
+    fail(f"{label}: no result")
+
+
+def _train_subprocess(mesh: bool) -> dict:
+    """Phase 11's depth-2 StableLM-3B, 5 steps, through the driver's mesh
+    path on a one-rank NCCL group (torchrun's environment, set by hand)
+    or through the plain one-card path."""
+    env = dict(os.environ)
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    argv = _train_argv("--steps", "5")
+    if mesh:
+        env.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+        argv += ["--model-parallel", "1"]
+    r = subprocess.run([sys.executable, "-c", _TRAIN_RUN,
+                        str(RESTART_LAYERS), *argv], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    label = "mesh" if mesh else "plain"
+    if r.returncode != 0:
+        fail(f"distribution: the {label} train run failed:\n"
+             f"{r.stderr[-3000:]}")
+    return _result(r.stdout, f"distribution {label} train")
+
+
+def distribution_phase() -> dict:
+    """Phase 14: the train driver's mesh path against the plain path on
+    the card, the dry-run's memory count against the card's, two
+    production cells on the fake 16x16 mesh, and ``compressed_psum`` on
+    a one-rank NCCL mesh."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_cell
+    # the production cells trace on the CPU while the card trains
+    cells = {(a, s): subprocess.Popen(
+        [sys.executable, "-c", _CELL_RUN, a, s], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a, s in PRODUCTION_CELLS}
+    out = {}
+    try:
+        runs = {"plain": _train_subprocess(False),
+                "mesh": _train_subprocess(True)}
+        plain, mesh = runs["plain"], runs["mesh"]
+        if mesh["mesh"] != ["data", "model"] or plain["mesh"] is not None:
+            fail(f"distribution: paths {mesh['mesh']} / {plain['mesh']}")
+        for a, b in zip(mesh["losses"], plain["losses"]):
+            if not abs(a - b) <= DIST_RTOL * abs(b):
+                fail(f"distribution: mesh losses {mesh['losses']} vs "
+                     f"plain {plain['losses']}")
+        if not all(math.isfinite(g) for r in runs.values()
+                   for g in r["grad_norms"]):
+            fail("distribution: a grad norm is not finite")
+        ms = {k: r["fwd_bwd_ms"] + r["optimizer_ms"] for k, r in runs.items()}
+        print(f"[dist] StableLM-3B full width, depth {RESTART_LAYERS}, batch "
+              f"{BATCH}, seq {PROMPT}, 5 steps: losses mesh "
+              f"{[round(x, 6) for x in mesh['losses']]} plain "
+              f"{[round(x, 6) for x in plain['losses']]} (rtol "
+              f"{DIST_RTOL}); ms a step (CUDA events, median after the "
+              f"first) mesh {ms['mesh']:.2f} (fwd+bwd "
+              f"{mesh['fwd_bwd_ms']:.2f}, optimizer "
+              f"{mesh['optimizer_ms']:.2f}) plain {ms['plain']:.2f} (fwd+bwd "
+              f"{plain['fwd_bwd_ms']:.2f}, optimizer "
+              f"{plain['optimizer_ms']:.2f}); DTensor host overhead "
+              f"{ms['mesh'] - ms['plain']:.2f} ms a step; peak "
+              f"(torch.cuda.max_memory_allocated) mesh "
+              f"{mesh['peak_bytes'] / 2**30:.3f} GiB plain "
+              f"{plain['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+        out["train"] = {"ms_mesh": ms["mesh"], "ms_plain": ms["plain"],
+                        "overhead_ms": ms["mesh"] - ms["plain"],
+                        "losses_mesh": mesh["losses"],
+                        "losses_plain": plain["losses"],
+                        "peak_mesh": mesh["peak_bytes"],
+                        "peak_plain": plain["peak_bytes"]}
+
+        # the dry-run's count at the same config, a one-rank fake mesh
+        shape = ShapeConfig("train_card", PROMPT, BATCH, "train")
+        cell = run_cell(STABLELM, shape.name, False, accum=1,
+                        mesh_shape=(1, 1), cfg=_cut_depth(RESTART_LAYERS),
+                        shape=shape)
+        batch_bytes = 2 * BATCH * PROMPT * 4    # int32 tokens, targets
+        arg = cell["memory"]["argument_bytes"]
+        if arg != plain["state_bytes"] + batch_bytes or \
+                plain["state_bytes"] != mesh["state_bytes"]:
+            fail(f"distribution: dry-run argument bytes {arg} vs the card's "
+                 f"state {plain['state_bytes']} (mesh "
+                 f"{mesh['state_bytes']}) + batch {batch_bytes}")
+        peak = cell["memory"]["peak_bytes"]
+        print(f"[dist] dry-run on a 1x1 fake mesh: argument bytes {arg} = "
+              f"the card's state {plain['state_bytes']} + the int32 batch "
+              f"{batch_bytes}; peak {peak / 2**30:.3f} GiB (a count on fake "
+              f"tensors) vs the card's {plain['peak_bytes'] / 2**30:.3f} "
+              f"GiB, ratio {peak / plain['peak_bytes']:.3f}; trace "
+              f"{cell['lower_s']:.1f} s", flush=True)
+        out["dryrun_1x1"] = {"argument_bytes": arg,
+                             "state_bytes": plain["state_bytes"],
+                             "peak_bytes": peak,
+                             "card_peak_bytes": plain["peak_bytes"],
+                             "lower_s": cell["lower_s"]}
+
+        # the production cells (counts on fake tensors, per device)
+        out["production"] = {}
+        for (a, s), proc in cells.items():
+            stdout, stderr = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                fail(f"distribution: dry-run {a} {s} failed:\n"
+                     f"{stderr[-3000:]}")
+            res = _result(stdout, f"dry-run {a} {s}")
+            if res["status"] != "ok":
+                fail(f"distribution: dry-run {a} {s}: {res}")
+            pk = res["memory"]["peak_bytes"]
+            coll = {k: round(v / 2**20, 1)
+                    for k, v in res["collectives"].items()}
+            print(f"[dist] dry-run 16x16 {a} {s}: per device peak "
+                  f"{pk / 2**30:.2f} GiB ({pk / H100_BYTES * 100:.1f}% of an "
+                  f"H100's 80 GB), argument {res['memory']['argument_bytes'] / 2**30:.2f} "
+                  f"GiB, flops {res['flops']:.4g}, collectives MiB {coll}, "
+                  f"trace {res['lower_s']:.1f} s (counts on fake tensors)",
+                  flush=True)
+            out["production"][f"{a} {s}"] = {
+                "peak_bytes": pk, "flops": res["flops"],
+                "collectives": res["collectives"],
+                "argument_bytes": res["memory"]["argument_bytes"],
+                "lower_s": res["lower_s"]}
+    finally:
+        for proc in cells.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    # compressed_psum on a one-rank NCCL mesh: the int8 round trip
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import compressed_psum
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh1 = make_local_mesh(1, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"distribution: backend {dist.get_backend()}")
+        x = torch.randn((4096, 1024), generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        got = compressed_psum(x, mesh1)
+        scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+        want = torch.clamp(torch.round(x / scale), -127, 127) * scale
+        err = float((got - want).abs().max())
+        if not err <= 1e-6:
+            fail(f"distribution: compressed_psum off by {err}")
+    finally:
+        dist.destroy_process_group()
+    print(f"[dist] compressed_psum on a one-rank NCCL mesh: max |psum - int8 "
+          f"round trip| {err:.3g} over {x.numel()} elements", flush=True)
+    out["compressed_psum_err"] = err
+    return out
+
+
 def serving_phase(q_eager, k1_done, k2_done, gen, sl):
     """Phase 13: the service and serving layer.  Returns ``(counts,
     summary)``: the launches of the --serving --inject serve, and every
@@ -4136,6 +4354,11 @@ def main() -> int:
     print("[serving] summary " + json.dumps(serving, default=str),
           flush=True)
     phase_done("13 service and serving")
+
+    # ---- phase 14: several ranks and the dry-run ----
+    dist_out = distribution_phase()
+    print("[dist] summary " + json.dumps(dist_out, default=str), flush=True)
+    phase_done("14 distribution")
     print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}

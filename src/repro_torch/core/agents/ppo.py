@@ -422,15 +422,18 @@ class PPOAgent:
 
     # -- Agent protocol -----------------------------------------------------
     def fit(self, sites, oracle, *, total_steps: Optional[int] = None,
-            batch: Optional[int] = None, rng_seed: int = 0) -> "PPOAgent":
-        """Train against ``oracle``; default budget 10 training batches."""
+            batch: Optional[int] = None, log_every: int = 1,
+            rng_seed: int = 0) -> "PPOAgent":
+        """Train against ``oracle``; default budget 10 training batches.
+        ``log_every`` is accepted and unused, as in the reference."""
         self.train(sites, oracle,
                    total_steps=total_steps or 10 * self.nv.train_batch,
-                   batch=batch, rng_seed=rng_seed)
+                   batch=batch, log_every=log_every, rng_seed=rng_seed)
         return self
 
     def train(self, sites, env, total_steps: int,
-              batch: Optional[int] = None, rng_seed: int = 0):
+              batch: Optional[int] = None, log_every: int = 1,
+              rng_seed: int = 0):
         batch = batch or self.nv.train_batch
         rng = np.random.default_rng(rng_seed)
         steps = 0

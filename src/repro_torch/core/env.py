@@ -131,6 +131,9 @@ class CostModelEnv:
                 self._baseline_cache[keys[i]] = float(c)
         return np.array([self._baseline_cache[k] for k in keys], np.float64)
 
+    def clear_baseline_cache(self) -> None:
+        self._baseline_cache.clear()
+
     # -- the paper's eq. 2 --
     def reward(self, site: KernelSite, action: Sequence[int]) -> float:
         t = self.cost(site, action)
@@ -220,8 +223,8 @@ class MeasuredEnv(CostModelEnv):
     reach the hook, so they are never written to a timing DB, and
     :meth:`timed_tiles` leaves them out.  ``pruned_pairs`` counts them.
 
-    Circuit breaker: when the hook raises, or ``BREAKER_THRESHOLD``
-    consecutive batches come back with every pair failed, the breaker
+    Circuit breaker: when the hook raises, or ``breaker_threshold``
+    (default 2, at least 1) consecutive batches come back with every pair failed, the breaker
     opens and the oracle prices with the cost model instead of feeding
     all-penalty rewards into training; ``health()`` is ``"degraded"``
     while it is open, and cached failures from the collapse are purged.
@@ -230,15 +233,16 @@ class MeasuredEnv(CostModelEnv):
 
     #: a down transport degrades this oracle rather than stopping tuning
     can_degrade = True
-    #: consecutive all-failed batches that open the breaker (the
-    #: reference's default)
-    BREAKER_THRESHOLD = 2
 
     def __init__(self, nv_cfg: NeuroVecConfig, measure_fn=None,
                  seed: int = 0,
                  legality: str = costmodel.DEFAULT_LEGALITY,
-                 prune_topk: Optional[int] = None, surrogate=None):
+                 prune_topk: Optional[int] = None, surrogate=None, *,
+                 breaker_threshold: int = 2):
         super().__init__(nv_cfg, seed=seed, legality=legality)
+        if breaker_threshold < 1:
+            raise ValueError(
+                f"breaker_threshold must be >= 1, got {breaker_threshold}")
         if prune_topk is not None and prune_topk < 1:
             raise ValueError(f"prune_topk must be >= 1, got {prune_topk}")
         self.measure_fn = measure_fn
@@ -246,6 +250,7 @@ class MeasuredEnv(CostModelEnv):
         self.surrogate = surrogate
         self._allowed_cache: Dict[str, frozenset] = {}
         self._priced: set = set()       # keys priced by the surrogate
+        self.breaker_threshold = breaker_threshold
         self.breaker_open = False
         self.degraded_reason: Optional[str] = None
         self._consec_failed_batches = 0
@@ -380,7 +385,7 @@ class MeasuredEnv(CostModelEnv):
                             # dead backend: degrade
                             self._consec_failed_batches += 1
                             if self._consec_failed_batches \
-                                    >= self.BREAKER_THRESHOLD:
+                                    >= self.breaker_threshold:
                                 self._trip_breaker(
                                     f"{self._consec_failed_batches} "
                                     f"consecutive all-failed "

@@ -1,2 +1,4 @@
-"""What the port has of ``repro/distributed`` on one card: gradient
-compression (:mod:`repro_torch.distributed.compression`)."""
+"""The port of ``repro/distributed``: the sharding rules as DTensor
+placements (:mod:`repro_torch.distributed.sharding`) and gradient
+compression with ``compressed_psum`` (:mod:`repro_torch.distributed.
+compression`)."""

@@ -11,7 +11,21 @@ monitor); the port of ``repro/launch/train.py``.  Runs on the GPU unless
 Training is eager: no kernel has a backward (nor has any Pallas kernel of
 the reference), so ``--tune prog.json`` injects the tile program and the
 first step raises ``NotImplementedError`` (``kernels.ops.refuse_grad``),
-as the reference's does.  One card: ``--model-parallel`` above 1 raises.
+as the reference's does.
+
+Under a process group (``torchrun`` sets ``WORLD_SIZE``), or with
+``--model-parallel`` above 1, it trains on a ``("data", "model")`` mesh
+of the group's ranks (``launch.mesh.make_local_mesh``): the state is
+drawn whole from the seed on every rank, then distributed as DTensors by
+``distributed.sharding.param_specs``, each batch by ``batch_specs``, and
+the step runs under ``compute.sharding_hints``, so a mesh of any shape
+trains the weights one card does.  Checkpoints hold full tensors (rank 0
+writes them), so one written on a mesh resumes on one card and the other
+way round.  ``--tune`` with a mesh raises.  On one card::
+
+  torchrun --standalone --nproc-per-node 1 -m repro_torch.launch.train \\
+      --arch stablelm_3b --full --batch 4 --seq 512 --steps 5
+
 On the card it also prints, before its last line, the median ms
 of a step after the first from CUDA events (forward and backward, and
 the optimizer, apart), tokens/s and the peak of
@@ -20,6 +34,8 @@ the optimizer, apart), tokens/s and the peak of
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import statistics
 from dataclasses import dataclass, field
 from typing import Optional
@@ -52,6 +68,7 @@ class TrainResult:
     fwd_bwd_ms: Optional[float] = None
     optimizer_ms: Optional[float] = None
     peak_bytes: Optional[int] = None     # torch.cuda.max_memory_allocated
+    mesh: Optional[object] = None        # the DeviceMesh of the mesh path
 
 
 def parse_args(argv=None):
@@ -85,15 +102,49 @@ def _median_step_ms(step_ms: list) -> tuple:
             statistics.median(opt for _, opt in rest))
 
 
+def wants_mesh(args) -> bool:
+    """The mesh path: under a process group, or a model axis above 1."""
+    return args.model_parallel > 1 or "WORLD_SIZE" in os.environ
+
+
+def _distribute(tree, specs, mesh):
+    """Each full leaf placed by its spec; every rank holds the same full
+    tensor, so none is sent."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding
+    flat = dict(sharding.flatten_with_path(specs))
+    return sharding.map_with_path(
+        lambda path, t: distribute_tensor(
+            t, mesh, sharding.placements(mesh, flat[path]),
+            src_data_rank=None), tree)
+
+
+def _full_state(state):
+    """A state of full tensors (a collective on a mesh: every rank calls
+    it)."""
+    from repro_torch.distributed import sharding
+    return sharding.map_with_path(
+        lambda _, t: t.full_tensor() if type(t).__name__ == "DTensor"
+        else t, state)
+
+
 def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
     """Train as ``args`` say; ``cfg``, when given, is the model in place
     of the one ``--arch`` and ``--full`` name (a published width at a cut
     depth, say)."""
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the port trains on "
-            f"one card (the reference's mesh and sharding are not ported)")
     device = resolve_device(args.device)
+    mesh, rank = None, 0
+    if wants_mesh(args):
+        if args.tune:
+            raise NotImplementedError(
+                "--tune with a mesh: the tuned kernels have no backward "
+                "and no sharding rule")
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_local_mesh
+        mesh = make_local_mesh(args.model_parallel, device)
+        rank = dist.get_rank()
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     if cfg is None:
         cfg = get_config(args.arch)
         if not args.full:
@@ -114,6 +165,21 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
         if restored is not None:
             start_step = restored
             print(f"[train] resumed from step {restored}")
+    hints = contextlib.nullcontext
+    next_batch = pipe.batch_at
+    if mesh is not None:
+        from repro_torch.distributed import sharding
+        from repro_torch.models.compute import sharding_hints
+        state = _distribute(state, sharding.param_specs(state, mesh), mesh)
+        bspecs = sharding.batch_specs(cfg, shape, mesh)
+        next_batch = lambda step: _distribute(pipe.batch_at(step), bspecs,
+                                              mesh)
+        hints = lambda: sharding_hints(sharding.dp_axes(mesh), "model")
+
+    def save(step, block):
+        full = _full_state(state) if mesh is not None else state
+        if rank == 0:
+            mgr.save(full, step, block=block)
 
     tune_ctx = None
     if args.tune:
@@ -137,9 +203,11 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
     losses, gnorms, aux = [], [], []
     try:
         for step in range(start_step, args.steps):
-            batch = pipe.batch_at(step)
+            batch = next_batch(step)
             monitor.start()
-            state, metrics = step_fn(state, batch, mark if cuda else None)
+            with hints():
+                state, metrics = step_fn(state, batch,
+                                         mark if cuda else None)
             loss = float(metrics["loss"])
             ev = monitor.stop(step)
             losses.append(loss)
@@ -160,11 +228,11 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
                       f"gnorm {gnorms[-1]:.3f} {moe}"
                       f"lr {float(metrics['lr']):.2e}")
             if mgr and ((step + 1) % args.ckpt_every == 0):
-                mgr.save_async(state, step + 1)
+                save(step + 1, block=False)
             if preempt.should_stop:
                 print("[ft] preemption signal — checkpointing and exiting")
                 if mgr:
-                    mgr.save(state, step + 1)
+                    save(step + 1, block=True)
                 break
         if mgr:
             mgr.wait()
@@ -188,7 +256,8 @@ def run(args, cfg: Optional[ModelConfig] = None) -> TrainResult:
           f"{losses[-1]:.4f}")
     return TrainResult(losses=losses, grad_norms=gnorms, state=state,
                        aux=aux, start_step=start_step, step_ms=step_ms,
-                       fwd_bwd_ms=fb, optimizer_ms=opt, peak_bytes=peak)
+                       fwd_bwd_ms=fb, optimizer_ms=opt, peak_bytes=peak,
+                       mesh=mesh)
 
 
 def main(argv=None) -> list:

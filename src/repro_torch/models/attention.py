@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models import compute
 from repro_torch.models.common import (apply_rope, dense_init,
                                        rms_head_norm)
@@ -28,6 +29,11 @@ def attn_init(cfg: ModelConfig, draw, dtype, device, cross: bool = False):
 
 def _split_heads(x, n_heads, hd):
     B, S, _ = x.shape
+    if compute.is_dtensor(x):
+        # features over TP only where whole heads fall on each rank
+        whole = n_heads % compute.tp_size(x) == 0
+        x = compute.constrain(x, lambda dp, tp: P(
+            dp if B > 1 else None, None, tp if whole else None))
     return x.reshape(B, S, n_heads, hd).transpose(1, 2)    # (B,H,S,hd)
 
 

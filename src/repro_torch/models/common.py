@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models import compute
 
 
@@ -124,9 +125,18 @@ def norm_init(d: int, dtype, device, bias: bool = False):
     return p
 
 
+def _rows(x):
+    """``x`` with only its batch dim sharded, under sharding hints."""
+    return compute.constrain(x, lambda dp, tp: P(
+        dp if x.shape[0] > 1 else None, *[None] * (x.ndim - 1)))
+
+
 def apply_norm(p, x):
     """In f32, cast back, as the reference does: LayerNorm (eps 1e-5) when
-    the parameters carry a bias, else RMSNorm (eps 1e-6)."""
+    the parameters carry a bias, else RMSNorm (eps 1e-6).  A DTensor
+    ``x`` has its feature dim gathered first (batch kept over DP), so the
+    statistics are whole rows."""
+    x = _rows(x)
     xf = x.float()
     if "bias" in p:
         mu = xf.mean(-1, keepdim=True)

@@ -52,6 +52,97 @@ def compute_mode(mode: str = "eager", tiles: Optional[dict] = None,
         _STATE = prev
 
 
+# ---------------------------------------------------------------------------
+# Activation-sharding hints.  Model code is mesh-agnostic; the launcher
+# installs logical axis names (a dp tuple, a tp name) and hot activations
+# are redistributed to the builder's spec.  Without hints, or on a plain
+# tensor, every constraint is a no-op.
+# ---------------------------------------------------------------------------
+
+_HINTS: dict = {"active": False, "dp": None, "tp": None, "carry_tp": True}
+
+
+@contextlib.contextmanager
+def sharding_hints(dp, tp, carry_tp: bool = True):
+    prev = dict(_HINTS)
+    _HINTS.update(active=True, dp=dp, tp=tp, carry_tp=carry_tp)
+    try:
+        yield
+    finally:
+        _HINTS.update(prev)
+
+
+def _dtensor_cls():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def is_dtensor(x) -> bool:
+    return _HINTS["active"] and isinstance(x, _dtensor_cls())
+
+
+def hint_placements(x, builder) -> list:
+    """The placements of ``builder(dp, tp)`` on ``x``'s mesh, any axis
+    that does not divide its dim dropped."""
+    from repro_torch.distributed import sharding
+    mesh = x.device_mesh
+    spec = sharding._fit_spec(builder(_HINTS["dp"], _HINTS["tp"]), x.shape,
+                              mesh)
+    return sharding.placements(mesh, spec)
+
+
+def tp_size(x) -> int:
+    """The size of the hints' tp axis on DTensor ``x``'s mesh."""
+    mesh = x.device_mesh
+    return mesh.size(list(mesh.mesh_dim_names).index(_HINTS["tp"]))
+
+
+def sharded_dims(placements, tensor_dim: int) -> list:
+    """The mesh dims whose placement shards ``tensor_dim``."""
+    return [md for md, q in enumerate(placements)
+            if getattr(q, "dim", None) == tensor_dim]
+
+
+def shard_block(mesh, placements, tensor_dim: int) -> tuple:
+    """``(index, count)`` of this rank's block of ``tensor_dim`` over the
+    mesh dims that shard it, in mesh order (``(0, 1)`` where none does)."""
+    i, n = 0, 1
+    for md in sharded_dims(placements, tensor_dim):
+        i = i * mesh.size(md) + mesh.get_local_rank(md)
+        n *= mesh.size(md)
+    return i, n
+
+
+def partial_on(placements, dims) -> list:
+    """``placements`` with the mesh ``dims`` turned ``Partial``: a partial
+    sum's placement, or the gradient of an input that each rank along
+    those dims uses only in part."""
+    from torch.distributed.tensor import Partial
+    return [Partial() if md in dims else q
+            for md, q in enumerate(placements)]
+
+
+def local_rows(table, index, n_rows_before):
+    """``table[index - n_rows_before]`` where the index falls in the
+    table's rows, zero elsewhere: a lookup into one shard of a larger
+    table (the partial sums of a vocab-sharded gather)."""
+    hit = (index >= n_rows_before) & (index < n_rows_before + table.shape[0])
+    rows = table[(index - n_rows_before).clamp(0, table.shape[0] - 1)]
+    hit = hit.reshape(hit.shape + (1,) * (rows.ndim - hit.ndim))
+    return torch.where(hit, rows, torch.zeros((), dtype=rows.dtype,
+                                              device=rows.device))
+
+
+def constrain(x, builder):
+    """``builder(dp, tp) -> PartitionSpec``; ``x`` redistributed to it
+    when hints are active and ``x`` is a DTensor, else ``x`` as it is."""
+    if not is_dtensor(x):
+        return x
+    pl = hint_placements(x, builder)
+    return x if list(x.placements) == pl else x.redistribute(
+        x.device_mesh, pl)
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     """The dtype's name as the JAX package writes it in site keys
     (``torch.bfloat16`` -> ``bfloat16``)."""
@@ -138,17 +229,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ops.flash_attention(q, k, v, causal=causal, scale=scale,
                                    tiles=_tiles_for(st, ksite))
 
+    if is_dtensor(q) and Sq > 1:
+        return _sharded_attention(q, k, v, causal=causal, scale=scale,
+                                  bq=min(q_chunk, Sq), bkv=min(kv_chunk, Skv))
+
     if Sq == 1:
-        group = Hq // Hkv
-        qf = q.reshape(B, Hkv, group, Sq, D)
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k).float() * scale
-        if causal:
-            kpos = torch.arange(Skv, device=q.device)
-            qpos = base_offset + torch.arange(Sq, device=q.device)
-            s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
-        p = torch.softmax(s, dim=-1).to(v.dtype)
-        o = torch.einsum("bhgqk,bhkd->bhgqd", p, v)
-        return o.reshape(B, Hq, Sq, Dv)
+        if is_dtensor(q):
+            return _sharded_decode_attention(q, k, v, causal=causal,
+                                             scale=scale,
+                                             base_offset=base_offset)
+        return _decode_attention(q, k, v, causal=causal, scale=scale,
+                                 base_offset=base_offset)
 
     if Hq != Hkv:
         k = k.repeat_interleave(Hq // Hkv, dim=1)
@@ -158,6 +249,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{site}: chunks must divide Sq={Sq}, Skv={Skv}")
     return _mem_efficient_attention(q, k, v, causal=causal, scale=scale,
                                     bq=q_chunk, bkv=kv_chunk)
+
+
+def _decode_attention(q, k, v, *, causal, scale, base_offset):
+    """One query position against the whole cache (the reference's
+    decode branch): q (B, Hq, 1, D) over GQA groups of k/v (B, Hkv, S, D)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    qf = q.reshape(B, Hkv, Hq // Hkv, Sq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k).float() * scale
+    if causal:
+        kpos = torch.arange(Skv, device=q.device)
+        qpos = base_offset + torch.arange(Sq, device=q.device)
+        s = s.masked_fill(kpos[None, :] > qpos[:, None], float("-inf"))
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v)
+    return o.reshape(B, Hq, Sq, v.shape[-1])
+
+
+def _sharded_decode_attention(q, k, v, *, causal, scale, base_offset):
+    """``_decode_attention`` on DTensors: where whole kv groups fall on
+    each TP rank, on each rank's local heads (``local_map``, the cache's
+    heads over TP as its spec places them); else with the heads
+    replicated, through DTensor's own rules."""
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.distributed.sharding import P
+    B, Hkv = q.shape[0], k.shape[1]
+    whole = Hkv % tp_size(q) == 0
+    hspec = lambda dp, tp: P(dp if B > 1 else None, tp if whole else None,
+                             None, None)
+    q = constrain(q, hspec)
+    if not whole:
+        return _decode_attention(q, k, v, causal=causal, scale=scale,
+                                 base_offset=base_offset)
+    k, v = constrain(k, hspec), constrain(v, hspec)
+    pl = list(q.placements)
+    return local_map(
+        lambda ql, kl, vl: _decode_attention(
+            ql, kl, vl, causal=causal, scale=scale, base_offset=base_offset),
+        out_placements=pl, in_placements=(pl, pl, pl),
+        device_mesh=q.device_mesh)(q, k, v)
+
+
+def _sharded_attention(q, k, v, *, causal, scale, bq, bkv):
+    """Megatron-style TP attention on DTensors, as the reference's hints
+    place it: GQA groups expanded so that heads shard over the tp axis,
+    batch over dp, then :func:`_mem_efficient_attention` on each rank's
+    local heads (``local_map``: the ``Function`` has no sharding rule)."""
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch.distributed.sharding import P
+    B, Hq = q.shape[:2]
+    Hkv = k.shape[1]
+    if q.shape[2] % bq or k.shape[2] % bkv:
+        raise ValueError(f"chunks must divide Sq={q.shape[2]}, "
+                         f"Skv={k.shape[2]}")
+    if Hq != Hkv:
+        # the kv heads replicated over tp, then each repeated ``group``
+        # times in place (repeat_interleave's order) by views
+        rep = lambda dp, tp: P(dp if B > 1 else None, None, None, None)
+        g = Hq // Hkv
+
+        def expand(t):
+            t = constrain(t, rep)
+            return t[:, :, None].expand(B, Hkv, g, *t.shape[2:]).reshape(
+                B, Hq, *t.shape[2:])
+        k, v = expand(k), expand(v)
+    hspec = lambda dp, tp: P(dp if B > 1 else None, tp, None, None)
+    q, k, v = (constrain(t, hspec) for t in (q, k, v))
+    pl = list(q.placements)
+
+    def local(ql, kl, vl):
+        return _mem_efficient_attention(ql, kl, vl, causal=causal,
+                                        scale=scale, bq=bq, bkv=bkv)
+    return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def _mem_efficient_attention(q, k, v, *, causal, scale, bq, bkv):

@@ -32,6 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models import attention, blocks, compute
 from repro_torch.models.common import (WeightDraw, apply_norm, dense_init,
                                        norm_init, torch_dtype)
@@ -141,15 +142,62 @@ def _unstack(tree, n: int) -> list:
 
 
 def _embed(cfg, params, tokens):
-    x = params["embed"][tokens]
+    if compute.is_dtensor(params["embed"]):
+        x = _sharded_lookup(params["embed"], tokens)
+    else:
+        x = params["embed"][tokens]
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+
+
+def _sharded_lookup(emb, tokens):
+    """``emb[tokens]`` for a vocab-sharded DTensor table: each rank looks
+    its batch rows' tokens up in its vocab rows (the table's other axes
+    gathered), a partial sum over the vocab's mesh dims."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = emb.device_mesh
+    if not compute.is_dtensor(tokens):
+        tokens = compute._dtensor_cls().from_local(
+            tokens, mesh, [Replicate()] * mesh.ndim)
+    tpl = list(tokens.placements)
+    v_dims = compute.sharded_dims(emb.placements, 0)
+    epl = [Shard(0) if md in v_dims else Replicate()
+           for md in range(mesh.ndim)]
+    opl = compute.partial_on(
+        [Shard(0) if md in compute.sharded_dims(tpl, 0) else Replicate()
+         for md in range(mesh.ndim)], v_dims)
+    egrad = compute.partial_on(epl, compute.sharded_dims(tpl, 0))
+
+    def lookup(el, tl):
+        v_blk, _ = compute.shard_block(mesh, epl, 0)
+        return compute.local_rows(el, tl, v_blk * el.shape[0])
+    return local_map(lookup, out_placements=opl, in_placements=(epl, tpl),
+                     in_grad_placements=(egrad, tpl), device_mesh=mesh,
+                     redistribute_inputs=True)(emb, tokens)
 
 
 def _logits(cfg, params, x):
     # head.T (or the tied embed.T) is a strided view: K1 reads it in
     # place, no copy per step
     head = params["embed"] if cfg.tie_embeddings else params["head"]
+    if compute.is_dtensor(head):
+        head = _vocab_over_tp(head)
     return compute.matmul(x, head.T, site="lm_head").float()
+
+
+def _vocab_over_tp(head):
+    """The (V, d) head with its vocab sharded over TP, unevenly where TP
+    does not divide V (its parameter spec then leaves V replicated, and a
+    local slice places it), so the logits come out vocab-sharded, as
+    GSPMD pads them."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = head.device_mesh
+    tp = list(mesh.mesh_dim_names).index(compute._HINTS["tp"])
+    if head.placements[tp] != Replicate():
+        return head
+    pl = list(head.placements)
+    pl[tp] = Shard(0)
+    return head.redistribute(mesh, pl)
 
 
 def _depth(stack) -> int:
@@ -186,11 +234,16 @@ def _run_stack(cfg, stack, x, *, positions, causal, caches=None,
     ``{"lb_loss", "router_z"}`` summed in layer order, zero without
     MoE."""
     n = _depth(stack)
-    aux = {"lb_loss": torch.zeros((), device=x.device),
-           "router_z": torch.zeros((), device=x.device)}
+    # new_zeros: a replicated DTensor where x is a DTensor
+    aux = {"lb_loss": x.new_zeros((), dtype=torch.float32),
+           "router_z": x.new_zeros((), dtype=torch.float32)}
     remat = torch.is_grad_enabled() and caches is None
     layers = [_unstack(slot, n) for slot in stack]
     for i in range(n):
+        # pin the carry under sharding hints: batch over DP, d over TP
+        x = compute.constrain(x, lambda dp, tp: P(
+            dp if x.shape[0] > 1 else None, None,
+            tp if compute._HINTS["carry_tp"] else None))
         for slot, b in enumerate(cfg.period):
             cache = mc = None
             if caches is not None:
@@ -251,9 +304,76 @@ def forward(cfg, params, batch, caches=None, decode_pos=None,
 
 
 def _xent(logits, targets):
+    if compute.is_dtensor(logits):
+        return _sharded_xent(logits, targets)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None])[..., 0]
     return (lse - gold).mean()
+
+
+def _sharded_xent(logits, targets):
+    """``_xent`` on DTensors with the vocab sharded over TP, as the
+    reference's hints pin it: each rank's log-sum-exp over its vocab shard
+    is combined over TP (a max and a sum), and the gold logit is the
+    one-hot contraction over its shard (a partial sum over TP), so the
+    logits are never gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    rows = lambda dp, tp: P(dp if logits.shape[0] > 1 else None, None)
+    mesh = logits.device_mesh
+    tp = list(mesh.mesh_dim_names).index(compute._HINTS["tp"])
+    V = logits.shape[-1]
+    # batch over DP; the vocab over TP, unevenly where TP does not divide
+    # it (each shard ceil(V / TP) wide, the last one less)
+    pl = compute.hint_placements(targets, rows)
+    pl[tp] = Shard(logits.ndim - 1)
+    if list(logits.placements) != pl:
+        logits = logits.redistribute(mesh, pl)
+    targets = compute.constrain(targets, rows)
+    v_dims = compute.sharded_dims(pl, logits.ndim - 1)
+    lse_pl = [Replicate() if md in v_dims else q for md, q in enumerate(pl)]
+    groups = [(mesh, md) for md in v_dims if mesh.size(md) > 1]
+
+    def nll_local(lg, tg):
+        blk, n_blk = compute.shard_block(mesh, pl, lg.ndim - 1)
+        v0 = blk * -(-V // n_blk)
+        n = lg.shape[-1]
+        g = torch.gather(lg, -1, (tg - v0).clamp(0, max(n - 1, 0))[
+            ..., None])[..., 0]
+        gold = torch.where((tg >= v0) & (tg < v0 + n), g,
+                           torch.zeros((), dtype=g.dtype, device=g.device))
+        return _ShardedLSE.apply(lg, groups), gold
+    lse, gold = local_map(nll_local,
+                          out_placements=(lse_pl,
+                                          compute.partial_on(pl, v_dims)),
+                          in_placements=(pl, list(targets.placements)),
+                          device_mesh=mesh)(logits, targets)
+    return (lse - gold).mean()
+
+
+class _ShardedLSE(torch.autograd.Function):
+    """``logsumexp`` over the last dim of a tensor whose last dim is
+    sharded over the mesh dims ``groups``: the max and the sum of
+    exponentials are all-reduced over them.  The backward is local:
+    ``softmax = exp(x - lse)`` on the shard."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        from torch.distributed import _functional_collectives as fc
+        m = x.amax(-1)
+        for g in groups:
+            m = fc.all_reduce(m, "max", g)
+        s = torch.exp(x - m[..., None]).sum(-1)
+        for g in groups:
+            s = fc.all_reduce(s, "sum", g)
+        lse = m + torch.log(s)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None]), None
 
 
 def train_loss(cfg: ModelConfig, params, batch):

@@ -12,8 +12,14 @@ them the gradients of the reference's custom VJPs, which exist there only
 so that GSPMD partitions the backward as gathers.  The expert products
 are ``torch.einsum`` over the stacked ``(E, d, f)`` weights, as the
 reference leaves them to XLA; the shared experts go through
-``compute.matmul``.  One card has no mesh, so the reference's
-``compute.constrain`` hints have no counterpart.
+``compute.matmul``.
+
+Under sharding hints on DTensors (:func:`_sharded_moe`) the layer keeps
+the reference's placements: tokens over DP, the ``(E, C)`` buffers over
+(TP, DP), expert weights over TP with their FSDP axis gathered for the
+product.  Routing is global, as on one card: each rank routes its own
+tokens, the (T, K) expert choices are gathered, and the capacity
+positions come from each TP rank's experts, summed over TP.
 
 Every shape depends on the config and the token count alone (``C`` is
 static, no ``.item()``), so the layer runs on ``meta`` tensors for site
@@ -25,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models import compute
 from repro_torch.models.common import dense_init
 
@@ -76,23 +83,40 @@ def route(cfg: ModelConfig, logits: torch.Tensor):
 
     # capacity, slot-major: slot 0 of every token, then slot 1, ...
     C = _capacity(T, E, K)
-    a_e = eidx.T.reshape(-1)                                    # (K*T,)
-    onehot = (a_e[:, None] == torch.arange(E, device=logits.device)).int()
-    pos = (torch.cumsum(onehot, dim=0) * onehot).sum(-1) - 1    # (K*T,)
-    keep = pos < C
-    tok = torch.arange(T, device=logits.device).repeat(K)
-    # the (E, C) inverse map; dropped entries land in a spare column C
-    pc = torch.where(keep, pos, torch.full_like(pos, C))
-    idx = torch.full((E, C + 1), -1, dtype=torch.long, device=logits.device)
-    idx = idx.index_put((a_e, pc), tok)[:, :C]
-    pos_tk = pos.reshape(K, T).T                                # (T,K)
-    keep_tk = keep.reshape(K, T).T
+    pos = _positions(eidx, E) - 1                               # (K*T,)
+    pos_tk, keep_tk, idx = _slots(eidx, pos, E, C)
     w = gate * keep_tk.float()
     return eidx, pos_tk, keep_tk, w, idx, aux
 
 
+def _slots(eidx: torch.Tensor, pos: torch.Tensor, E: int, C: int):
+    """The capacity map from the experts' buffer positions ``pos`` (K*T,)
+    of the slot-major choices ``eidx`` (T, K): ``(pos_tk, keep_tk, idx)``,
+    idx the ``(E, C)`` map from buffer slot to token (-1 where empty)."""
+    T, K = eidx.shape
+    a_e = eidx.T.reshape(-1)                                    # (K*T,)
+    keep = pos < C
+    tok = torch.arange(T, device=eidx.device).repeat(K)
+    # the (E, C) inverse map; dropped entries land in a spare column C
+    pc = torch.where(keep, pos, torch.full_like(pos, C))
+    idx = torch.full((E, C + 1), -1, dtype=torch.long, device=eidx.device)
+    idx = idx.index_put((a_e, pc), tok)[:, :C]
+    return pos.reshape(K, T).T, keep.reshape(K, T).T, idx
+
+
+def _positions(eidx: torch.Tensor, E: int, e0: int = 0):
+    """Each slot-major choice's position in its expert's buffer, counted
+    over the experts ``[e0, e0 + E)`` (zero for the others), plus one."""
+    a_e = eidx.T.reshape(-1)                                    # (K*T,)
+    onehot = (a_e[:, None] == torch.arange(e0, e0 + E,
+                                           device=eidx.device)).int()
+    return (torch.cumsum(onehot, dim=0) * onehot).sum(-1)
+
+
 def apply_moe(cfg: ModelConfig, p, x):
     """x: (B, S, d) -> (y, aux), aux = {"lb_loss", "router_z"}."""
+    if compute.is_dtensor(x):
+        return _sharded_moe(cfg, p, x)
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -114,6 +138,125 @@ def apply_moe(cfg: ModelConfig, p, x):
         flat = eidx[:, k] * C + pos_tk[:, k].clamp(0, C - 1)
         y_k = y_flat[flat].float() * w[:, k:k + 1]
         y = y_k if y is None else y + y_k
+
+    if cfg.n_shared_experts:
+        hs = (F.silu(compute.matmul(xt, p["shared_wg"],
+                                    site="moe.shared_gate", fused_ops=1))
+              * compute.matmul(xt, p["shared_wi"], site="moe.shared_up"))
+        y = y + compute.matmul(hs, p["shared_wo"],
+                               site="moe.shared_down").float()
+    return y.to(x.dtype).reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# the layer on DTensors, under sharding hints
+# ---------------------------------------------------------------------------
+
+_TD = lambda dp, tp: P(dp, None)
+_ECD = lambda dp, tp: P(tp, dp, None)
+
+
+def _sharded_moe(cfg: ModelConfig, p, x):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    B, S, d = x.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    T = B * S
+    C = _capacity(T, E, K)
+    mesh = x.device_mesh
+    tp_dim = list(mesh.mesh_dim_names).index(compute._HINTS["tp"])
+    rep = [Replicate()] * mesh.ndim
+    xt = compute.constrain(x.reshape(T, d), _TD)                # (T/dp, d)
+    logits = compute.constrain(
+        compute.matmul(xt.float(), p["router"], site="moe.router"), _TD)
+    tok_pl = list(logits.placements)
+    tok_dims = compute.sharded_dims(tok_pl, 0)
+    t_blk, n_t = compute.shard_block(mesh, tok_pl, 0)
+    T_l = T // n_t
+    t0 = t_blk * T_l
+    sum_pl = compute.partial_on(rep, tok_dims)
+
+    def route_local(lg):
+        probs = torch.softmax(lg, dim=-1)
+        gate, eidx = torch.topk(probs, K, dim=-1, sorted=True)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        cnt = torch.zeros((E,), dtype=torch.float32, device=lg.device)
+        cnt = cnt.index_add(0, eidx.reshape(-1), torch.ones(
+            (eidx.numel(),), device=lg.device))
+        return (gate, eidx, probs.sum(0), cnt,
+                (torch.logsumexp(lg, dim=-1) ** 2).sum())
+    gate, eidx, me_sum, ce_cnt, z_sum = local_map(
+        route_local, out_placements=(tok_pl, tok_pl, sum_pl, sum_pl, sum_pl),
+        in_placements=(tok_pl,), device_mesh=mesh)(logits)
+    aux = {"lb_loss": E * torch.sum((me_sum / T) * (ce_cnt / (T * K))),
+           "router_z": z_sum / T}
+
+    # global routing: every rank holds the (T, K) choices; each TP rank
+    # counts the positions of its own experts, summed over TP
+    eidx_all = eidx.redistribute(mesh, rep).to_local()
+    tp_split = E % mesh.size(tp_dim) == 0
+    tp_part = [tp_dim] if tp_split else []
+    E_l = E // mesh.size(tp_dim) if tp_split else E
+    e0 = mesh.get_local_rank(tp_dim) * E_l if tp_split else 0
+    part = _positions(eidx_all, E_l, e0)
+    if tp_split:
+        part = DTensor.from_local(part, mesh, compute.partial_on(
+            rep, tp_part)).redistribute(mesh, rep).to_local()
+    pos_tk, keep_tk, idx = _slots(eidx_all, part - 1, E, C)
+
+    # dispatch: each rank fills its experts' slots from its own tokens;
+    # the partial buffers are reduce-scattered over DP by the constraint
+    e_pl = [Shard(0) if md in tp_part else Replicate()
+            for md in range(mesh.ndim)]
+    buf_pl = compute.partial_on(e_pl, tok_dims)
+
+    def dispatch_local(xl):
+        return compute.local_rows(xl, idx[e0:e0 + E_l], t0)
+    buf = local_map(dispatch_local, out_placements=buf_pl,
+                    in_placements=(tok_pl,),
+                    in_grad_placements=(compute.partial_on(tok_pl, tp_part),),
+                    device_mesh=mesh)(xt)
+    buf = compute.constrain(buf, _ECD)
+
+    # the experts' products on each rank's experts and slots, the expert
+    # weights' FSDP axis gathered
+    bpl = list(buf.placements)
+    w_grad = compute.partial_on(e_pl, compute.sharded_dims(bpl, 1))
+
+    def experts_local(bl, wi, wg, wo):
+        h = torch.einsum("ecd,edf->ecf", bl, wi)
+        g = F.silu(torch.einsum("ecd,edf->ecf", bl, wg))
+        return torch.einsum("ecf,efd->ecd", h * g, wo)
+    y_buf = local_map(experts_local, out_placements=bpl,
+                      in_placements=(bpl, e_pl, e_pl, e_pl),
+                      in_grad_placements=(bpl, w_grad, w_grad, w_grad),
+                      device_mesh=mesh, redistribute_inputs=True)(
+        buf, p["ewi"], p["ewg"], p["ewo"])
+
+    # combine: each rank's tokens gather their rows from its experts'
+    # buffers (all slots gathered over DP), partial over TP
+    y_pl = compute.partial_on(tok_pl, tp_part)
+    e_l = eidx_all[t0:t0 + T_l]
+    p_l = pos_tk[t0:t0 + T_l]
+    k_l = keep_tk[t0:t0 + T_l]
+
+    def combine_local(yb, gl):
+        w = gl * k_l.float()
+        y = None
+        for k in range(K):
+            mine = (e_l[:, k] >= e0) & (e_l[:, k] < e0 + E_l)
+            rows = yb[(e_l[:, k] - e0).clamp(0, E_l - 1),
+                      p_l[:, k].clamp(0, C - 1)]
+            y_k = torch.where(mine[:, None], rows.float() * w[:, k:k + 1],
+                              torch.zeros((), device=yb.device))
+            y = y_k if y is None else y + y_k
+        return y
+    y = local_map(combine_local, out_placements=y_pl,
+                  in_placements=(e_pl, tok_pl),
+                  in_grad_placements=(compute.partial_on(e_pl, tok_dims),
+                                      compute.partial_on(tok_pl, tp_part)),
+                  device_mesh=mesh, redistribute_inputs=True)(y_buf, gate)
+    y = compute.constrain(y, _TD)
 
     if cfg.n_shared_experts:
         hs = (F.silu(compute.matmul(xt, p["shared_wg"],

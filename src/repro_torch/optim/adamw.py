@@ -8,6 +8,11 @@ tensors with ``ndim >= 2`` only, as the reference's does
 used).  ``update_`` writes the new parameters and moments in place (one
 copy of the state, whatever its size); ``update`` is its functional
 form, which returns new tensors and never writes into its arguments.
+
+On DTensors (a state sharded over a mesh) ``update_`` works on each
+leaf's local shard, and the global norm sums the squares of the local
+shards and all-reduces them over the mesh dims that shard each leaf, so
+it is the one-card norm.
 """
 from __future__ import annotations
 
@@ -76,10 +81,40 @@ def init(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if _is_dtensor(t) else t
+
+
 def global_norm(tree) -> torch.Tensor:
     """The l2 norm over every leaf of ``tree``, in f32."""
+    leaves = _leaves(tree)
+    if leaves and _is_dtensor(leaves[0]):
+        return _sharded_norm(leaves)
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in _leaves(tree)))
+                          for g in leaves))
+
+
+def _sharded_norm(leaves) -> torch.Tensor:
+    """``global_norm`` of DTensor leaves: the local shards' sums of
+    squares, added per pattern of sharded mesh dims and all-reduced over
+    those dims (a replicated dim holds copies, which count once)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = leaves[0].device_mesh
+    by_pattern = {}
+    for g in leaves:
+        key = tuple(isinstance(q, Shard) for q in g.placements)
+        s = torch.sum(torch.square(g.to_local().float()))
+        by_pattern[key] = s if key not in by_pattern else by_pattern[key] + s
+    total = None
+    for key, s in by_pattern.items():
+        pl = [Partial() if k else Replicate() for k in key]
+        s = DTensor.from_local(s, mesh, pl).full_tensor()
+        total = s if total is None else total + s
+    return torch.sqrt(total)
 
 
 # elements of a leaf updated at once by ``update_``: bounds its f32
@@ -92,11 +127,12 @@ def update_(cfg: AdamWConfig, grads, state: dict, params) -> dict:
     """One AdamW step in place: writes the new parameters into ``params``
     and the new moments and step into ``state``; returns the metrics
     ``{"grad_norm", "lr"}``.  ``grads`` has ``params``' structure; each
-    leaf is taken in flat chunks of ``CHUNK`` elements."""
+    leaf is taken in flat chunks of ``CHUNK`` elements; a DTensor leaf
+    by its local shard (``p``, ``g``, ``m`` and ``v`` placed alike)."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     state["step"].add_(1)
-    step = state["step"]
+    step = _local(state["step"])
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.to(torch.float32)
@@ -104,6 +140,12 @@ def update_(cfg: AdamWConfig, grads, state: dict, params) -> dict:
     for p, g, m, v in zip(_leaves(params), _leaves(grads),
                           _leaves(state["m"]), _leaves(state["v"])):
         decay = p.ndim >= 2
+        if _is_dtensor(p):
+            if not (p.placements == g.placements == m.placements
+                    == v.placements):
+                raise ValueError("a leaf's parameter, gradient and moments "
+                                 "are placed differently")
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         # p, m and v are written through views; g may have any layout
         pcs, mcs, vcs = (t.view(-1).split(CHUNK) for t in (p, m, v))
         gcs = g.reshape(-1).split(CHUNK)

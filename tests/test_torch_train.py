@@ -323,7 +323,11 @@ def test_split_microbatches_and_one_card():
     assert [mb["tokens"].shape[0] for mb in mbs] == [2, 2]
     assert torch.equal(torch.cat([mb["targets"] for mb in mbs]),
                        tb["targets"])
-    with pytest.raises(NotImplementedError, match="one card"):
-        steps._split_microbatches(tb, 2, mb_specs={"tokens": None})
+    # the specs place a mesh's microbatches; a one-card batch's are as
+    # they were
+    pinned = steps._split_microbatches(
+        tb, 2, mb_specs={"tokens": ("data", None), "targets": ("data", None)})
+    for mb, pin in zip(mbs, pinned):
+        assert all(torch.equal(mb[k], pin[k]) for k in mb)
     with pytest.raises(ValueError):
         steps._split_microbatches(tb, 3)
