@@ -113,7 +113,7 @@ Phases, each printed before the last line:
      K1's f32 variant at each MoE arch's router shapes and at phase 3's
      other f32 shapes,
      K3 with its device ms by pass and chunk and the Mamba-2 head),
-     printed last so that the launches of phases 8-12 count in it;
+     printed last so that the launches of phases 8-15 count in it;
   8. the facade (run between phases 6 and 7): the full-width StableLM-3B
      through repro_torch.api only.  A brute-force NeuroVectorizer against
      the measured oracle, with a fresh timing DB and program store under
@@ -242,13 +242,39 @@ Phases, each printed before the last line:
      peak (torch.cuda.max_memory_allocated); the dry-run's run_cell at
      that config on a one-rank fake mesh, its argument bytes equal to the
      state's bytes on the card plus the int32 batch, its peak beside the
-     card's; run_cell for qwen3_8b train_4k and deepseek_v2_236b
-     decode_32k on the fake 16x16 mesh (traced on the CPU in two
-     subprocesses while the card trains), each with its per-device peak
-     against an H100's 80 GB, flops, collective MiB by kind and trace
-     seconds (counts on fake tensors); compressed_psum on a one-rank NCCL
-     mesh equal to its input's int8 round trip;
- 15. each phase's wall seconds, then the last line:
+     card's; run_cell for qwen3_8b train_4k (cut to 12 of its 36
+     layers) and deepseek_v2_236b decode_32k on the fake 16x16 mesh
+     (traced on the CPU in two
+     subprocesses while the card runs phases 14 and 15, read after phase
+     15), each with its per-device peak against an H100's 80 GB, flops,
+     collective MiB by kind and trace seconds (counts on fake tensors);
+     compressed_psum on a one-rank NCCL mesh equal to its input's int8
+     round trip;
+ 15. the last four examples and the seed's reference paths (after
+     phase 14, before the kernels line), each example with its wall
+     seconds and its invariant: examples/torch_measured_autotune.py
+     twice on one timing DB, in process and then through a pool of 1
+     (the first run launches K1, K2 and K3 and times pairs, the second
+     times none); torch_warmstart_autotune.py --phase fit, then --phase
+     warm in a fresh process (a store lookup, 0 agent inferences, the
+     fit's program bitwise); torch_fleet_autotune.py twice against a
+     serve-worker and a serve-artifacts daemon on ports the OS picks
+     (run 1 times pairs on the worker and a second subscriber receives
+     the program by push; run 2 times none and is a store lookup; both
+     daemons exit 0 on SIGTERM); torch_fault_tolerant_serving.py --full
+     in this process, with the counters zeroed just before and read
+     just after: jamba_v0_1_52b at its published widths, 8 of 32 layers,
+     batch 4, prompt 16, 12 tokens, its brute-force plan injected (K1 in
+     bf16 and in f32 at the routers, and K2 must launch), prefill ms,
+     mean decode step ms, straggler events, the injected prefill logits
+     against eager's within LOGIT_TOL on the batch rows whose tokens kept
+     every routing choice, the re-plans; then one PPO fit of the seed's
+     path (fused=False against CostModelEnv(vectorized=False)) and one of
+     today's (fused=True against the vectorized env), 8000 steps each
+     under legality h100, each fit's seconds printed (a record, not a
+     benchmark) and the seed path's minibatches an update held to
+     ppo_epochs * (n // mb);
+ 16. each phase's wall seconds, then the last line:
      {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero.  Without CUDA, or
@@ -2054,11 +2080,11 @@ def ratio_line(label: str, values: dict, ref: dict) -> dict:
     return q
 
 
-def start_daemon(args: list, env: dict) -> tuple:
+def start_daemon(args: list, env: dict, tag: str = "fleet") -> tuple:
     """``python -m repro_torch.fleet <args>``, its output (and its
     workers') to a log under build/; returns (process, log, address) once
     the log holds the flushed ready line."""
-    log = ROOT / "build" / f"fleet_{args[0]}.log"
+    log = ROOT / "build" / f"{tag}_{args[0]}.log"
     with open(log, "w") as f:
         proc = subprocess.Popen([sys.executable, "-m", "repro_torch.fleet",
                                  *args], stdout=f, stderr=subprocess.STDOUT,
@@ -3206,7 +3232,8 @@ class RouteTap:
         moe.route = self._route
 
 
-def routing_agreement(cfg, eager_tap, kernel_tap, logits, el):
+def routing_agreement(cfg, eager_tap, kernel_tap, logits, el,
+                      batch=BATCH, prompt=PROMPT, tag="serve12"):
     """Per MoE layer, the share of (token, slot) choices the injected
     prefill shares with eager's; the batch rows whose tokens kept every
     choice in every layer, and the prefill logits' distance over those
@@ -3220,16 +3247,16 @@ def routing_agreement(cfg, eager_tap, kernel_tap, logits, el):
              f"{len(kernel_tap.eidx)} MoE layers, want {eager_tap.n}")
     same = [(a == b) for a, b in zip(eager_tap.eidx, kernel_tap.eidx)]
     share = [float(m.float().mean()) for m in same]
-    kept = torch.stack([m.reshape(BATCH, PROMPT, -1).all(-1).all(-1)
+    kept = torch.stack([m.reshape(batch, prompt, -1).all(-1).all(-1)
                         for m in same]).all(0)          # (B,)
     scale = float(el.abs().max())
     row_rel = [float((logits[b] - el[b]).abs().max()) / scale
-               for b in range(BATCH)]
+               for b in range(batch)]
     kept_rel = max([r for r, k in zip(row_rel, kept.tolist()) if k],
                    default=None)
-    print(f"[serve12:{cfg.name}] routing, injected vs eager prefill: "
+    print(f"[{tag}:{cfg.name}] routing, injected vs eager prefill: "
           f"(token, slot) choices that agree by MoE layer "
-          f"{[round(x, 5) for x in share]}; {int(kept.sum())} of {BATCH} "
+          f"{[round(x, 5) for x in share]}; {int(kept.sum())} of {batch} "
           f"rows kept every choice; logits off eager's over max |eager "
           f"logit| by row {[f'{r:.3e}' for r in row_rel]} (rows that kept "
           f"their choices held at {LOGIT_TOL}"
@@ -3873,8 +3900,11 @@ def serving_sessions(corpus, qsites, sl_sites, sl_db, brute_measured):
 # ---------------------------------------------------------------------------
 
 DIST_RTOL = 1e-5            # the mesh path's losses vs the plain path's
-PRODUCTION_CELLS = (("qwen3_8b", "train_4k"), ("deepseek_v2_236b",
-                                               "decode_32k"))
+# (arch, shape, layers: None for full depth).  Qwen3-8B's train cell is
+# cut to a third of its 36 layers so that its trace ends within phases
+# 14 and 15 (its full depth traced in 124-202 s; PERF.md §6)
+PRODUCTION_CELLS = (("qwen3_8b", "train_4k", 12),
+                    ("deepseek_v2_236b", "decode_32k", None))
 H100_BYTES = 80e9           # an H100's device memory (80 GB)
 
 _TRAIN_RUN = r"""
@@ -3897,10 +3927,15 @@ print("RESULT " + json.dumps({
 """
 
 _CELL_RUN = r"""
-import json, sys
+import dataclasses, json, sys
 sys.path.insert(0, "src")
+from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import run_cell
-print("RESULT " + json.dumps(run_cell(sys.argv[1], sys.argv[2], False)))
+cfg = get_config(sys.argv[1])
+if sys.argv[3] != "full":
+    cfg = dataclasses.replace(cfg, n_layers=int(sys.argv[3]))
+print("RESULT " + json.dumps(run_cell(sys.argv[1], sys.argv[2], False,
+                                      cfg=cfg)))
 """
 
 
@@ -3941,109 +3976,115 @@ def _train_subprocess(mesh: bool) -> dict:
     return _result(r.stdout, f"distribution {label} train")
 
 
+def start_production_cells() -> dict:
+    """Phase 14's production cells, each traced on the CPU in a process
+    of its own while the card runs phases 14 and 15."""
+    return {(a, s, n): subprocess.Popen(
+        [sys.executable, "-c", _CELL_RUN, a, s, str(n or "full")], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for a, s, n in PRODUCTION_CELLS}
+
+
+def production_cells(cells: dict) -> dict:
+    """The production cells' counts (on fake tensors, per device)."""
+    from repro_torch.configs import get_config
+    out = {}
+    for (a, s, n), proc in cells.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"distribution: dry-run {a} {s} failed:\n"
+                 f"{stderr[-3000:]}")
+        res = _result(stdout, f"dry-run {a} {s}")
+        if res["status"] != "ok":
+            fail(f"distribution: dry-run {a} {s}: {res}")
+        pk = res["memory"]["peak_bytes"]
+        coll = {k: round(v / 2**20, 1)
+                for k, v in res["collectives"].items()}
+        depth = (f" ({n} of {get_config(a).n_layers} layers)" if n
+                 else " (full depth)")
+        print(f"[dist] dry-run 16x16 {a} {s}{depth}: per device peak "
+              f"{pk / 2**30:.2f} GiB ({pk / H100_BYTES * 100:.1f}% of an "
+              f"H100's 80 GB), argument "
+              f"{res['memory']['argument_bytes'] / 2**30:.2f} GiB, flops "
+              f"{res['flops']:.4g}, collectives MiB {coll}, trace "
+              f"{res['lower_s']:.1f} s (counts on fake tensors)",
+              flush=True)
+        out[f"{a} {s}"] = {
+            "layers": n or get_config(a).n_layers,
+            "peak_bytes": pk, "flops": res["flops"],
+            "collectives": res["collectives"],
+            "argument_bytes": res["memory"]["argument_bytes"],
+            "lower_s": res["lower_s"]}
+    return out
+
+
 def distribution_phase() -> dict:
     """Phase 14: the train driver's mesh path against the plain path on
-    the card, the dry-run's memory count against the card's, two
-    production cells on the fake 16x16 mesh, and ``compressed_psum`` on
-    a one-rank NCCL mesh."""
+    the card, the dry-run's memory count against the card's, and
+    ``compressed_psum`` on a one-rank NCCL mesh (the production cells:
+    :func:`start_production_cells`)."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.dryrun import run_cell
-    # the production cells trace on the CPU while the card trains
-    cells = {(a, s): subprocess.Popen(
-        [sys.executable, "-c", _CELL_RUN, a, s], cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for a, s in PRODUCTION_CELLS}
     out = {}
-    try:
-        runs = {"plain": _train_subprocess(False),
-                "mesh": _train_subprocess(True)}
-        plain, mesh = runs["plain"], runs["mesh"]
-        if mesh["mesh"] != ["data", "model"] or plain["mesh"] is not None:
-            fail(f"distribution: paths {mesh['mesh']} / {plain['mesh']}")
-        for a, b in zip(mesh["losses"], plain["losses"]):
-            if not abs(a - b) <= DIST_RTOL * abs(b):
-                fail(f"distribution: mesh losses {mesh['losses']} vs "
-                     f"plain {plain['losses']}")
-        if not all(math.isfinite(g) for r in runs.values()
-                   for g in r["grad_norms"]):
-            fail("distribution: a grad norm is not finite")
-        ms = {k: r["fwd_bwd_ms"] + r["optimizer_ms"] for k, r in runs.items()}
-        print(f"[dist] StableLM-3B full width, depth {RESTART_LAYERS}, batch "
-              f"{BATCH}, seq {PROMPT}, 5 steps: losses mesh "
-              f"{[round(x, 6) for x in mesh['losses']]} plain "
-              f"{[round(x, 6) for x in plain['losses']]} (rtol "
-              f"{DIST_RTOL}); ms a step (CUDA events, median after the "
-              f"first) mesh {ms['mesh']:.2f} (fwd+bwd "
-              f"{mesh['fwd_bwd_ms']:.2f}, optimizer "
-              f"{mesh['optimizer_ms']:.2f}) plain {ms['plain']:.2f} (fwd+bwd "
-              f"{plain['fwd_bwd_ms']:.2f}, optimizer "
-              f"{plain['optimizer_ms']:.2f}); DTensor host overhead "
-              f"{ms['mesh'] - ms['plain']:.2f} ms a step; peak "
-              f"(torch.cuda.max_memory_allocated) mesh "
-              f"{mesh['peak_bytes'] / 2**30:.3f} GiB plain "
-              f"{plain['peak_bytes'] / 2**30:.3f} GiB", flush=True)
-        out["train"] = {"ms_mesh": ms["mesh"], "ms_plain": ms["plain"],
-                        "overhead_ms": ms["mesh"] - ms["plain"],
-                        "losses_mesh": mesh["losses"],
-                        "losses_plain": plain["losses"],
-                        "peak_mesh": mesh["peak_bytes"],
-                        "peak_plain": plain["peak_bytes"]}
+    runs = {"plain": _train_subprocess(False),
+            "mesh": _train_subprocess(True)}
+    plain, mesh = runs["plain"], runs["mesh"]
+    if mesh["mesh"] != ["data", "model"] or plain["mesh"] is not None:
+        fail(f"distribution: paths {mesh['mesh']} / {plain['mesh']}")
+    for a, b in zip(mesh["losses"], plain["losses"]):
+        if not abs(a - b) <= DIST_RTOL * abs(b):
+            fail(f"distribution: mesh losses {mesh['losses']} vs "
+                 f"plain {plain['losses']}")
+    if not all(math.isfinite(g) for r in runs.values()
+               for g in r["grad_norms"]):
+        fail("distribution: a grad norm is not finite")
+    ms = {k: r["fwd_bwd_ms"] + r["optimizer_ms"] for k, r in runs.items()}
+    print(f"[dist] StableLM-3B full width, depth {RESTART_LAYERS}, batch "
+          f"{BATCH}, seq {PROMPT}, 5 steps: losses mesh "
+          f"{[round(x, 6) for x in mesh['losses']]} plain "
+          f"{[round(x, 6) for x in plain['losses']]} (rtol "
+          f"{DIST_RTOL}); ms a step (CUDA events, median after the "
+          f"first) mesh {ms['mesh']:.2f} (fwd+bwd "
+          f"{mesh['fwd_bwd_ms']:.2f}, optimizer "
+          f"{mesh['optimizer_ms']:.2f}) plain {ms['plain']:.2f} (fwd+bwd "
+          f"{plain['fwd_bwd_ms']:.2f}, optimizer "
+          f"{plain['optimizer_ms']:.2f}); DTensor host overhead "
+          f"{ms['mesh'] - ms['plain']:.2f} ms a step; peak "
+          f"(torch.cuda.max_memory_allocated) mesh "
+          f"{mesh['peak_bytes'] / 2**30:.3f} GiB plain "
+          f"{plain['peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    out["train"] = {"ms_mesh": ms["mesh"], "ms_plain": ms["plain"],
+                    "overhead_ms": ms["mesh"] - ms["plain"],
+                    "losses_mesh": mesh["losses"],
+                    "losses_plain": plain["losses"],
+                    "peak_mesh": mesh["peak_bytes"],
+                    "peak_plain": plain["peak_bytes"]}
 
-        # the dry-run's count at the same config, a one-rank fake mesh
-        shape = ShapeConfig("train_card", PROMPT, BATCH, "train")
-        cell = run_cell(STABLELM, shape.name, False, accum=1,
-                        mesh_shape=(1, 1), cfg=_cut_depth(RESTART_LAYERS),
-                        shape=shape)
-        batch_bytes = 2 * BATCH * PROMPT * 4    # int32 tokens, targets
-        arg = cell["memory"]["argument_bytes"]
-        if arg != plain["state_bytes"] + batch_bytes or \
-                plain["state_bytes"] != mesh["state_bytes"]:
-            fail(f"distribution: dry-run argument bytes {arg} vs the card's "
-                 f"state {plain['state_bytes']} (mesh "
-                 f"{mesh['state_bytes']}) + batch {batch_bytes}")
-        peak = cell["memory"]["peak_bytes"]
-        print(f"[dist] dry-run on a 1x1 fake mesh: argument bytes {arg} = "
-              f"the card's state {plain['state_bytes']} + the int32 batch "
-              f"{batch_bytes}; peak {peak / 2**30:.3f} GiB (a count on fake "
-              f"tensors) vs the card's {plain['peak_bytes'] / 2**30:.3f} "
-              f"GiB, ratio {peak / plain['peak_bytes']:.3f}; trace "
-              f"{cell['lower_s']:.1f} s", flush=True)
-        out["dryrun_1x1"] = {"argument_bytes": arg,
-                             "state_bytes": plain["state_bytes"],
-                             "peak_bytes": peak,
-                             "card_peak_bytes": plain["peak_bytes"],
-                             "lower_s": cell["lower_s"]}
-
-        # the production cells (counts on fake tensors, per device)
-        out["production"] = {}
-        for (a, s), proc in cells.items():
-            stdout, stderr = proc.communicate(timeout=900)
-            if proc.returncode != 0:
-                fail(f"distribution: dry-run {a} {s} failed:\n"
-                     f"{stderr[-3000:]}")
-            res = _result(stdout, f"dry-run {a} {s}")
-            if res["status"] != "ok":
-                fail(f"distribution: dry-run {a} {s}: {res}")
-            pk = res["memory"]["peak_bytes"]
-            coll = {k: round(v / 2**20, 1)
-                    for k, v in res["collectives"].items()}
-            print(f"[dist] dry-run 16x16 {a} {s}: per device peak "
-                  f"{pk / 2**30:.2f} GiB ({pk / H100_BYTES * 100:.1f}% of an "
-                  f"H100's 80 GB), argument {res['memory']['argument_bytes'] / 2**30:.2f} "
-                  f"GiB, flops {res['flops']:.4g}, collectives MiB {coll}, "
-                  f"trace {res['lower_s']:.1f} s (counts on fake tensors)",
-                  flush=True)
-            out["production"][f"{a} {s}"] = {
-                "peak_bytes": pk, "flops": res["flops"],
-                "collectives": res["collectives"],
-                "argument_bytes": res["memory"]["argument_bytes"],
-                "lower_s": res["lower_s"]}
-    finally:
-        for proc in cells.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    # the dry-run's count at the same config, a one-rank fake mesh
+    shape = ShapeConfig("train_card", PROMPT, BATCH, "train")
+    cell = run_cell(STABLELM, shape.name, False, accum=1,
+                    mesh_shape=(1, 1), cfg=_cut_depth(RESTART_LAYERS),
+                    shape=shape)
+    batch_bytes = 2 * BATCH * PROMPT * 4    # int32 tokens, targets
+    arg = cell["memory"]["argument_bytes"]
+    if arg != plain["state_bytes"] + batch_bytes or \
+            plain["state_bytes"] != mesh["state_bytes"]:
+        fail(f"distribution: dry-run argument bytes {arg} vs the card's "
+             f"state {plain['state_bytes']} (mesh "
+             f"{mesh['state_bytes']}) + batch {batch_bytes}")
+    peak = cell["memory"]["peak_bytes"]
+    print(f"[dist] dry-run on a 1x1 fake mesh: argument bytes {arg} = "
+          f"the card's state {plain['state_bytes']} + the int32 batch "
+          f"{batch_bytes}; peak {peak / 2**30:.3f} GiB (a count on fake "
+          f"tensors) vs the card's {plain['peak_bytes'] / 2**30:.3f} "
+          f"GiB, ratio {peak / plain['peak_bytes']:.3f}; trace "
+          f"{cell['lower_s']:.1f} s", flush=True)
+    out["dryrun_1x1"] = {"argument_bytes": arg,
+                         "state_bytes": plain["state_bytes"],
+                         "peak_bytes": peak,
+                         "card_peak_bytes": plain["peak_bytes"],
+                         "lower_s": cell["lower_s"]}
 
     # compressed_psum on a one-rank NCCL mesh: the int8 round trip
     import torch.distributed as dist
@@ -4067,6 +4108,241 @@ def distribution_phase() -> dict:
           f"round trip| {err:.3g} over {x.numel()} elements", flush=True)
     out["compressed_psum_err"] = err
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the last four examples and the seed's reference paths
+# ---------------------------------------------------------------------------
+
+EXAMPLE_TIMEOUT = 300       # seconds an example's process may take
+SEED_FIT_STEPS = 8000       # each PPO fit of the seed-path comparison:
+                            # two updates of DEFAULT's 4000-site batch
+
+
+def run_example(script: str, *args, env=None) -> tuple:
+    """``examples/<script> args`` in a process of its own: (its output,
+    wall s); fails unless it exits 0 with ``OK`` at the end."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, str(ROOT / "examples" / script),
+                        *args], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=EXAMPLE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or not r.stdout.rstrip().endswith("OK"):
+        fail(f"{script} {' '.join(args)}: exit {r.returncode}\n"
+             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return r.stdout, wall
+
+
+def _timed_pairs(out: str) -> int:
+    return int(re.search(r"measurements: (\d+) timed", out).group(1))
+
+
+def _example_launches(out: str) -> dict:
+    m = re.search(r"kernel launches in this process: K1 (\d+), K2 (\d+), "
+                  r"K3 (\d+)", out)
+    return dict(zip(("K1", "K2", "K3"), map(int, m.groups())))
+
+
+def _measured_example(d: Path) -> dict:
+    """The measured example twice on one DB: in its process, then
+    through a pool of 1 (one worker starts in a third of two's time,
+    phase 9); the first times pairs and launches K1, K2 and K3, the
+    second times none."""
+    db = str(d / "measure.jsonl")
+    common = ("--db", db, "--out", str(d / "measured_tiles.json"))
+    first, w1 = run_example("torch_measured_autotune.py", *common)
+    second, w2 = run_example("torch_measured_autotune.py", *common,
+                             "--transport", "pool", "--workers", "1")
+    n1, n2 = _timed_pairs(first), _timed_pairs(second)
+    launches = _example_launches(first)
+    if n1 == 0 or n2 != 0 or min(launches.values()) == 0:
+        fail(f"measured autotune: timed {n1} then {n2} pairs, launches "
+             f"{launches}")
+    print(f"[examples] torch_measured_autotune.py: inproc {w1:.1f} s, "
+          f"{n1} pairs timed, kernel launches {launches}; pool of 1 on the "
+          f"same DB {w2:.1f} s, {n2} pairs timed", flush=True)
+    return {"measured": {"wall_s": [w1, w2], "timed": [n1, n2],
+                         "launches": launches}}
+
+
+def _warmstart_example(d: Path) -> dict:
+    """Fit, then warm in a fresh process: a store lookup, 0 agent
+    inferences, the fit's program bitwise (the example asserts it)."""
+    paths = ("--artifact", str(d / "artifact"), "--store",
+             str(d / "programs.jsonl"), "--expect", str(d / "cold.json"))
+    _, w1 = run_example("torch_warmstart_autotune.py", "--phase", "fit",
+                        *paths)
+    warm, w2 = run_example("torch_warmstart_autotune.py", "--phase", "warm",
+                           *paths)
+    if "tune 1: agent inferences 0, store hits 1" not in warm or \
+            "tune 2: agent inferences 0" not in warm:
+        fail(f"warm start:\n{warm[-2000:]}")
+    print(f"[examples] torch_warmstart_autotune.py: fit {w1:.1f} s, warm "
+          f"{w2:.1f} s: a store lookup, 0 agent inferences, the program "
+          f"bitwise the fit's", flush=True)
+    return {"warmstart": {"wall_s": [w1, w2]}}
+
+
+def _fleet_example(d: Path) -> dict:
+    """Two daemons on ports the OS picks, started together; run 1 times
+    pairs on the worker and pushes its program to a second subscriber,
+    run 2 times none and is a store lookup; both daemons exit 0."""
+    from concurrent.futures import ThreadPoolExecutor
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(start_daemon, [
+            "serve-worker", "--host", "127.0.0.1", "--port", "0",
+            "--transport", "inproc", "--reps", "1"], env, "phase15"),
+            pool.submit(start_daemon, [
+                "serve-artifacts", "--host", "127.0.0.1", "--port", "0",
+                "--measure-db", str(d / "fleet_measure.jsonl"),
+                "--program-store", str(d / "fleet_programs.jsonl")], env,
+                "phase15")]
+    daemons = [f.result() for f in futs if f.exception() is None]
+    if len(daemons) < 2:                # one failed: stop the other
+        for proc, _, _ in daemons:
+            proc.kill()
+            proc.wait()
+        for f in futs:
+            f.result()
+    (worker, w_log, w_addr), (arts, a_log, a_addr) = daemons
+    start = time.perf_counter() - t0
+    try:
+        fargs = ("--hosts", w_addr, "--artifacts", a_addr, "--out",
+                 str(d / "fleet_tiles.json"))
+        first, w1 = run_example("torch_fleet_autotune.py", *fargs)
+        second, w2 = run_example("torch_fleet_autotune.py", *fargs)
+    finally:
+        stop_daemon(worker, w_log, "serve-worker")
+        stop_daemon(arts, a_log, "serve-artifacts")
+    n1, n2 = _timed_pairs(first), _timed_pairs(second)
+    if n1 == 0 or "push-invalidation: serving client observed" not in first \
+            or n2 != 0 or "(0 agent inferences)" not in second:
+        fail(f"fleet autotune: run 1 timed {n1}, run 2 timed {n2}:\n"
+             f"{first[-1500:]}\n{second[-1500:]}")
+    print(f"[examples] torch_fleet_autotune.py: daemons up in {start:.1f} "
+          f"s; run 1 {w1:.1f} s, {n1} pairs timed on the serve-worker, the "
+          f"program pushed to a second subscriber; run 2 {w2:.1f} s, 0 "
+          f"pairs timed, the tune a store lookup", flush=True)
+    return {"fleet": {"wall_s": [w1, w2], "timed": [n1, n2],
+                      "daemons_s": start}}
+
+
+def examples_phase() -> tuple:
+    """Phase 15: the four examples ported last, on the card, each with
+    its wall seconds and its invariant, then one PPO fit of the seed's
+    path (``fused=False`` against ``CostModelEnv(vectorized=False)``)
+    beside one of today's, each fit's seconds a record."""
+    import importlib.util
+    import types
+    import numpy as np
+    import torch
+    out, by_path = {}, {}
+    d = fresh_dir("phase15")
+
+    # the three chains of examples at once (each a chain of processes;
+    # the card's timing lock keeps their timings apart)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(f, d) for f in (_measured_example,
+                                            _warmstart_example,
+                                            _fleet_example)]
+        t0 = time.perf_counter()
+        for f in futs:
+            out.update(f.result())
+    out["examples_wall_s"] = time.perf_counter() - t0
+
+    # fault-tolerant serving at Jamba's published widths, 8 of 32 layers,
+    # in this process so that its launches count in the kernels line
+    from repro_torch.kernels import matmul as kmm
+    spec = importlib.util.spec_from_file_location(
+        "torch_fault_tolerant_serving",
+        ROOT / "examples" / "torch_fault_tolerant_serving.py")
+    ft = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ft)
+    cfg = served_cfg(ft.ARCH)
+    n_moe = sum(b.mlp == "moe" for b in cfg.period) * cfg.n_periods
+    B, T = 4, 16                         # the example's batch and prompt
+    zero_counts()
+    t0 = time.perf_counter()
+    # eager, the untimed injected pass, then the timed injected prefill
+    with RouteTap(3 * n_moe, B * T) as tap:
+        res = ft.main(["--full"])
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    f32 = kmm.launches_by_variant["f32"]
+    path_variants("examples:fault_tolerant", counts)
+    if res["layers"] != cfg.n_layers or not res["injected"] or \
+            counts["matmul"] == 0 or counts["flash_attention"] == 0 or \
+            f32 == 0:
+        fail(f"fault-tolerant serving: {cfg.n_layers} layers, launches "
+             f"{counts}, K1 f32 {f32}")
+    routing = routing_agreement(
+        cfg, types.SimpleNamespace(eidx=tap.eidx[:n_moe], n=n_moe),
+        types.SimpleNamespace(eidx=tap.eidx[2 * n_moe:], n=n_moe),
+        res["logits"], res["eager_logits"], batch=B, prompt=T,
+        tag="examples")
+    # every row held too, the rows whose routing flipped among them
+    if not res["logits_rel"] < LOGIT_TOL:
+        fail(f"fault-tolerant serving: injected prefill logits "
+             f"{res['logits_rel']:.3e} off eager's")
+    print(f"[examples] torch_fault_tolerant_serving.py --full: "
+          f"{cfg.name} {cfg.n_layers} layers, {len(res['prog'].tiles)} "
+          f"sites planned by brute force (legality {res['legality']}), "
+          f"injected; {wall:.1f} s; prefill {res['prefill_ms']:.2f} ms, "
+          f"mean decode step {res['decode_step_ms']:.2f} ms, "
+          f"{res['straggler_events']} straggler events; injected vs eager "
+          f"prefill logits {res['logits_rel']:.4e} over all rows; launches "
+          f"K1 {counts['matmul']} (f32 {f32}), K2 "
+          f"{counts['flash_attention']}", flush=True)
+    print(f"[examples] re-plans: {res['replans']}", flush=True)
+    by_path["jamba_v0_1_52b fault-tolerant serving"] = counts
+    out["fault_tolerant"] = {
+        "wall_s": wall, "prefill_ms": res["prefill_ms"],
+        "decode_step_ms": res["decode_step_ms"],
+        "straggler_events": res["straggler_events"],
+        "logits_rel": res["logits_rel"], "k1_f32": f32, **routing,
+        **{k: v for k, v in counts.items() if not k.endswith("variant")}}
+    del res, ft
+    torch.cuda.empty_cache()
+
+    # the seed's reference paths beside today's: one PPO fit each
+    from repro_torch.configs.neurovec import DEFAULT as NV
+    from repro_torch.core import dataset
+    from repro_torch.core.agents.ppo import PPOAgent
+    from repro_torch.core.env import CostModelEnv
+    sites = dataset.generate(256, seed=0)
+    if SEED_FIT_STEPS % NV.train_batch:
+        fail("the seed-path fits must take whole batches")
+    fits = {}
+    for fused in (False, True):
+        env = CostModelEnv(NV, legality="h100", vectorized=fused)
+        agent = PPOAgent(NV, seed=0, fused=fused, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.fit(sites, env, total_steps=SEED_FIT_STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        greedy = agent.act(sites)
+        n_mb = agent.last_minibatch_count
+        want = NV.ppo_epochs * (NV.train_batch // NV.sgd_minibatch)
+        if not fused and n_mb != want:
+            fail(f"seed path: {n_mb} minibatches an update, want {want}")
+        legal = float(np.isfinite(env.costs_batch(sites, greedy)).mean())
+        fits["seed" if not fused else "fused"] = {
+            "fit_s": dt, "minibatches": n_mb, "legal_share": legal,
+            "last_reward_mean": agent.history[-1]["reward_mean"]}
+        print(f"[examples] PPO fused={fused} against CostModelEnv("
+              f"vectorized={fused}, legality=h100): {SEED_FIT_STEPS} steps "
+              f"on dataset.generate(256) in {dt:.2f} s ({n_mb} minibatches "
+              f"an update; last batch's mean reward "
+              f"{agent.history[-1]['reward_mean']:.4f}; greedy tiles legal "
+              f"at {legal * 100:.1f}% of the sites; a record, not a "
+              f"benchmark)", flush=True)
+    out["ppo_fits"] = fits
+    return by_path, out
 
 
 def serving_phase(q_eager, k1_done, k2_done, gen, sl):
@@ -4355,10 +4631,27 @@ def main() -> int:
           flush=True)
     phase_done("13 service and serving")
 
-    # ---- phase 14: several ranks and the dry-run ----
-    dist_out = distribution_phase()
+    # ---- phases 14 and 15: several ranks and the dry-run; the last four
+    # examples and the seed paths (before the kernels line: the
+    # fault-tolerant serve's launches count there), while the dry-run's
+    # production cells trace on the CPU ----
+    cells = start_production_cells()
+    try:
+        dist_out = distribution_phase()
+        phase_done("14 distribution")
+        ex_paths, examples = examples_phase()
+        by_path.update(ex_paths)
+        print("[examples] summary " + json.dumps(examples, default=str),
+              flush=True)
+        phase_done("15 examples and seed paths")
+        dist_out["production"] = production_cells(cells)
+        phase_done("14 dry-run cells (after 15)")
+    finally:
+        for proc in cells.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print("[dist] summary " + json.dumps(dist_out, default=str), flush=True)
-    phase_done("14 distribution")
     print(f"[timing] all phases: {sum(walls.values()):.1f} s", flush=True)
     total = {k: sum(c[k] for c in by_path.values())
              for k in ("matmul", "flash_attention", "chunk_scan")}

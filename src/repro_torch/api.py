@@ -150,7 +150,8 @@ class NeuroVectorizer:
     measured oracle's timings (a repeat run times nothing; a
     ``fleet://host:port`` path attaches the shared store);
     ``oracle_kwargs`` are :class:`~repro_torch.measure.MeasureRunner`
-    options (``reps=``, ``warmup=``).  ``program_store`` (a
+    options (``reps=``, ``warmup=``, ``max_dim=``, ``max_batch=``,
+    ``seed=``).  ``program_store`` (a
     :class:`ProgramStore`, borrowed, or a path, owned; ``fleet://`` too)
     memoizes finished programs per (site set, agent state, oracle
     backend); ``agent_inferences`` / ``store_hits`` / ``store_misses``
@@ -425,7 +426,7 @@ class NeuroVectorizer:
         ``embed_fn``); ``oracle=``/``transport=`` are needed where the
         saver's were hand-built.  ``device`` is this process's.  A
         measured recipe whose ``oracle_kwargs`` hold an option the port's
-        runner lacks (the reference's ``interpret``, ``max_dim``) raises
+        runner lacks (the reference's ``interpret``) raises
         :class:`ArtifactError` naming it.  A recipe saved around a live
         ``SurrogateModel`` (``"custom"``) retrains from the DB under
         ``oracle="measured"``, and needs ``surrogate=`` under

@@ -15,6 +15,11 @@ tree and the Adam state have the reference's structure, so a JAX
 ``torch.Generator`` (JAX's random bits cannot be reproduced), so training
 agrees with the reference only statistically while greedy acting from
 the same weights agrees exactly.
+
+``PPOAgent(fused=False)`` is the seed's path, kept as the reference for
+benchmarks as in the JAX package: features computed anew on every call
+(no memo), the un-factored embedder, and an update that drops the tail
+minibatch (``last_minibatch_count == ppo_epochs * (n // mb)``).
 """
 from __future__ import annotations
 
@@ -91,10 +96,13 @@ def _head_logits(head_sizes, out, valid_sizes):
 
 
 def policy_forward(params, head_sizes, contexts, mask, valid_sizes,
-                   mode: str = "discrete"):
+                   mode: str = "discrete", fast_embed: bool = True):
     """-> (per-head logits, value), or for a continuous mode ((B, 2n)
-    Gaussian parameters ``[mu, logstd]``, value)."""
-    code = emb.embed_sites(params["embedder"], contexts, mask)
+    Gaussian parameters ``[mu, logstd]``, value).  ``fast_embed=False``
+    runs the un-factored embedder :func:`~repro_torch.core.embedding.
+    embed_sites_ref` (the seed's path)."""
+    embed = emb.embed_sites if fast_embed else emb.embed_sites_ref
+    code = embed(params["embedder"], contexts, mask)
     h = torch.tanh(_mlp(params["trunk"], code))
     out = _mlp(params["pi"], h)
     v = _mlp(params["vf"], h)[:, 0]
@@ -190,6 +198,7 @@ class PPOAgent:
     seed: int = 0
     lr: Optional[float] = None
     device: str = "cuda"
+    fused: bool = True           # False: the seed's update path (below)
 
     name = "ppo"
 
@@ -234,7 +243,8 @@ class PPOAgent:
 
     # -- featurization ----------------------------------------------------
     def feats(self, sites):
-        ctx, mask = emb.featurize_batch(sites)
+        # the seed's path (fused=False) featurizes anew on every call
+        ctx, mask = emb.featurize_batch(sites, cache=self.fused)
         vs = np.array([self.space.valid_sizes(s.kind) for s in sites],
                       np.int64)
         return (torch.as_tensor(ctx, dtype=torch.long, device=self._dev),
@@ -248,7 +258,7 @@ class PPOAgent:
 
     def _forward(self, ctx, mask, vs):
         return policy_forward(self.params, self.head_sizes, ctx, mask, vs,
-                              self.mode)
+                              self.mode, fast_embed=self.fused)
 
     @torch.no_grad()
     def sample_actions(self, sites, feats=None):
@@ -403,7 +413,9 @@ class PPOAgent:
         return float(loss.detach())
 
     def update(self, sites, actions, raw, old_logp, rewards, feats=None):
-        """PPO epochs over shuffled minibatches, the tail included."""
+        """PPO epochs over shuffled minibatches, the tail included; with
+        ``fused=False`` the seed's loop, which drops the tail.  Returns
+        the mean of the minibatches' losses."""
         ctx, mask, vs = feats if feats is not None else self.feats(sites)
         dev = self._dev
         data = (ctx, mask, vs, torch.as_tensor(actions, device=dev).long(),
@@ -414,9 +426,11 @@ class PPOAgent:
         mb = min(self.nv.sgd_minibatch, n)
         losses = []
         self.last_minibatch_count = 0
+        # the seed's loop stops before a tail shorter than a minibatch
+        end = n if self.fused else n - mb + 1
         for _ in range(self.nv.ppo_epochs):
             perm = torch.randperm(n, generator=self._gen, device=dev)
-            for i in range(0, n, mb):
+            for i in range(0, end, mb):
                 losses.append(self._step(data, perm[i:i + mb]))
         return float(np.mean(losses))
 

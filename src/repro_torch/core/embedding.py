@@ -72,13 +72,17 @@ _FEAT_CACHE: dict = {}
 _FEAT_CACHE_MAX = 65536
 
 
-def featurize(site: KernelSite) -> Tuple[np.ndarray, np.ndarray]:
+def featurize(site: KernelSite,
+              cache: bool = True) -> Tuple[np.ndarray, np.ndarray]:
     """-> (contexts (MAX_PATHS, 3) int32, mask (MAX_PATHS,) f32),
-    memoized (read-only arrays)."""
+    memoized (read-only arrays).  ``cache=False`` neither reads nor fills
+    the memo and returns fresh, writable arrays of the same values (the
+    seed's path, ``PPOAgent(fused=False)``)."""
     key = site.key()
-    hit = _FEAT_CACHE.get(key)
-    if hit is not None:
-        return hit
+    if cache:
+        hit = _FEAT_CACHE.get(key)
+        if hit is not None:
+            return hit
     leaves = _leaf_tokens(site)
     ctxs = []
     for (ta, ca), (tb, cb) in itertools.combinations(leaves, 2):
@@ -93,16 +97,18 @@ def featurize(site: KernelSite) -> Tuple[np.ndarray, np.ndarray]:
     for i, c in enumerate(ctxs):
         arr[i] = c
         mask[i] = 1.0
-    arr.flags.writeable = False
-    mask.flags.writeable = False
-    if len(_FEAT_CACHE) >= _FEAT_CACHE_MAX:
-        _FEAT_CACHE.clear()
-    _FEAT_CACHE[key] = (arr, mask)
+    if cache:
+        arr.flags.writeable = False
+        mask.flags.writeable = False
+        if len(_FEAT_CACHE) >= _FEAT_CACHE_MAX:
+            _FEAT_CACHE.clear()
+        _FEAT_CACHE[key] = (arr, mask)
     return arr, mask
 
 
-def featurize_batch(sites) -> Tuple[np.ndarray, np.ndarray]:
-    fs = [featurize(s) for s in sites]
+def featurize_batch(sites, cache: bool = True
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    fs = [featurize(s, cache=cache) for s in sites]
     return (np.stack([f[0] for f in fs]), np.stack([f[1] for f in fs]))
 
 

@@ -99,26 +99,44 @@ class CostModelEnv:
     rule without its dtype clause (the serve path's on the CPU);
     ``"tpu_v5e"`` reproduces the reference's VMEM rule exactly.  A site
     whose baseline tile is illegal has an infinite baseline, and every
-    action there earns the penalty."""
+    action there earns the penalty.
+
+    ``vectorized=True`` (the default) prices batches with the vectorized
+    engine and caches each site's baseline; ``vectorized=False`` is the
+    reference's scalar path, kept for parity tests and benchmarks:
+    ``reward`` and ``speedup`` recompute the baseline on every call,
+    ``costs_batch`` and ``rewards_batch`` loop over the sites, and
+    ``speedups_batch`` recomputes the baselines.  Both draw the same
+    reward noise in the same order."""
 
     def __init__(self, nv_cfg: NeuroVecConfig, seed: int = 0,
-                 legality: str = costmodel.DEFAULT_LEGALITY):
+                 legality: str = costmodel.DEFAULT_LEGALITY,
+                 vectorized: bool = True):
         self.cfg = nv_cfg
         self.space = ActionSpace(nv_cfg)
         self.legality = costmodel.check_legality(legality)
+        self.vectorized = vectorized
         self._rng = np.random.default_rng(seed)
         self._baseline_cache: Dict[str, float] = {}
 
     # -- baseline cache ----------------------------------------------------
+    def _fresh_baseline(self, site: KernelSite) -> float:
+        c = costmodel.site_cost(site, costmodel.baseline_tiles(site),
+                                self.legality)
+        return math.inf if c is None else c
+
     def baseline_cost(self, site: KernelSite) -> float:
         key = site.key()
         c = self._baseline_cache.get(key)
         if c is None:
-            c = costmodel.site_cost(site, costmodel.baseline_tiles(site),
-                                    self.legality)
-            c = math.inf if c is None else c
-            self._baseline_cache[key] = c
+            c = self._baseline_cache[key] = self._fresh_baseline(site)
         return c
+
+    def _call_baseline(self, site: KernelSite) -> float:
+        """The baseline a scalar call uses: cached, or recomputed on the
+        reference's scalar path."""
+        return (self.baseline_cost(site) if self.vectorized
+                else self._fresh_baseline(site))
 
     def baseline_costs(self, sites: Sequence[KernelSite]) -> np.ndarray:
         keys = [s.key() for s in sites]
@@ -139,7 +157,7 @@ class CostModelEnv:
         t = self.cost(site, action)
         if t is None:
             return float(self.cfg.fail_penalty)
-        t_base = self.baseline_cost(site)
+        t_base = self._call_baseline(site)
         if not math.isfinite(t_base):
             return float(self.cfg.fail_penalty)
         if self.cfg.reward_noise > 0:
@@ -152,7 +170,7 @@ class CostModelEnv:
 
     def speedup(self, site: KernelSite, action: Sequence[int]) -> float:
         t = self.cost(site, action)
-        t_base = self.baseline_cost(site)
+        t_base = self._call_baseline(site)
         if t is None or not math.isfinite(t_base):
             return 1.0 / float(self.cfg.illegal_slowdown)
         return float(t_base / t)
@@ -161,10 +179,17 @@ class CostModelEnv:
     def costs_batch(self, sites, actions) -> np.ndarray:
         if not len(sites):
             return np.zeros((0,), np.float64)
+        if not self.vectorized:
+            return np.array([c if (c := self.cost(s, a)) is not None
+                             else np.inf for s, a in zip(sites, actions)],
+                            np.float64)
         return costmodel_vec.costs_for_actions(self.space, sites, actions,
                                                self.legality)
 
     def rewards_batch(self, sites, actions) -> np.ndarray:
+        if not self.vectorized:
+            return np.array([self.reward(s, a)
+                             for s, a in zip(sites, actions)], np.float32)
         if not len(sites):
             return np.zeros((0,), np.float32)
         t = self.costs_batch(sites, actions)
@@ -182,7 +207,8 @@ class CostModelEnv:
 
     def speedups_batch(self, sites, actions) -> np.ndarray:
         t = self.costs_batch(sites, actions)
-        t_base = self.baseline_costs(sites)
+        t_base = (self.baseline_costs(sites) if self.vectorized
+                  else np.array([self._fresh_baseline(s) for s in sites]))
         return np.where(np.isfinite(t) & np.isfinite(t_base),
                         t_base / np.maximum(t, 1e-300),
                         1.0 / float(self.cfg.illegal_slowdown))
@@ -239,7 +265,8 @@ class MeasuredEnv(CostModelEnv):
                  legality: str = costmodel.DEFAULT_LEGALITY,
                  prune_topk: Optional[int] = None, surrogate=None, *,
                  breaker_threshold: int = 2):
-        super().__init__(nv_cfg, seed=seed, legality=legality)
+        super().__init__(nv_cfg, seed=seed, legality=legality,
+                         vectorized=True)
         if breaker_threshold < 1:
             raise ValueError(
                 f"breaker_threshold must be >= 1, got {breaker_threshold}")

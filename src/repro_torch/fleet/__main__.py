@@ -15,7 +15,8 @@ then serves until SIGINT or SIGTERM and drains.
         --versions-dir /data/versions --keep 3
 
 ``serve-worker``'s runner options are the port's (``--reps``, ``--warmup``,
-``--device``, default ``cuda``); a runner that asks for the card where
+``--device``, default ``cuda``, and the reference's shape caps
+``--max-dim`` and ``--max-batch``); a runner that asks for the card where
 there is none fails to start.
 """
 import argparse
@@ -52,10 +53,13 @@ def _serve_worker(args) -> int:
             transport = InProcessTransport(
                 getattr(importlib.import_module(mod), attr)())
     else:
+        caps = {k: v for k, v in (("max_dim", args.max_dim),
+                                  ("max_batch", args.max_batch))
+                if v is not None}
         transport = make_transport(
             args.transport,
             workers=args.workers if args.transport == "pool" else None,
-            reps=args.reps, warmup=args.warmup, device=args.device)
+            reps=args.reps, warmup=args.warmup, device=args.device, **caps)
     server = MeasureServer(transport, host=args.host, port=args.port)
     print(f"[fleet] serve-worker: transport={args.transport} "
           f"slots={server.slots} backend={transport.backend_key}",
@@ -98,6 +102,12 @@ def main(argv=None) -> int:
     w.add_argument("--warmup", type=int, default=1)
     w.add_argument("--device", default="cuda",
                    help="where the runner measures: cuda (default) or cpu")
+    w.add_argument("--max-dim", type=int, default=None,
+                   help="cap every site dimension (0: none; default: "
+                        "the device's, none on the card, 128 on the CPU)")
+    w.add_argument("--max-batch", type=int, default=None,
+                   help="cap the batch dimension (0: none; default: "
+                        "the device's, none on the card, 2 on the CPU)")
     w.add_argument("--factory", default=None,
                    help="module:attr runner factory override (test seam)")
 

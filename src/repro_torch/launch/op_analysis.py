@@ -20,9 +20,27 @@ that DTensor dispatches on each rank's shards.
                     the largest sites.
 
 Loops need no trip counts: Python runs every iteration, so a layer
-recomputed under ``torch.utils.checkpoint`` is counted as executed.
+recomputed under ``torch.utils.checkpoint`` is counted as executed.  The
+one exception is the sLSTM's loop over time, which at a long sequence is
+millions of fake dispatches: while counting it runs as a batched body
+over blocks of the time axis (``models/xlstm.py:_slstm_counted``, taken
+only where :func:`counting_active` holds for the step's fake tensors),
+the way the reference counts a ``lax.scan`` body once times its trip
+count.  Its flops and collectives are the stepwise loop's exactly.  The
+bytes the loop moves beyond the body are added by :func:`add_bytes`, in
+the forward and in the backward, and what it saves for the backward
+beyond the body is held as one live fake buffer: R's re-reads among them
+(each of S steps copies the recurrent weight R into the product's
+layout, reads the copy and keeps it for the backward, which writes the
+step's part of dR and adds it into the sum, where the body touches R
+once or twice), and each step's gradient the size of the whole input
+projection.  The loop is counted at 3, 4 and 5 steps on fake tensors and
+extended to S as the polynomial of degree 2 in S that these bytes are.
 DTensor's sharding propagation runs each op once on global-shape fake
-tensors to learn its output's shape; those runs are not counted.
+tensors to learn its output's shape; those runs are not counted.  Nor
+are the ops the fake mode runs to decompose an op it was handed (it does
+so the first time it meets a signature, and then caches the result), so
+a count does not depend on what the process ran before.
 
 The mode also follows the bytes of live fake storage (``peak_bytes``):
 each storage counts from the op that makes it until its last tensor is
@@ -31,6 +49,7 @@ freed.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import traceback
 import weakref
@@ -53,6 +72,28 @@ _NO_DATA = {"empty", "empty_strided", "empty_like", "new_empty",
             "is_same_size", "_to_copy_meta", "wait_tensor"}
 
 _TLS = threading.local()
+_ACTIVE: list = []               # the counters counting, innermost last
+
+
+def counting_active(t: torch.Tensor = None) -> bool:
+    """True while an :class:`OpCounter` counts in this process (and, with
+    ``t``, when ``t`` is one of its fake tensors): the predicate of the
+    count-only stand-ins.  A real tensor never satisfies it."""
+    if not _ACTIVE:
+        return False
+    return t is None or isinstance(t, torch._subclasses.FakeTensor)
+
+
+def active_counter() -> "OpCounter":
+    """The innermost counter counting (``None`` when none is)."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def add_bytes(n: float) -> None:
+    """Add ``n`` bytes of traffic to the counting counter (a stand-in's
+    share of work it did not dispatch)."""
+    if _ACTIVE and not _in_propagation():
+        _ACTIVE[-1].bytes += n
 
 
 def _in_propagation() -> bool:
@@ -130,6 +171,7 @@ class OpCounter(FakeTensorMode):
 
     def __init__(self):
         super().__init__(allow_non_fake_inputs=True)
+        self._depth = 0           # plain ops being dispatched, nested
         self.reset()
 
     def reset(self):
@@ -140,6 +182,22 @@ class OpCounter(FakeTensorMode):
         self._live = {}           # storage id -> [bytes, live tensors]
         self.live_bytes = 0
         self.peak_bytes = 0
+
+    def snapshot(self) -> tuple:
+        """The counts, to :meth:`restore` after a probe whose ops must
+        not count (its tensors freed by then)."""
+        return (self.flops, self.bytes, dict(self.coll),
+                dict(self.coll_sites), self.live_bytes, self.peak_bytes)
+
+    def restore(self, snap: tuple) -> None:
+        flops, nbytes, coll, sites, live, peak = snap
+        if self.live_bytes != live:        # a probe tensor in a cycle
+            gc.collect()
+        if self.live_bytes != live:
+            raise RuntimeError("a probe's fake tensors outlived it")
+        self.flops, self.bytes, self.peak_bytes = flops, nbytes, peak
+        self.coll = defaultdict(float, coll)
+        self.coll_sites = defaultdict(float, sites)
 
     # -- live storage -----------------------------------------------------
     def _release(self, key):
@@ -174,8 +232,12 @@ class OpCounter(FakeTensorMode):
         flat, _ = tree_flatten((args, kwargs))
         if any(_is_dtensor(a) for a in flat):
             return super().__torch_dispatch__(func, types, args, kwargs)
-        out = super().__torch_dispatch__(func, types, args, kwargs)
-        if not _in_propagation():
+        self._depth += 1
+        try:
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+        finally:
+            self._depth -= 1
+        if not self._depth and not _in_propagation():
             self._count(func, flat, out)
         return out
 
@@ -215,7 +277,11 @@ class OpCounter(FakeTensorMode):
         """Count what runs inside (this mode active, DTensor's shape
         propagation left out)."""
         with self, _dtensor_patched():
-            yield self
+            _ACTIVE.append(self)
+            try:
+                yield self
+            finally:
+                _ACTIVE.remove(self)
 
 
 def analyze(fn, *args, counter: OpCounter = None) -> dict:

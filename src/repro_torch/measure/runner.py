@@ -13,8 +13,9 @@ On the card (``device="cuda"``, the default) the Hopper kernels run at the
 sites' full shapes.  With ``device="cpu"``, asked for explicitly, the
 wrappers take their plain PyTorch versions and the site dimensions are
 capped as the reference caps them in interpret mode (128, and 2 on
-batch): a proxy that exercises every seam, not a device time.  There is
-no quiet fall back from the card to the CPU.
+batch): a proxy that exercises every seam, not a device time.
+``max_dim``/``max_batch`` set the caps on either device.  There is no
+quiet fall back from the card to the CPU.
 
 Failure isolation is per pair: a tile whose kernel raises (a tile the
 kernel refuses, a CUDA error, out of memory) yields ``inf``, the
@@ -25,7 +26,7 @@ penalty, is counted in ``failed_pairs`` and keeps its exception in
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,7 +40,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 MAX_FAILURES_KEPT = 64
 # the reference's interpret-mode caps, applied on the CPU only
 CPU_MAX_DIM, CPU_MAX_BATCH = 128, 2
-SEED = 0                         # of every pair's inputs
 
 
 def _ceil_mult(x: int, m: int) -> int:
@@ -50,20 +50,27 @@ class MeasureRunner:
     """Batched build-and-time hook: ``runner(sites, tiles) -> (n,) s``.
 
     ``reps``/``warmup``: the timing loop.  ``device``: ``"cuda"`` (the
-    kernels, uncapped) or ``"cpu"`` (the plain versions, every dimension
-    capped to ``CPU_MAX_DIM`` and the batch to ``CPU_MAX_BATCH``); capped
-    lengths are snapped to tile multiples, so every tile the predicate
-    admits runs.  The inputs come from ``SEED``."""
+    kernels) or ``"cpu"`` (the plain versions).  ``max_dim``/``max_batch``
+    cap every dimension and the batch (0: uncapped); ``None`` takes the
+    device's default, uncapped on the card and ``CPU_MAX_DIM``/
+    ``CPU_MAX_BATCH`` on the CPU.  Capped lengths are snapped to tile
+    multiples, so every tile the predicate admits runs.  ``seed``: of
+    every pair's inputs."""
 
-    def __init__(self, *, reps: int = 3, warmup: int = 1, device="cuda"):
+    def __init__(self, *, reps: int = 3, warmup: int = 1, device="cuda",
+                 max_dim: Optional[int] = None,
+                 max_batch: Optional[int] = None, seed: int = 0):
         if reps < 1:
             raise ValueError(f"reps must be >= 1, got {reps}")
         self.device = resolve_device(device)
         plain = self.device.type == "cpu"
-        self.max_dim = CPU_MAX_DIM if plain else 0          # 0: uncapped
-        self.max_batch = CPU_MAX_BATCH if plain else 0
+        self.max_dim = (CPU_MAX_DIM if plain else 0) if max_dim is None \
+            else max_dim
+        self.max_batch = (CPU_MAX_BATCH if plain else 0) \
+            if max_batch is None else max_batch
         self.reps = reps
         self.warmup = warmup
+        self.seed = seed
         self.timed_pairs = 0            # successful timings performed
         self.failed_pairs = 0           # pairs that raised (-> inf)
         self.failures: list = []        # (site key, tiles, "Type: message")
@@ -72,12 +79,18 @@ class MeasureRunner:
     @property
     def backend_key(self) -> str:
         """Measurement-conditions fingerprint for the persistent DB key:
-        torch and CUDA versions, the device's name and the mode."""
+        torch and CUDA versions, the device's name and the mode, with the
+        caps wherever they apply and a seed other than 0 (an uncapped
+        card at seed 0 keeps the key it always had)."""
+        caps = f"(dim<={self.max_dim},b<={self.max_batch})"
         if self.device.type == "cuda":
-            name, mode = torch.cuda.get_device_name(self.device), "kernels"
+            name = torch.cuda.get_device_name(self.device)
+            mode = "kernels" + (caps if self.max_dim or self.max_batch
+                                else "")
         else:
-            name = "cpu"
-            mode = f"plain(dim<={self.max_dim},b<={self.max_batch})"
+            name, mode = "cpu", "plain" + caps
+        if self.seed:
+            mode += f":seed{self.seed}"
         return (f"torch{torch.__version__}:cuda{torch.version.cuda or '-'}"
                 f":{name}:{mode}")
 
@@ -93,7 +106,7 @@ class MeasureRunner:
         """A zero-argument callable running the site's kernel under the
         candidate tiles, its inputs already on the device."""
         from repro_torch.kernels import ops
-        gen = torch.Generator(device=self.device).manual_seed(SEED)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
         dt = _DTYPES.get(str(site.dtype), torch.bfloat16)
         t = tuple(int(x) for x in tiles)
 

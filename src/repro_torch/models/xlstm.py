@@ -13,16 +13,20 @@ weights.
 Caches are views into the model's stacked cache and are written IN PLACE
 (the reference returns fresh ones).  On ``meta`` tensors (site
 extraction) the recurrences compute nothing: the sites are recorded before
-and after them.
+and after them.  Under the dry-run's op counter (fake tensors) the sLSTM's
+loop over time runs as a batched body plus what the loop counts beyond it
+(:func:`_slstm_counted`).
 """
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import op_analysis
 from repro_torch.models import compute
 from repro_torch.models.common import dense_init, gelu, log_sigmoid
 
@@ -244,13 +248,166 @@ def apply_slstm(cfg: ModelConfig, p, x, *, cache: Optional[dict] = None,
     else:
         zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
         st = (zero, zero, zero, torch.full_like(zero, NEG))
-    hs = []
-    for t in range(S):
-        st = _slstm_cell(cfg, p, wx[:, t], st)
-        hs.append(st[0])
+    if S > 1 and op_analysis.counting_active(wx):
+        hs, st = _slstm_counted(cfg, p, wx, st)
+    else:
+        hs, st = _slstm_stepwise(cfg, p["r"], p["b"], wx, st)   # (B,S,d)
     _write(cache, dict(zip(("h", "c", "n", "m"), st)))
-    y = torch.stack(hs, dim=1).to(x.dtype)                   # (B,S,d)
-    return _slstm_out(cfg, p, y)
+    return _slstm_out(cfg, p, hs.to(x.dtype))
+
+
+class _Uncounted(torch.autograd.Function):
+    """Identity on R that adds to the op counter the bytes the stepwise
+    loop moves beyond the batched body, ``fwd`` in the forward and
+    ``bwd`` in the backward, and holds ``held`` bytes (what the loop
+    saves for the backward beyond what the body saves) as one fake
+    buffer until the backward."""
+
+    @staticmethod
+    def forward(ctx, r, fwd: int, bwd: int, held: int):
+        op_analysis.add_bytes(fwd)
+        ctx.bwd = bwd
+        ctx.save_for_backward(r.new_empty((max(held, 0),),
+                                          dtype=torch.uint8))
+        return r.view_as(r)
+
+    @staticmethod
+    def backward(ctx, g):
+        op_analysis.add_bytes(ctx.bwd)
+        return g, None, None, None
+
+
+def _slstm_batched(cfg, r, b, wx, state):
+    """The S steps of :func:`_slstm_cell` as one body over the time axis,
+    for the op counter only: fake tensors carry no values, so only
+    shapes, dtypes and what autograd saves matter.  Step 0 takes the
+    initial state; steps 1..S-1 take stand-ins of the carried state cut
+    from ``wx`` (they need a gradient wherever the carried state would).
+    So the recurrent product runs as two products whose 2·M·N·K sum to S
+    steps' in the forward and in the backward, and the gates run
+    elementwise on (B, S, d).  -> ((B,S,d) h, the final state)."""
+    B, S, _, d = wx.shape
+    nh = cfg.n_heads
+    c0, n0, m0 = (torch.cat([s[:, None], wx[:, 1:, g]], dim=1)
+                  for g, s in enumerate(state) if g)          # (B,S,d)
+    rec0 = torch.einsum("ghde,bhd->gbhe", r,
+                        state[0].reshape(B, nh, d // nh))
+    rest = torch.einsum("ghde,bshd->gbshe", r,
+                        wx[:, 1:, 0].reshape(B, S - 1, nh, d // nh))
+    rec = torch.cat([rec0[:, :, None], rest], dim=2).reshape(4, B, S, d)
+    pre = wx.movedim(2, 0) + rec + b.reshape(4, 1, 1, d)
+    it, ft, zt, ot = pre[0], pre[1], pre[2], pre[3]
+    lf = log_sigmoid(ft)
+    m1 = torch.maximum(lf + m0, it)
+    ig = torch.exp(it - m1)
+    fg = torch.exp(lf + m0 - m1)
+    c1 = fg * c0 + ig * torch.tanh(zt)
+    n1 = fg * n0 + ig
+    h1 = torch.sigmoid(ot) * c1 / torch.clamp(n1, min=1e-6)
+    return h1, tuple(t[:, -1] for t in (h1, c1, n1, m1))
+
+
+def _slstm_stepwise(cfg, r, b, wx, state):
+    hs = []
+    for t in range(wx.shape[1]):
+        state = _slstm_cell(cfg, {"r": r, "b": b}, wx[:, t], state)
+        hs.append(state[0])
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_blocked(cfg, r, b, wx, state):
+    """:func:`_slstm_batched` over blocks of :data:`COUNT_BLOCK` steps,
+    the state carried from block to block: a few dispatches a block, and
+    no temporary larger than a block's."""
+    hs = []
+    for part in wx.split(COUNT_BLOCK, dim=1):
+        h, state = (_slstm_batched if part.shape[1] > 1
+                    else _slstm_stepwise)(cfg, r, b, part, state)
+        hs.append(h)
+    return torch.cat(hs, dim=1), state
+
+
+COUNT_BLOCK = 512                # steps the counted body takes at once
+_PROBE_STEPS = (3, 4, 5)
+_PROBES: dict = {}
+
+
+def _probe(cfg, body, n, wx, leaves, state):
+    """(forward bytes, backward bytes, bytes held between them) of
+    ``body`` over ``n`` steps on fresh fake tensors shaped like the
+    call's, counted and then taken back out of the counter."""
+    counter = op_analysis.active_counter()
+    snap = counter.snapshot()
+    like = lambda t: t.new_empty(t.shape).requires_grad_(t.requires_grad)
+    B, _, g, d = wx.shape
+    x = wx.new_empty((B, n, g * d)).requires_grad_(wx.requires_grad)
+    r, b = (like(t) for t in leaves)
+    st = tuple(t.new_empty(t.shape) for t in state)
+    ins = [t for t in (x, r, b) if t.requires_grad]
+    live0, bytes0 = counter.live_bytes, counter.bytes
+    # (B, n, 4, d) as apply_slstm shapes it, so that the gradient meets
+    # the same reshape
+    hs, last = body(cfg, r, b, x.reshape(B, n, g, d), st)
+    fwd, held = counter.bytes - bytes0, counter.live_bytes - live0
+    bwd = 0
+    if ins and hs.requires_grad:
+        dh = torch.empty_like(hs)
+        bytes1 = counter.bytes
+        torch.autograd.grad(hs, ins, dh)
+        bwd = counter.bytes - bytes1
+        del dh
+    del hs, last, ins, x, r, b, st
+    counter.restore(snap)
+    return fwd, bwd, held
+
+
+def _probed(cfg, body, n, wx, leaves, state):
+    key = (body.__name__, n, tuple(wx.shape[:1] + wx.shape[2:]), wx.dtype,
+           cfg.n_heads, torch.is_grad_enabled(), wx.requires_grad,
+           tuple((t.dtype, t.requires_grad) for t in leaves),
+           tuple(t.dtype for t in state), COUNT_BLOCK)
+    if key not in _PROBES:
+        # saved tensors kept as they are, whatever hooks the caller runs
+        # under (a checkpointed forward drops them)
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: t,
+                                                      lambda t: t):
+            _PROBES[key] = _probe(cfg, body, n, wx, leaves, state)
+    return _PROBES[key]
+
+
+def _stepwise_extra(cfg, p, wx, state):
+    """What the stepwise loop counts beyond :func:`_slstm_blocked` at
+    this call's S, as (forward bytes, backward bytes, held bytes).  The
+    loop is counted at 3, 4 and 5 steps on fake tensors of the call's
+    other shapes and extended to S as the polynomial of degree 2 in S
+    that it is (each step's backward writes a gradient the size of
+    ``wx``); the blocked body is counted at S itself.  Kept per shape,
+    dtype and gradient setting."""
+    S = wx.shape[1]
+    leaves = (p["r"], p["b"])
+    pts = [_probed(cfg, _slstm_stepwise, n, wx, leaves, state)
+           for n in _PROBE_STEPS]
+    body = _probed(cfg, _slstm_blocked, S, wx, leaves, state)
+    out = []
+    for j in range(3):           # Lagrange through the three probes, exact
+        v = Fraction(0)
+        for i, ni in enumerate(_PROBE_STEPS):
+            w = Fraction(pts[i][j])
+            for k, nk in enumerate(_PROBE_STEPS):
+                if k != i:
+                    w *= Fraction(S - nk, ni - nk)
+            v += w
+        out.append(int(v) - body[j])
+    return out
+
+
+def _slstm_counted(cfg, p, wx, state):
+    """The sLSTM under the op counter (``op_analysis.counting_active``;
+    see that module's docstring): :func:`_slstm_blocked`, plus the bytes
+    and the saved storage by which the stepwise loop exceeds it."""
+    fwd, bwd, held = _stepwise_extra(cfg, p, wx, state)
+    r = _Uncounted.apply(p["r"], fwd, bwd, held)
+    return _slstm_blocked(cfg, r, p["b"], wx, state)
 
 
 def _slstm_out(cfg, p, y):
