@@ -8,15 +8,22 @@ Phases, each printed before the last line:
   2. build: the four CUDA sources (K1's bf16 variants and its f32
      variant apart) compiled at once from csrc/ (seconds, ptxas); K1's,
      K2's and K3's libraries must hold HGMMA and UTMALDG instructions
-     (cuobjdump -sass), K1's f32 library FFMA and no HMMA or HGMMA (no
-     TF32), the f32, K2 and K3 builds no spill, and K3's static shared
-     memory (ptxas) must be its plan's;
+     (cuobjdump -sass), K1's also the TMA load multicast over a
+     thread-block cluster (a UTMALDG SASS marks MULTICAST, or in the PTX
+     nvcc makes of csrc/matmul.cu), K1's f32 library FFMA and no HMMA or
+     HGMMA (no TF32), the f32, K2 and K3 builds no spill, and K3's static
+     shared memory (ptxas) must be its plan's;
   3. kernels vs their plain PyTorch versions on the card, in bf16:
      K1 (tiled matmul) at every distinct qwen3_8b serve-site shape under the
-     baseline tiles, and a tile-invariance sweep over every legal tile of
-     one site, each tile timed beside the rate at which its operands reach
-     the SMs; K2 (flash attention) at (B=4, H=32, Hkv=8, S=512, D=128),
-     causal, v in the served layout (the transposed view of its
+     baseline tiles and, at the four prefill shapes, under a 16-row tile
+     (16, 256, 1024), and a tile-invariance sweep over every legal tile of
+     one site, each tile timed beside its layout (CTA tiles below 64 rows
+     swap the operands), its cluster, its CTAs an SM and the rate at which
+     its operands reach the SMs, summed by the rows a CTA loads; every K1
+     line prints the layout that ran, the cluster, the CTAs an SM and the
+     bytes TMA moves into the SMs, and fails where a tile below 64 rows
+     did not run swapped; K2 (flash attention) at (B=4, H=32, Hkv=8,
+     S=512, D=128), causal, v in the served layout (the transposed view of its
      projection), over every legal (bq, bkv), each line with the variant,
      device ms, share of the bound and ratio to SDPA (stream and device
      ms), and once at the
@@ -108,7 +115,8 @@ Phases, each printed before the last line:
      prompts) is what every injected StableLM-3B serve of phases 6, 9
      and 10 is held against;
   7. one JSON line describing each kernel of the paths (K1 and K2 with
-     their launches by variant and their StableLM-3B numbers, K1 also at
+     their launches by variant, K1's by layout too, and their StableLM-3B
+     numbers, K1 also at the 16-row tile's prefill lines and
      the train lm_head, K1 and K2 at each phase-12 arch's baseline tiles,
      K1's f32 variant at each MoE arch's router shapes and at phase 3's
      other f32 shapes,
@@ -300,6 +308,8 @@ HBM_BPS = 3.35e12           # H100 SXM HBM3 bytes/s (data sheet)
 K1_TOL = 3e-2               # rel. error vs f32 matmul_ref: bf16 output
                             # rounding (2^-8) with f32 accumulation, as in
                             # tests/test_kernels.py
+K1_ROWS16_TILE = (16, 256, 1024)  # a 16-row K1 tile, swapped, held at
+                            # the qwen3_8b prefill shapes in phase 3
 K1_F32_TOL = 1e-5           # K1's f32 variant vs the f32 product (TF32
                             # off), over its largest |output|: two f32
                             # summation orders; TF32 would show as 1e-3
@@ -432,6 +442,7 @@ def k1_agree(shape, tiles, gen):
     x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
     w = weight()
     before = dict(kmm.launches_by_variant)
+    before_layout = dict(kmm.launches_by_layout)
     y = ops.matmul(x, w, tiles=tiles)
     torch.cuda.synchronize()
     ran = [v for v in kmm.VARIANTS
@@ -439,6 +450,17 @@ def k1_agree(shape, tiles, gen):
     if len(ran) != 1 or sum(kmm.launches_by_variant.values()) != \
             sum(before.values()) + 1:
         fail(f"K1 did not launch once at {shape}: {ran}")
+    layout = [v for v in kmm.LAYOUTS
+              if kmm.launches_by_layout[v] != before_layout[v]]
+    plan = ops.matmul_launch_plan(M, N, K, tiles, kmm._sm_count(x.device),
+                                  w_kmajor=transposed)
+    if layout != [plan.layout]:
+        fail(f"K1 at {shape} tiles {tiles} ran the {layout} layout, its "
+             f"plan says {plan.layout}")
+    if plan.rows < ops.MM_SWAP_ROWS and ran[0] in ("tma_wgmma", "split_k") \
+            and layout != ["swapped"]:
+        fail(f"K1 at {shape} tiles {tiles}: {plan.rows} CTA rows did not "
+             f"run the swapped layout")
     yr = ref.matmul_ref(x, w).float()
     y_f32 = x.float() @ w.float()
     err = float((y.float() - y_f32).abs().max())
@@ -449,7 +471,10 @@ def k1_agree(shape, tiles, gen):
     # happen to sum K in an order that rounds alike)
     rec = {"err": err, "rel": rel, "variant": ran[0],
            "plain_err": float((y.float() - yr).abs().max()),
-           "n_ne_lib": int((y != torch.matmul(x, w)).sum())}
+           "n_ne_lib": int((y != torch.matmul(x, w)).sum()),
+           "layout": plan.layout, "cluster": plan.cluster,
+           "occupancy": plan.occupancy,
+           "operand_bytes": k1_operand_bytes(plan, K)}
     return x, w, weight, rec
 
 
@@ -489,8 +514,12 @@ def k1_check(shape, tiles, label, gen):
     share_ms, share_of = ms, "stream"
     if M <= 8 and dev_ms is not None:
         share_ms, share_of = dev_ms, "device"
+    into = rec["operand_bytes"] / ((dev_ms or ms) * 1e-3) / 1e12
     print(f"[k1:{label}] M={M} N={N} K={K}{' wT' if transposed else ''} "
-          f"tiles={tuple(tiles)} variant={variant} rel_err={rel:.2e} "
+          f"tiles={tuple(tiles)} variant={variant} layout={rec['layout']} "
+          f"C={rec['cluster']} CTAs/SM={rec['occupancy']} bytes_into_SMs="
+          f"{rec['operand_bytes'] / 1e6:.1f} MB ({into:.2f} TB/s) "
+          f"rel_err={rel:.2e} "
           f"|k-plain|={plain_err:.3e} !=torch.matmul: {n_ne_lib} of {M * N} "
           f"ms={ms:.4f} device_ms="
           f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} "
@@ -501,7 +530,8 @@ def k1_check(shape, tiles, label, gen):
     return {"err": err, "rel": rel, "ms": ms, "plain_ms": plain_ms,
             "n_ne_lib": n_ne_lib, "device_ms": dev_ms, "variant": variant,
             "lib_ms": lib_ms, "bound_s": b, "flops": 2.0 * M * N * K,
-            "bytes": 2.0 * (M * K + K * N + M * N)}
+            "bytes": 2.0 * (M * K + K * N + M * N),
+            "layout": rec["layout"]}
 
 
 def k1_f32_agree(shape, tiles, gen):
@@ -645,25 +675,30 @@ def k1_f32_checks(gen) -> dict:
 
 def k1_operand_bytes(plan, K: int) -> float:
     """Bytes TMA moves into the SMs for one call under ``plan``: each CTA
-    loads a (rows x 64) box of x and a (64 x cols) box of w per 64-deep
-    step of its run of K."""
+    (those of a cluster that lie past M too) loads a (rows x 64) box of x
+    per 64-deep step of its run of K, and each cluster of ``plan.cluster``
+    CTAs a (64 x cols) slab of w, multicast to all of them (one CTA, one
+    cluster, where ``cluster`` is 1)."""
     steps = sum(-(-(min(K, (z + 1) * plan.k_run) - z * plan.k_run) // 64)
                 for z in range(plan.splits))
-    return plan.grid_m * plan.grid_n * steps * (plan.rows + plan.cols) * 128
+    c = plan.cluster
+    ctas = -(-plan.grid_m // c) * c * plan.grid_n
+    return steps * (ctas * plan.rows + ctas // c * plan.cols) * 128
 
 
 def k1_sweep(site, gen):
     """Every legal tile of the action grid at one site gives the same
     function: compare each against the baseline tile's output.  Each
-    legal tile is also timed, beside the rate at which its operands
-    reach the SMs (``k1_operand_bytes`` over its ms): the padded wgmma
-    at rows < 64 is set by that rate if the rate is the same at rows
-    below and above 64."""
+    legal tile is also timed, beside its layout (swapped below 64 CTA
+    rows), its cluster and the rate at which its operands reach the SMs
+    (``k1_operand_bytes``, a w slab once a cluster, over its ms); the
+    summary groups the tiles by the rows a CTA loads."""
     import itertools
 
     import torch
     from repro_torch.configs.neurovec import DEFAULT as NV
     from repro_torch.core.costmodel import baseline_tiles
+    from repro_torch.kernels import matmul as kmm
     from repro_torch.kernels import ops
     M, N, K = site.m, site.n, site.k
     x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
@@ -683,23 +718,30 @@ def k1_sweep(site, gen):
                 continue
             fail(f"K1 launched the illegal tile {t}")
         n_legal += 1
-        d = float((ops.matmul(x, w, tiles=t).float() - y0).abs().max())
-        worst = max(worst, d / scale)
         plan = ops.matmul_launch_plan(M, N, K, t, sms)
+        before = kmm.launches_by_layout[plan.layout]
+        d = float((ops.matmul(x, w, tiles=t).float() - y0).abs().max())
+        if kmm.launches_by_layout[plan.layout] != before + 1:
+            fail(f"K1 at tile {t} did not run the {plan.layout} layout")
+        worst = max(worst, d / scale)
         ms = time_ms_over(lambda a, b: ops.matmul(a, b, tiles=t), [(x, w)],
                           reps=5)
-        rate = k1_operand_bytes(plan, K) / (ms * 1e-3) / 1e12
-        by_rows.setdefault(max(64, plan.rows), []).append((ms, rate, t))
+        nbytes = k1_operand_bytes(plan, K)
+        rate = nbytes / (ms * 1e-3) / 1e12
+        by_rows.setdefault(plan.rows, []).append((ms, rate, t))
         print(f"[k1:sweep] tiles={t} variant={plan.variant} CTA "
-              f"{max(64, plan.rows)}x{plan.cols} ({plan.rows} rows loaded) "
-              f"ms={ms:.4f} operands_into_SMs={rate:.2f} TB/s", flush=True)
+              f"{plan.rows}x{plan.cols} layout={plan.layout} "
+              f"C={plan.cluster} CTAs/SM={plan.occupancy} ms={ms:.4f} "
+              f"bytes_into_SMs="
+              f"{nbytes / 1e6:.1f} MB operands_into_SMs={rate:.2f} TB/s",
+              flush=True)
     torch.cuda.synchronize()
     if worst >= K1_TOL:
         fail(f"K1 tile sweep: max rel difference {worst:.3e}")
-    for rows_p, recs in sorted(by_rows.items()):
+    for rows, recs in sorted(by_rows.items()):
         recs.sort()
         rates = [r for _, r, _ in recs]
-        print(f"[k1:sweep] CTA rows {rows_p} ({len(recs)} tiles): ms "
+        print(f"[k1:sweep] rows loaded {rows} ({len(recs)} tiles): ms "
               f"{recs[0][0]:.4f}-{recs[-1][0]:.4f} (fastest {recs[0][2]}), "
               f"operands into the SMs {min(rates):.2f}-{max(rates):.2f} "
               f"TB/s", flush=True)
@@ -1147,8 +1189,9 @@ def zero_counts():
 
 
 def path_variants(path: str, counts: dict) -> None:
-    """K1's and K2's launches by variant since zero_counts(), into
-    ``counts``; a model path must never take an unaligned variant."""
+    """K1's and K2's launches by variant (K1's also by layout) since
+    zero_counts(), into ``counts``; a model path must never take an
+    unaligned variant."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
     for name, mod in (("matmul", kmm), ("flash_attention", kfa)):
@@ -1158,6 +1201,9 @@ def path_variants(path: str, counts: dict) -> None:
                  f"unaligned variant")
         print(f"[{path}] {name} launches by variant: {by}", flush=True)
         counts[f"{name}_by_variant"] = by
+    counts["matmul_by_layout"] = dict(kmm.launches_by_layout)
+    print(f"[{path}] matmul launches by layout: "
+          f"{counts['matmul_by_layout']}", flush=True)
 
 
 def read_counts():
@@ -1318,11 +1364,13 @@ def measured_path(arch, params=None, prompts=None, agent="ppo", extra=(),
 def worker_counts(worker_dir) -> dict:
     """The kernel launches that measurement workers reported: the sum of
     the ``worker-<pid>.json`` files they wrote under ``worker_dir``
-    (``REPRO_TORCH_LAUNCH_DIR``), K1's and K2's by variant too, and their
+    (``REPRO_TORCH_LAUNCH_DIR``), K1's and K2's by variant and K1's by
+    layout too, and their
     use of the card's timing lock (acquisitions, seconds waited and
     held)."""
     total = {"matmul": 0, "flash_attention": 0, "chunk_scan": 0,
              "matmul_by_variant": {}, "flash_attention_by_variant": {},
+             "matmul_by_layout": {},
              "timing_lock": {"acquires": 0, "wait_s": 0.0, "held_s": 0.0}}
     for f in sorted(Path(worker_dir).glob("worker-*.json")):
         c = json.loads(f.read_text())
@@ -1710,15 +1758,19 @@ def stablelm_path(gen):
 
 def take_counts(acc: dict) -> dict:
     """Add the launches since the last zero_counts() (and K1's and K2's by
-    variant) into ``acc``, zero the counters, and return the segment's."""
+    variant, K1's by layout) into ``acc``, zero the counters, and return
+    the segment's."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
     seg = read_counts()
     for k, v in seg.items():
         acc[k] = acc.get(k, 0) + v
-    for name, mod in (("matmul", kmm), ("flash_attention", kfa)):
-        by = acc.setdefault(f"{name}_by_variant", {})
-        for var, n in mod.launches_by_variant.items():
+    for key, counts in (("matmul_by_variant", kmm.launches_by_variant),
+                        ("flash_attention_by_variant",
+                         kfa.launches_by_variant),
+                        ("matmul_by_layout", kmm.launches_by_layout)):
+        by = acc.setdefault(key, {})
+        for var, n in counts.items():
             by[var] = by.get(var, 0) + n
     zero_counts()
     return seg
@@ -4388,6 +4440,8 @@ def sass_check() -> None:
               f"instructions", flush=True)
         if n_hgmma == 0 or n_tma == 0:
             fail(f"lib{name} holds no HGMMA or no UTMALDG instruction")
+        if name == "matmul":
+            multicast_check(sass)
     sass = subprocess.run([tool, "-sass", str(build._lib_path("matmul_f32"))],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
@@ -4413,6 +4467,33 @@ def sass_check() -> None:
         if got != {want}:
             fail(f"{kernel}'s static shared memory {sorted(got)} B is not "
                  f"the plan's {want} B (kernels/ops.py)")
+
+
+def multicast_check(sass: str) -> None:
+    """K1's library must hold the TMA load multicast over a thread-block
+    cluster (its swapped small-row tiles share each w slab so): a
+    UTMALDG that SASS marks MULTICAST, or where SASS does not name it, a
+    ``cp.async.bulk.tensor`` with ``.multicast::cluster`` in the PTX that
+    nvcc makes of csrc/matmul.cu for sm_90a."""
+    from repro_torch.kernels import build
+    lines = [ln for ln in sass.splitlines() if "UTMALDG" in ln]
+    n_mc = sum("MULTICAST" in ln for ln in lines)
+    if n_mc:
+        print(f"[build:matmul] SASS: {n_mc} multicast UTMALDG of "
+              f"{len(lines)}", flush=True)
+        return
+    out = ROOT / "build" / "matmul_check.ptx"
+    subprocess.run([build._nvcc(), "-arch=sm_90a", "-std=c++17", "-O3",
+                    "-ptx", "-I", str(build.CSRC), "-o", str(out),
+                    str(build.CSRC / "matmul.cu")],
+                   check=True, timeout=600, capture_output=True)
+    ptx = out.read_text()
+    n_ptx = len(re.findall(r"cp\.async\.bulk\.tensor\.2d\S*"
+                           r"multicast::cluster", ptx))
+    print(f"[build:matmul] SASS names no multicast on its {len(lines)} "
+          f"UTMALDG; PTX: {n_ptx} multicast::cluster TMA loads", flush=True)
+    if not n_ptx:
+        fail("libmatmul holds no TMA load multicast over a cluster")
 
 
 def _device_info():
@@ -4441,6 +4522,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.core.extractor import extract_serve_sites
     from repro_torch.kernels import build
+    from repro_torch.kernels import matmul as kmm
     from repro_torch.models.lm import build_model
 
     walls, t_phase = {}, time.perf_counter()
@@ -4480,11 +4562,15 @@ def main() -> int:
     shapes = k1_shapes(sites)
     k1_seen = {shape: k1_check(shape, baseline_tiles(s), "baseline", gen)
                for shape, s in shapes.items()}
+    # a 16-row tile, swapped and multicast, at the four prefill shapes
+    k1_rows16 = {shape: k1_check(shape, K1_ROWS16_TILE, "rows16", gen)
+                 for shape in shapes if shape[0] > 8}
     sweep_site = next(s for s in sites if s.kind == "matmul" and s.m > 1
                       and s.site == "attn.q")
     k1_sweep(sweep_site, gen)
     # (shape, tiles) pairs K1 was held at, for phase 13
     k1_done = {(shape, tuple(baseline_tiles(s))) for shape, s in shapes.items()}
+    k1_done |= {(shape, K1_ROWS16_TILE) for shape in k1_rows16}
     k1_done |= {((sweep_site.m, sweep_site.n, sweep_site.k, False), t)
                 for t in itertools.product(NV.bm_choices, NV.bn_choices,
                                            NV.bk_choices)
@@ -4745,6 +4831,17 @@ def main() -> int:
          "launches_by_path": path_counts("matmul"),
          "launches_by_variant": by_variant("matmul"),
          "launches_by_variant_by_path": path_counts("matmul_by_variant"),
+         "launches_by_layout": {
+             v: sum(c.get("matmul_by_layout", {}).get(v, 0)
+                    for c in by_path.values()) for v in kmm.LAYOUTS},
+         "launches_by_layout_by_path": {
+             p: c["matmul_by_layout"] for p, c in by_path.items()
+             if "matmul_by_layout" in c},
+         "rows16": {f"{m}x{n}x{k}": {
+             "ms": r["ms"], "device_ms": r["device_ms"],
+             "library_ms": r["lib_ms"], "bound_ms": r["bound_s"] * 1e3,
+             "layout": r["layout"], "max_abs_err": r["err"]}
+             for (m, n, k, _), r in k1_rows16.items()},
          "f32_variant": {
              "source": "src/repro_torch/csrc/matmul_f32.cu",
              "launches": by_variant("matmul")["f32"],

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the TMA/wgmma kernels (K1 in matmul.cu,
 // K2 in flash_attention.cu, K3 in chunk_scan.cu): mbarriers, TMA tensor
-// loads, wgmma shared-memory descriptors and the m64nNk16 bf16 -> f32
-// products, and CUDA's cuTensorMapEncodeTiled reached through the
-// runtime, with the 2-D map K1 and K3 use.  sm_90a only.
+// loads (K1's multicast over a thread-block cluster too), the cluster's
+// barrier, rank and remote mbarrier arrive, wgmma shared-memory
+// descriptors and the m64nNk16 bf16 -> f32 products, and CUDA's
+// cuTensorMapEncodeTiled reached through the runtime, with the 2-D map K1
+// and K3 use.  sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -61,6 +63,53 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// The same 2-D load multicast to every CTA of the cluster in `mask` (a
+// bit a %cluster_ctarank): each gets the box at dst's offset in its own
+// shared memory and a complete_tx on the barrier at bar's offset.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      int c0, int c1,
+                                                      uint64_t* bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives, then waits: shared
+// memory writes and barrier inits before it are visible cluster-wide.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// Arrive on the barrier at bar's offset in the shared memory of the CTA
+// of rank `cta` in this cluster (this CTA's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(cta)
       : "memory");
 }
 
@@ -177,6 +226,40 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[WN / 2], uint64_t da,
   if constexpr (WN == 64) wgmma_m64n64<TB>(d, da, db);
   if constexpr (WN == 128) wgmma_m64n128<TB>(d, da, db);
   if constexpr (WN == 256) wgmma_m64n256<TB>(d, da, db);
+}
+
+// wgmma.mma_async m64n16k16 and m64n32k16, bf16 x bf16 -> f32, A and B
+// from shared memory, each transposed (MN-major) when its TA / TB is 1:
+// the narrow N of K1's swapped small-row tiles.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_narrow(float (&d)[N / 2], uint64_t da,
+                                             uint64_t db) {
+  if constexpr (N == 16) wgmma_m64n16<TA, TB>(d, da, db);
+  if constexpr (N == 32) wgmma_m64n32<TA, TB>(d, da, db);
 }
 
 // wgmma.mma_async m64n128k16, bf16 x bf16 -> f32, A from registers (the

@@ -9,11 +9,22 @@ Four variants (``ops.matmul_launch_plan`` picks one):
 * ``tma_wgmma``: a ring of TMA loads into shared memory, one producer
   thread, two consumer warpgroups of ``wgmma``; ``w`` is read in place
   whether row-major or the transposed ``lm_head`` view.  K is walked in
-  order, so ``bk`` only bounds the ragged K edge.
-* ``split_k``: the same kernel when the output grid has fewer CTAs than the
-  card has SMs (decode, M = 4) and ``bk`` is a multiple of 128: K is split
-  into runs of whole ``bk`` blocks, one CTA each, and the last CTA of a
-  tile sums the f32 partials in order of k.  One launch.
+  order, so ``bk`` only bounds the ragged K edge.  CTA tiles of 64 rows
+  and more put x in wgmma's A; tiles of 16 and 32 rows (``bm`` 8, 16,
+  32) swap the operands, ``y^T = w^T x^T``, so their rows are wgmma's N
+  and none is padded (``plan.layout``: ``"swapped"`` or ``"direct"``),
+  and run ``plan.occupancy`` CTAs an SM over all their row blocks at
+  once.  The swapped kernel can also share each slab of a row-major
+  ``w`` over a thread-block cluster of ``plan.cluster`` = 2 CTAs along M
+  by multicast TMA loads: the plan takes it for the 32 x 128 tile at
+  three CTAs an SM and a long K (``ops.MM_CLUSTER_MIN_K``), where on an
+  H100 it ran faster, 1 elsewhere; ``matmul_cuda(..., cluster=C)`` forces
+  C = 1 or 2.
+* ``split_k``: the same kernels when the output grid has fewer CTAs than
+  the card has SMs (decode, M = 4) and ``bk`` is a multiple of 128: K is
+  split into runs of whole ``bk`` blocks, one CTA each, and the last CTA
+  of a tile sums the f32 partials in order of k.  One launch, no
+  cluster.
 * ``unaligned``: operands TMA cannot take (a row pitch or pointer that is
   not a multiple of 16 bytes) go through the first kernel's loop
   (``mma.sync``, staged through static shared memory).
@@ -40,25 +51,29 @@ at N = 16 reading ``x``, at decode reading ``w``.
 On a CPU tensor :func:`repro_torch.kernels.ops.matmul` takes
 :func:`matmul_plain`; on a CUDA tensor it launches the kernel or raises.
 ``launches`` counts kernel launches and nothing else;
-``launches_by_variant`` splits the same count by variant.
+``launches_by_variant`` splits the same count by variant and
+``launches_by_layout`` by layout.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
 
 VARIANTS = ("tma_wgmma", "split_k", "unaligned", "f32")
+LAYOUTS = ("swapped", "direct")
 launches = 0
 launches_by_variant = {v: 0 for v in VARIANTS}
+launches_by_layout = {v: 0 for v in LAYOUTS}
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
              + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 7
              + [ctypes.c_void_p])
 _TMA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 10
+                 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 12
                  + [ctypes.c_void_p])
 _F32_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                  + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 11
@@ -87,11 +102,14 @@ def _fn(name, argtypes, lib="matmul"):
 
 
 def reset_counts() -> None:
-    """Zero ``launches`` and ``launches_by_variant``."""
+    """Zero ``launches``, ``launches_by_variant`` and
+    ``launches_by_layout``."""
     global launches
     launches = 0
     for v in VARIANTS:
         launches_by_variant[v] = 0
+    for v in LAYOUTS:
+        launches_by_layout[v] = 0
 
 
 def _sm_count(device: torch.device) -> int:
@@ -115,8 +133,11 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def matmul_cuda(x: torch.Tensor, w: torch.Tensor, bm: int, bn: int,
-                bk: int) -> torch.Tensor:
-    """Launch K1 on CUDA tensors with the tuned tile ``(bm, bn, bk)``."""
+                bk: int, cluster: Optional[int] = None) -> torch.Tensor:
+    """Launch K1 on CUDA tensors with the tuned tile ``(bm, bn, bk)``.
+    ``cluster`` stands in for the plan's thread-block cluster
+    (``ops.matmul_launch_plan``): a probe's argument, which no model path
+    passes."""
     from repro_torch.kernels.ops import (KERNEL_DTYPES, matmul_launch_plan,
                                          torch_dtype_ok)
     global launches
@@ -145,7 +166,8 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, bm: int, bn: int,
     vec_b = ldw % per16 == 0 and w.data_ptr() % 16 == 0
     plan = matmul_launch_plan(M, N, K, (bm, bn, bk), _sm_count(x.device),
                               aligned=vec_a and vec_b,
-                              dtype="float32" if f32 else "bfloat16")
+                              dtype="float32" if f32 else "bfloat16",
+                              cluster=cluster, w_kmajor=w_kmajor)
     if plan is None:
         raise TileError(f"matmul tile {(bm, bn, bk)} cannot launch at "
                         f"M={M} N={N} K={K} (ops.tile_ok)")
@@ -185,8 +207,9 @@ def matmul_cuda(x: torch.Tensor, w: torch.Tensor, bm: int, bn: int,
             None if counters is None else counters.data_ptr(), M, N, K, lda,
             ldw, int(w_kmajor), plan.bm, plan.bn, plan.k_run, plan.rows,
             plan.cols, plan.grid_m, plan.grid_n, plan.group_m, plan.splits,
-            stream)
+            plan.cluster, plan.occupancy, stream)
     build.check(rc, f"matmul kernel ({plan.variant})")
     launches += 1
     launches_by_variant[plan.variant] += 1
+    launches_by_layout[plan.layout] += 1
     return y

@@ -31,13 +31,17 @@ launch plans and the kernels' own argument checks all call:
   - matmul: the CTA tile is ``bm`` rounded up to a power of two of at
     least 16 rows by ``bn`` rounded up to a power of two of at least 128
     columns; it launches when ``rows * cols <= 128 * 256`` (128 f32 a
-    thread at 256 threads).  ``bk`` never limits.  The wgmma variants pad
-    the rows to 64 (two consumer warpgroups, still at most 128
-    accumulators a thread), so this rule is unchanged from the first
-    kernel; :func:`matmul_launch_plan` picks the variant and, for a small
-    output grid, the split over ``bk``.  In f32 the same tile runs the
-    ``f32`` variant: 256 threads of FFMA, at most 128 accumulators a
-    thread, so the clause is the same.  That variant is bound by the FP32
+    thread at 256 threads).  ``bk`` never limits.  The wgmma variants
+    run CTA tiles of 64 rows and more as they are (two consumer
+    warpgroups, at most 128 accumulators a thread), and tiles of 16 and
+    32 rows with the operands swapped (the rows are wgmma's N, so none is
+    padded; at most 64 accumulators a thread), so this rule is unchanged
+    from the first kernel; :func:`matmul_launch_plan` picks the variant,
+    for a small output grid the split over ``bk``, and for a swapped tile
+    its CTAs an SM and the thread-block cluster that shares each ``w``
+    slab.  In f32 the same tile runs the ``f32`` variant: 256 threads of
+    FFMA, at most 128 accumulators a thread, so the clause is the same.
+    That variant is bound by the FP32
     rate outside the tensor cores (or, at a narrow N or at decode, by
     reading x or w), and a router's grid is a handful of tiles, so it
     splits K into :func:`f32_split` runs, one CTA each, a function of K
@@ -87,6 +91,15 @@ ATTN_SLAB = 64                  # columns of a K2 slab (128 bytes, TMA's
                                 # swizzle width)
 ATTN_D_MAX = 192                # K2's widest head dim: three slabs
 MM_MAX_ROWS, MM_MAX_COLS = 256, 512
+MM_SWAP_ROWS = 64               # CTA rows below which K1 swaps its operands
+MM_CLUSTER = 2                  # CTAs that share each w slab by multicast
+MM_CLUSTER_MIN_K = 6144         # from this K, at the 32 x 128 tile at three
+                                # CTAs an SM, a cluster ran faster than
+                                # none on an H100 (K = 6144-16384), at K =
+                                # 4096 slower (tools/k1_probe.py; PERF.md)
+MM_CLUSTERS = (1, MM_CLUSTER)   # the cluster sizes the kernel takes
+MM_OCC3_WAVES = 3               # waves at three CTAs an SM from which the
+                                # 32 x 128 swapped tile runs three an SM
 L2_BAND_BYTES = 8 << 20         # the band of x a group of CTAs keeps in L2
 MM_K_STAGE = 128                # the deepest stage of K1's TMA ring
 F32_BK = 32                     # K depth of a slab of K1's f32 variant
@@ -237,8 +250,9 @@ def matmul_tile_plan(M: int, N: int, K: int, tiles):
 class MatmulLaunch(NamedTuple):
     """How K1 runs one call: the variant, the clamped tiles (the CTA
     strides), the compiled CTA tile, the output grid, the split of K, the
-    grouping of row blocks and the rows and columns a CTA computes
-    (``csrc/matmul.cu``, ``csrc/matmul_f32.cu``)."""
+    grouping of row blocks, the rows and columns a CTA computes and the
+    thread-block cluster along M (``csrc/matmul.cu``,
+    ``csrc/matmul_f32.cu``)."""
     variant: str        # "tma_wgmma", "split_k", "unaligned" or "f32"
     bm: int
     bn: int
@@ -249,16 +263,39 @@ class MatmulLaunch(NamedTuple):
     grid_n: int
     splits: int         # CTAs along K
     k_run: int          # K a CTA walks: CTA z takes [z, z + 1) * k_run
-    group_m: int        # row blocks that run together
+    group_m: int        # row blocks that run together (a multiple of
+                        # ``cluster``)
     width: int          # columns a CTA computes: ``cols``, or in f32 at
                         # a narrower N the power of two >= 16 covering N
     height: int         # rows a CTA computes: ``rows``, or in f32 at M <=
                         # 8 and width >= 128 the power of two >= 4 over M
+    cluster: int = 1    # CTAs of consecutive row blocks of one column
+                        # block that share each w slab by multicast (> 1
+                        # only on a swapped tile without a split, with a
+                        # row-major w)
+    occupancy: int = 1  # CTAs an SM of the swapped kernel: 2 at 128 and
+                        # 256 columns (3 for 32 x 128 on a grid of
+                        # MM_OCC3_WAVES waves of three), 1 at 512 and on
+                        # every other layout
+
+    @property
+    def swapped(self) -> bool:
+        """The wgmma variants at fewer than ``MM_SWAP_ROWS`` CTA rows
+        compute ``y^T = w^T x^T``: the rows are wgmma's N."""
+        return (self.variant in ("tma_wgmma", "split_k")
+                and self.rows < MM_SWAP_ROWS)
+
+    @property
+    def layout(self) -> str:
+        """``"swapped"`` or ``"direct"`` (x as wgmma's A, or no wgmma)."""
+        return "swapped" if self.swapped else "direct"
 
 
 def matmul_launch_plan(M: int, N: int, K: int, tiles, sms: int,
                        aligned: bool = True,
-                       dtype: str = KERNEL_DTYPE) -> Optional[MatmulLaunch]:
+                       dtype: str = KERNEL_DTYPE,
+                       cluster: Optional[int] = None,
+                       w_kmajor: bool = False) -> Optional[MatmulLaunch]:
     """The launch of K1 for a legal tile (``None`` if illegal).  float32
     operands run the ``f32`` variant (never ``split_k`` or ``tma_wgmma``;
     it stages through ``cp.async`` where the pitch allows, so ``aligned``
@@ -271,16 +308,28 @@ def matmul_launch_plan(M: int, N: int, K: int, tiles, sms: int,
     (``split_k``), when ``bk`` is a multiple of the kernel's deepest
     stage, so that no stage of a run reads into the next; otherwise one
     CTA walks all of K (``tma_wgmma``).  The kernel takes ``k_run`` as it
-    is.  Memoised: the wrapper asks once a call."""
+    is.  A swapped tile (rows below ``MM_SWAP_ROWS``) groups all its row
+    blocks (``group_m = grid_m``) and runs ``occupancy`` CTAs an SM; at
+    three (the 32 x 128 tile on a large grid), K of at least
+    ``MM_CLUSTER_MIN_K`` and a row-major w (``w_kmajor`` false: not the
+    ``head.T`` view) it runs in clusters of ``MM_CLUSTER`` CTAs along M
+    that share each w slab; ``cluster`` stands in for that choice (a
+    probe's argument, 1 or 2 for a swapped ``tma_wgmma`` plan with a
+    row-major w, 1 for any other).  ``group_m`` is rounded up to a
+    multiple of the cluster, and the grid is padded to whole clusters
+    (:func:`matmul_cta_tiles`).  Memoised: the wrapper asks once a
+    call."""
     bm, bn, bk = (int(t) for t in tiles[:3])
     if dtype not in KERNEL_DTYPES["matmul"]:
         raise ValueError(f"K1 takes {KERNEL_DTYPES['matmul']}, not {dtype}")
     return _launch_plan(int(M), int(N), int(K), bm, bn, bk, int(sms),
-                        bool(aligned), dtype == "float32")
+                        bool(aligned), dtype == "float32",
+                        None if cluster is None else int(cluster),
+                        bool(w_kmajor))
 
 
 @functools.lru_cache(maxsize=4096)
-def _launch_plan(M, N, K, bm, bn, bk, sms, aligned, f32):
+def _launch_plan(M, N, K, bm, bn, bk, sms, aligned, f32, cluster, w_kmajor):
     plan = matmul_tile_plan(M, N, K, (bm, bn, bk))
     if plan is None:
         return None
@@ -292,8 +341,9 @@ def _launch_plan(M, N, K, bm, bn, bk, sms, aligned, f32):
         height = rows
         if width >= 128:
             height = min(rows, int(_pow2_at_least(M, F32_MIN_HEIGHT)))
-        return MatmulLaunch("f32", bm, bn, bk, rows, cols, grid_m, grid_n,
-                            splits, k_run, 1, width, height)
+        out = MatmulLaunch("f32", bm, bn, bk, rows, cols, grid_m, grid_n,
+                           splits, k_run, 1, width, height)
+        return _with_cluster(out, cluster, w_kmajor)
     n_tiles = grid_m * grid_n
     nkb = -(-K // bk)
     splits, k_run = 1, K
@@ -305,8 +355,57 @@ def _launch_plan(M, N, K, bm, bn, bk, sms, aligned, f32):
     variant = ("unaligned" if not aligned
                else "split_k" if splits > 1 else "tma_wgmma")
     band = max(1, L2_BAND_BYTES // max(1, bm * K * 2))
-    return MatmulLaunch(variant, bm, bn, bk, rows, cols, grid_m, grid_n,
-                        splits, k_run, min(grid_m, band), cols, rows)
+    out = MatmulLaunch(variant, bm, bn, bk, rows, cols, grid_m, grid_n,
+                       splits, k_run, min(grid_m, band), cols, rows)
+    if out.swapped:
+        # two or three CTAs an SM run at once: grouping every row block
+        # keeps the column blocks of w in flight, and so w's share of L2,
+        # small (PERF.md)
+        occ = 1 if cols == 512 else 2
+        if (rows, cols) == (32, 128) and n_tiles >= MM_OCC3_WAVES * 3 * sms:
+            occ = 3
+        out = out._replace(group_m=grid_m, occupancy=occ)
+    if cluster is None:
+        cluster = 1
+        if (variant == "tma_wgmma" and out.occupancy == 3 and grid_m >= 2
+                and K >= MM_CLUSTER_MIN_K and not w_kmajor):
+            cluster = MM_CLUSTER
+    return _with_cluster(out, cluster, w_kmajor)
+
+
+def _with_cluster(plan: MatmulLaunch, cluster, w_kmajor) -> MatmulLaunch:
+    """``plan`` in clusters of ``cluster`` CTAs (``None``: 1), its
+    ``group_m`` rounded up to a multiple; ``ValueError`` where the kernel
+    takes no such cluster."""
+    c = 1 if cluster is None else cluster
+    if c not in MM_CLUSTERS or (c > 1 and not (
+            plan.swapped and plan.variant == "tma_wgmma" and not w_kmajor)):
+        raise ValueError(f"K1 takes a cluster of {MM_CLUSTER} only at a "
+                         f"swapped tma_wgmma tile with a row-major w, not "
+                         f"{c} at {plan}")
+    return plan._replace(cluster=c, group_m=_ceil_mult(plan.group_m, c))
+
+
+def matmul_cta_tiles(plan: MatmulLaunch) -> np.ndarray:
+    """``(ctas, 3)``: the ``(mb, nb, rank)`` of each CTA of the kernel's
+    grid along x (``blockIdx.x``) under ``plan``, as ``csrc/matmul.cu``'s
+    ``cluster_tile_coords`` computes them: clusters of ``plan.cluster``
+    consecutive CTAs on consecutive row blocks of one column block, the
+    grid padded to whole clusters (a CTA at ``mb >= grid_m`` loads and
+    stores nothing), clusters grouped ``group_m`` row blocks at a time,
+    row clusters fastest.  The rows ≥ 64 and split kernels take cluster 1:
+    row blocks grouped along M, row blocks fastest."""
+    c = plan.cluster
+    grid_mc = -(-plan.grid_m // c)
+    tile = np.arange(grid_mc * c * plan.grid_n)
+    cl, rank = tile // c, tile % c
+    group_c = plan.group_m // c
+    group = group_c * plan.grid_n
+    first = (cl // group) * group_c
+    gc = np.minimum(grid_mc - first, group_c)
+    local = cl % group
+    return np.stack([(first + local % gc) * c + rank, local // gc, rank],
+                    axis=1)
 
 
 def f32_split(K: int) -> Tuple[int, int]:

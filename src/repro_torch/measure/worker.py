@@ -109,6 +109,7 @@ def _write_launches(launch_dir: str) -> None:
               "flash_attention": flash_attention.launches,
               "chunk_scan": chunk_scan.launches,
               "matmul_by_variant": dict(matmul.launches_by_variant),
+              "matmul_by_layout": dict(matmul.launches_by_layout),
               "flash_attention_by_variant":
                   dict(flash_attention.launches_by_variant),
               "timing_lock": lock.stats.as_dict(),

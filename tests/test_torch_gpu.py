@@ -145,6 +145,144 @@ def test_matmul_variant_matches_f32_product(cuda, shape, tiles, layout,
     assert _rel_err(y, want) < K1_REL_TOL
 
 
+def _k1_operands(M, N, K, layout, device, seed=20):
+    x = _normal(seed, M, K, device=device)
+    if layout == _W_T:
+        head = _normal(seed + 1, N, K, device=device)
+        return x, head.T, x.float() @ head.float().T
+    w = _normal(seed + 1, K, N, device=device)
+    return x, w, x.float() @ w.float()
+
+
+def _ran(fn):
+    """``fn()``'s output and K1's launches by variant and layout in it."""
+    bv, bl = dict(kmm.launches_by_variant), dict(kmm.launches_by_layout)
+    y = fn()
+    torch.cuda.synchronize()
+    return y, ({v: kmm.launches_by_variant[v] - bv[v] for v in kmm.VARIANTS},
+               {v: kmm.launches_by_layout[v] - bl[v] for v in kmm.LAYOUTS})
+
+
+@pytest.mark.parametrize("layout", [_W_ROW, _W_T])
+@pytest.mark.parametrize("tiles", [(8, 128, 1024), (16, 128, 512),
+                                   (16, 256, 1024), (8, 512, 256),
+                                   (32, 128, 1024), (32, 256, 128),
+                                   (32, 512, 4096)])
+@pytest.mark.parametrize("shape", [(2048, 4096, 1024), (1500, 1032, 640),
+                                   (513, 1032, 200)])
+def test_matmul_small_row_tiles_run_swapped_and_multicast(cuda, shape, tiles,
+                                                          layout):
+    """CTA tiles of 16 and 32 rows at 128, 256 and 512 columns, w
+    row-major and head.T: one swapped tma_wgmma launch under the plan,
+    within K1_REL_TOL of the f32 product and of the plain version, and
+    with a row-major w the same bits in clusters of 2 (the launch's
+    argument: at M = 1500 and 513 the last cluster of a column block
+    reaches past M; N = 1032 leaves an 8-column block); head.T refuses a
+    cluster."""
+    M, N, K = shape
+    x, w, want = _k1_operands(M, N, K, layout, cuda)
+    plan = ops.matmul_launch_plan(M, N, K, tiles, kmm._sm_count(x.device))
+    assert plan.swapped and plan.cluster == 1
+    y, (variants, layouts) = _ran(lambda: ops.matmul(x, w, tiles=tiles))
+    assert variants == {v: int(v == "tma_wgmma") for v in kmm.VARIANTS}
+    assert layouts == {"swapped": 1, "direct": 0}
+    assert y.shape == (M, N) and torch.isfinite(y.float()).all()
+    assert _rel_err(y, want) < K1_REL_TOL
+    assert _rel_err(y, kmm.matmul_plain(x, w).float()) < K1_REL_TOL
+    if layout == _W_T:
+        with pytest.raises(ValueError):
+            kmm.matmul_cuda(x, w, *tiles, cluster=2)
+        return
+    y2, (variants, layouts) = _ran(
+        lambda: kmm.matmul_cuda(x, w, *tiles, cluster=2))
+    assert layouts == {"swapped": 1, "direct": 0}
+    assert torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("layout", [_W_ROW, _W_T])
+@pytest.mark.parametrize("shape,tiles", [((1500, 1032, 640), (16, 128, 512)),
+                                         ((513, 4096, 1024), (32, 512, 256)),
+                                         ((2048, 1024, 200), (8, 256, 128))])
+def test_matmul_every_cluster_gives_the_same_bits(cuda, shape, tiles,
+                                                  layout):
+    """A swapped tile at clusters of 1 and 2 CTAs (the launch's
+    argument; head.T at 1 alone) sums K in the same order: the same bits,
+    the plan's own choice too, and the bits of the tiles of 64 rows and
+    more."""
+    M, N, K = shape
+    x, w, want = _k1_operands(M, N, K, layout, cuda, seed=24)
+    ys = [kmm.matmul_cuda(x, w, *tiles, cluster=c)
+          for c in ((1,) if layout == _W_T else ops.MM_CLUSTERS)]
+    ys.append(ops.matmul(x, w, tiles=tiles))
+    ys.append(ops.matmul(x, w, tiles=(128, 128, 512)))
+    torch.cuda.synchronize()
+    assert _rel_err(ys[0], want) < K1_REL_TOL
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+
+
+@pytest.mark.parametrize("layout", [_W_ROW, _W_T])
+@pytest.mark.parametrize("shape", [(2048, 4096, 8192), (1500, 4104, 8200)])
+def test_matmul_long_k_runs_in_clusters(cuda, shape, layout):
+    """PPO's tile at a long K runs three CTAs an SM in clusters of 2 (the
+    plan's; head.T in none), within K1_REL_TOL of the f32 product, with
+    the bits of a cluster of 1 and of the tile of 128 rows."""
+    M, N, K = shape
+    x, w, want = _k1_operands(M, N, K, layout, cuda, seed=32)
+    plan = ops.matmul_launch_plan(M, N, K, (32, 128, 1024),
+                                  kmm._sm_count(x.device),
+                                  w_kmajor=layout == _W_T)
+    assert K >= ops.MM_CLUSTER_MIN_K
+    assert (plan.occupancy, plan.cluster) == (
+        3, 1 if layout == _W_T else ops.MM_CLUSTER)
+    y, (variants, layouts) = _ran(
+        lambda: ops.matmul(x, w, tiles=(32, 128, 1024)))
+    assert variants == {v: int(v == "tma_wgmma") for v in kmm.VARIANTS}
+    assert layouts == {"swapped": 1, "direct": 0}
+    assert _rel_err(y, want) < K1_REL_TOL
+    assert torch.equal(y, kmm.matmul_cuda(x, w, 32, 128, 1024, cluster=1))
+    assert torch.equal(y, ops.matmul(x, w, tiles=(128, 128, 512)))
+
+
+@pytest.mark.parametrize("layout", [_W_ROW, _W_T])
+@pytest.mark.parametrize("tiles", [(8, 128, 512), (16, 512, 1024),
+                                   (16, 256, 4096)])
+def test_matmul_split_k_at_decode_runs_swapped(cuda, tiles, layout):
+    """At M = 4 the split over bk runs the swapped layout without a
+    cluster, within K1_REL_TOL of the f32 product and the plain
+    version."""
+    M, N, K = 4, 4096, 12288
+    x, w, want = _k1_operands(M, N, K, layout, cuda, seed=26)
+    plan = ops.matmul_launch_plan(M, N, K, tiles, kmm._sm_count(x.device))
+    assert plan.variant == "split_k" and plan.cluster == 1
+    y, (variants, layouts) = _ran(lambda: ops.matmul(x, w, tiles=tiles))
+    assert variants == {v: int(v == "split_k") for v in kmm.VARIANTS}
+    assert layouts == {"swapped": 1, "direct": 0}
+    assert _rel_err(y, want) < K1_REL_TOL
+    assert _rel_err(y, kmm.matmul_plain(x, w).float()) < K1_REL_TOL
+
+
+def test_matmul_clusters_on_two_streams_at_once(cuda):
+    """Swapped calls in clusters, and split ones at decode, queued on two
+    streams without a sync between them give the bits of calls on one
+    stream."""
+    x, w, _ = _k1_operands(1500, 1032, 640, _W_ROW, cuda, seed=28)
+    xd, wd, _ = _k1_operands(4, 4096, 4096, _W_ROW, cuda, seed=30)
+    want = ops.matmul(x, w, tiles=(16, 128, 512))
+    want_d = ops.matmul(xd, wd, tiles=(8, 128, 512))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    ys, yds = [], []
+    for _ in range(8):
+        for st in streams:
+            with torch.cuda.stream(st):
+                ys.append(ops.matmul(x, w, tiles=(16, 128, 512)))
+                yds.append(ops.matmul(xd, wd, tiles=(8, 128, 512)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(y, want) for y in ys)
+    assert all(torch.equal(y, want_d) for y in yds)
+
+
 def test_matmul_unaligned_x_view_takes_the_unaligned_variant(cuda):
     """x that starts 2 bytes into its storage: TMA needs 16-byte aligned
     operands, so the in-kernel path without TMA runs it."""

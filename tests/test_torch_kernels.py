@@ -212,10 +212,12 @@ def test_tile_ok_limits():
 
 def test_matmul_tile_plan_covers_every_legal_tile():
     """Every legal clamped tile maps to CTA tiles the CUDA source compiles:
-    a wgmma tile (its REPRO_TMA_CASE list, rows padded to 64) and an
+    a wgmma tile (its REPRO_TMA_CASE list at 64 rows and more, its
+    REPRO_SWAP_CASE list, the swapped operands, at 16 and 32) and an
     unaligned-variant tile (its REPRO_MM_CASE list)."""
-    compiled_tma = {(64, 128), (64, 256), (64, 512), (128, 128), (128, 256),
-                    (256, 128)}
+    compiled_tma = {(16, 128), (16, 256), (16, 512), (32, 128), (32, 256),
+                    (32, 512), (64, 128), (64, 256), (64, 512), (128, 128),
+                    (128, 256), (256, 128)}
     compiled = {(16, 128), (16, 256), (16, 512), (32, 128), (32, 256),
                 (32, 512), (64, 128), (64, 256), (64, 512), (128, 128),
                 (128, 256), (256, 128)}
@@ -229,7 +231,7 @@ def test_matmul_tile_plan_covers_every_legal_tile():
             if plan is not None:
                 bm, bn, bk, rows, cols = plan
                 assert (rows, cols) in compiled
-                assert (max(64, rows), cols) in compiled_tma   # wgmma: 64
+                assert (rows, cols) in compiled_tma   # no row padded
                 assert bm <= rows and bn <= cols
 
 
