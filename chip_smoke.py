@@ -25,14 +25,16 @@ Phases, each printed before the last line:
      did not run swapped; K2 (flash attention) at (B=4, H=32, Hkv=8,
      S=512, D=128), causal, v in the served layout (the transposed view of its
      projection), over every legal (bq, bkv), each line with the variant,
+     the widths, stage keys and ring its launch ran at (read back from the
+     kernel's entry point; it fails where they are not the plan's),
      device ms, share of the bound and ratio to SDPA (stream and device
      ms), and once at the
      runner's shape (B=1, H=Hkv=128, contiguous); K2 at the StableLM-3B
      prefill (B=4, H=Hkv=32, S=512, D=80, causal, v the transposed view)
      over every legal tile, its bound at the true D beside SDPA's time,
      once with q, k and v all transposed views and once through the
-     unaligned variant, and at D = 64 and 96 at a small shape through both
-     variants; K3 (SSD chunk scan) at the
+     unaligned variant, and at D = 64, 96, 136 and 192 at a small shape
+     through both variants; K3 (SSD chunk scan) at the
      xlstm_1_3b serve site as the measurement runner builds it (G=1,
      S=8192, P=N=1024) for every chunk of the action space (the ones the
      predicate refuses must raise TileError), and at a Mamba-2 head of
@@ -348,6 +350,24 @@ SERVE_LAYERS = {"llama4_maverick_400b": 2,     # one period, 37.4 GB bf16
 # card, D = Dv = 192, contiguous)
 MLA_PPO_TILE = (64, 128)
 MLA_RUNNER = dict(B=1, H=4 * 128, S=512, D=192, Dv=192)
+# K2 at the head dims other than 128 that the served archs and the runner
+# give it, each at its own padded widths: label, (B, H, Hkv, S, D, Dv),
+# causal, the layout ("contig": q, k, v contiguous; "served": q and k
+# contiguous after RoPE, v the transposed view of its projection; "views":
+# all three the views, no RoPE) and the tiles (Phi-3's baseline, which the
+# baseline's 512 keys do not divide, and PPO's)
+K2_WIDTH_SHAPES = (
+    ("mla runner", (1, 4 * 128, 4 * 128, 512, 192, 192), True, "contig",
+     (128, 512)),
+    ("mla.core", (4, 128, 128, 512, 192, 128), True, "served", (128, 512)),
+    ("phi3 baseline", (4, 32, 32, 768, 96, 96), True, "served", (128, 256)),
+    ("phi3 ppo", (4, 32, 32, 768, 96, 96), True, "served", (64, 128)),
+    ("seamless decoder", (4, 16, 16, 512, 64, 64), True, "views",
+     (128, 512)),
+    ("seamless encoder", (4, 16, 16, 512, 64, 64), False, "views",
+     (128, 512)),
+    ("stablelm", (4, 32, 32, 512, 80, 80), True, "served", (128, 512)),
+)
 STEPS_12 = STEPS                        # PPO steps of a phase-12 fit
 # tests/test_system.py's PPO for the main-path loop: its NeuroVecConfig,
 # learning rate and budget, on dataset.generate(400, seed=0, base=sites)
@@ -787,10 +807,37 @@ def k2_work(B, H, Hkv, Sq, Skv, D, causal=True, Dv=None):
             2.0 * (B * H * Sq * (D + Dv) + B * Hkv * Skv * (D + Dv)))
 
 
+def k2_plan(q, k, v, t):
+    """K2's launch plan for a call, as the wrapper makes it."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops
+    return ops.attention_launch_plan(
+        q.shape[2], k.shape[2], q.shape[-1], *t,
+        tuple(kfa._tma_strides(x) for x in (q, k, v)),
+        aligned=all(x.data_ptr() % 16 == 0 for x in (q, k, v)),
+        Dv=v.shape[-1])
+
+
+def k2_launched(label, plan, variant):
+    """What K2's tma_wgmma launch just ran at, read back from its C entry
+    point (warpgroups, keys a stage, widths, ring, dynamic shared memory);
+    fails where it is not the plan's.  ``None`` for the unaligned
+    variant."""
+    from repro_torch.kernels import flash_attention as kfa
+    if variant != "tma_wgmma":
+        return None
+    ran = kfa.tma_last_launch()
+    if any(ran[f] != getattr(plan, f) for f in ran):
+        fail(f"K2 {label} launched at {ran}, not its plan {plan}")
+    return ran
+
+
 def k2_line(label, q, k, v, t, ref_out=None, causal=True):
-    """K2 at tiles ``t`` against its plain version, with its ms (events,
-    20 calls back to back), device ms (profiler), share of the bound and
-    ratio to scaled_dot_product_attention on the same inputs."""
+    """K2 at tiles ``t`` against its plain version, with what the launch
+    ran at (padded widths, keys a stage, ring, read back from the kernel's
+    entry point and held against the plan), ms (events, 20 calls back to
+    back), device ms (profiler), share of the bound at the true D and Dv
+    and ratio to scaled_dot_product_attention on the same inputs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
@@ -798,7 +845,9 @@ def k2_line(label, q, k, v, t, ref_out=None, causal=True):
     B, H, S, D = q.shape
     Hkv, Dv = k.shape[1], v.shape[-1]
     scale = D ** -0.5
+    plan = k2_plan(q, k, v, t)
     y, variant = k2_call(q, k, v, t, causal)
+    ran = k2_launched(label, plan, variant)
     yp = kfa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                    bq=t[0], bkv=t[1])
     err = float((y.float() - yp.float()).abs().max())
@@ -828,7 +877,9 @@ def k2_line(label, q, k, v, t, ref_out=None, causal=True):
     print(f"[k2:{label}] B={B} H={H} Hkv={Hkv} S={S} D={D}"
           f"{'' if Dv == D else f' Dv={Dv}'} "
           f"{'causal' if causal else 'non-causal'} "
-          f"tiles={t} variant={variant} |k-plain|={err:.3e} {err_ref}"
+          f"tiles={t} variant={variant} widths={plan.d_pad}x"
+          f"{plan.dv_pad} stage_keys={plan.stage_keys} ring={plan.ring} "
+          f"|k-plain|={err:.3e} {err_ref}"
           f"ms={ms:.4f} device_ms="
           f"{'not measured' if dev is None else f'{dev:.4f}'} "
           f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} sdpa_device_ms="
@@ -839,7 +890,8 @@ def k2_line(label, q, k, v, t, ref_out=None, causal=True):
           f"vs_sdpa={ms / lib_ms:.2f}x (device {dev_ratio})", flush=True)
     return {"err": err, "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
             "lib_ms": lib_ms, "lib_device_ms": lib_dev, "bound_s": b,
-            "flops": flops, "bytes": nbytes, "variant": variant}
+            "flops": flops, "bytes": nbytes, "variant": variant,
+            "plan": plan._asdict(), "launched": ran}
 
 
 def k2_plan_line(label, S, D, t, strides=None, Dv=None):
@@ -847,9 +899,9 @@ def k2_plan_line(label, S, D, t, strides=None, Dv=None):
     from repro_torch.kernels import ops
     p = ops.attention_launch_plan(S, S, D, *t, strides, Dv=Dv)
     print(f"[k2-plan:{label}] S={S} D={D} Dv={Dv or D} tiles={t}: "
-          f"variant={p.variant} warpgroups={p.warpgroups} "
-          f"stage_keys={p.stage_keys} n_stages={p.n_stages} ring={p.ring} "
-          f"smem={p.smem}", flush=True)
+          f"variant={p.variant} widths={p.d_pad}x{p.dv_pad} warpgroups="
+          f"{p.warpgroups} stage_keys={p.stage_keys} n_stages={p.n_stages} "
+          f"ring={p.ring} smem={p.smem}", flush=True)
     return p
 
 
@@ -901,7 +953,8 @@ def k2_mla_checks(gen):
     causal; q and k the contiguous concatenations, v the einsum's view) at
     a tile PPO can pick, and the measurement runner's layout (B=1, H=512,
     D=Dv=192, contiguous) at the baseline tile; each with its plan (64-key
-    stages, a ring of 2), against its plain version, timed beside SDPA;
+    stages, at PPO's one warpgroup a ring of 4, at the runner's two 2; P.V
+    at Dv's own width), against its plain version, timed beside SDPA;
     DeepSeek-V2 at a small width and MLA's full head dims, injected
     against eager (:func:`mla_small_model_check`).  Then the plan at the
     Qwen3-8B prefill (D = 128), which must be the one it had before K2
@@ -916,20 +969,22 @@ def k2_mla_checks(gen):
     t = MLA_PPO_TILE
     p = k2_plan_line("mla served", S, D, t, tuple(
         x.stride() for x in (q, k, v)), Dv)
-    if (p.variant, p.stage_keys, p.ring) != ("tma_wgmma", 64, 2):
+    if (p.variant, p.stage_keys, p.ring, p.d_pad, p.dv_pad) != (
+            "tma_wgmma", 64, 4, 192, 128):
         fail(f"K2's plan at mla.core {p}")
     out = {"served_ppo_tile": dict(k2_line("mla served", q, k, v, t),
-                                   tiles=t, plan=p._asdict())}
+                                   tiles=t)}
     del q, k, v
     torch.cuda.empty_cache()
     r = MLA_RUNNER
     q, k, v = (rnd(r["B"], r["H"], r["S"], d)
                for d in (r["D"], r["D"], r["Dv"]))
     p = k2_plan_line("mla runner", r["S"], r["D"], (128, 512), None, r["Dv"])
-    if (p.variant, p.stage_keys, p.ring) != ("tma_wgmma", 64, 2):
+    if (p.variant, p.stage_keys, p.ring, p.d_pad, p.dv_pad) != (
+            "tma_wgmma", 64, 2, 192, 192):
         fail(f"K2's plan in the runner's layout at D = 192 {p}")
     out["runner"] = dict(k2_line("mla runner", q, k, v, (128, 512)),
-                         tiles=(128, 512), plan=p._asdict())
+                         tiles=(128, 512))
     del q, k, v
     torch.cuda.empty_cache()
     out["small_model"] = mla_small_model_check()
@@ -938,8 +993,42 @@ def k2_mla_checks(gen):
         (512 * 8 * 128, 128, 8 * 128, 1)))
     before = ("tma_wgmma", 128, 512, 2, 128, 4, 2,
               2 * 2 * 64 * 128 * 2 + 2 * 4 * 128 * 128 + 1024)
-    if tuple(qwen) != before:
+    if tuple(qwen)[:len(before)] != before or (qwen.d_pad,
+                                                qwen.dv_pad) != (128, 128):
         fail(f"K2's plan at D = 128 moved: {tuple(qwen)} != {before}")
+    return out
+
+
+def k2_width_inputs(shape, layout, gen):
+    """q, k, v of a ``K2_WIDTH_SHAPES`` row in its layout."""
+    import torch
+    B, H, Hkv, S, D, Dv = shape
+
+    def make(h, d, view):
+        if view:
+            return torch.randn((B, S, h, d), generator=gen,
+                               device="cuda").bfloat16().transpose(1, 2)
+        return torch.randn((B, h, S, d), generator=gen,
+                           device="cuda").bfloat16()
+    return (make(H, D, layout == "views"), make(Hkv, D, layout == "views"),
+            make(Hkv, Dv, layout != "contig"))
+
+
+def k2_width_checks(gen):
+    """K2 at ``K2_WIDTH_SHAPES``: each against its plain version, through
+    the tma_wgmma variant at the widths its plan passes the kernel (read
+    back from the launch, :func:`k2_launched`), with its bound at the true
+    D and Dv, and SDPA's time.  Returns the records by label."""
+    import torch
+    out = {}
+    for label, shape, causal, layout, t in K2_WIDTH_SHAPES:
+        q, k, v = k2_width_inputs(shape, layout, gen)
+        r = k2_line(f"width {label}", q, k, v, t, causal=causal)
+        if r["variant"] != "tma_wgmma":
+            fail(f"K2 {label}: plan {r['plan']}, variant {r['variant']}")
+        out[label] = dict(r, tiles=t)
+        del q, k, v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -983,15 +1072,17 @@ def k2_checks(gen):
 
 
 def k2_head_dim_checks(gen):
-    """K2 at head dims below 128.  At the StableLM-3B prefill (B=4,
+    """K2 at head dims other than 128.  At the StableLM-3B prefill (B=4,
     H=Hkv=32, S=512, D=80, causal; q and k contiguous, v the transposed
     view of its projection, as the model passes them) over every (bq, bkv)
     of the action space (the illegal ones must raise), each line with its
     bound at the true D and SDPA's time; once with q, k and v all the
     transposed views of their projections (strides (S*H*D, D, H*D, 1)),
     and once through the unaligned variant (q 2 bytes into its storage).
-    Then D = 64 and 96 at a small shape, both variants.  Returns the D =
-    80 records by tile and the largest error of the other checks."""
+    Then D = 64, 96, 136 and 192 (each padded width of the TMA variant:
+    64, 96 as a 64- and a 32-column slab, 192 partly past D and whole) at
+    a small shape, both variants.  Returns the D = 80 records by tile and
+    the largest error of the other checks."""
     import torch
     from repro_torch.configs.neurovec import DEFAULT as NV
     from repro_torch.kernels import flash_attention as kfa
@@ -1024,7 +1115,7 @@ def k2_head_dim_checks(gen):
     del qt, kt
     checks = [("d80 unaligned", D, rnd(B, H, S, D + 1)[..., 1:], k, v,
                "unaligned")]
-    for d in (64, 96):
+    for d in (64, 96, 136, 192):
         b, h, hkv, s_ = 2, 8, 2, 256
         qd, kd, vd = rnd(b, h, s_, d), rnd(b, hkv, s_, d), rnd(b, hkv, s_, d)
         checks += [(f"d{d}", d, qd, kd, vd, "tma_wgmma"),
@@ -1033,11 +1124,13 @@ def k2_head_dim_checks(gen):
     small = 0.0
     for label, d, qc, kc, vc, want in checks:
         y, variant = k2_call(qc, kc, vc, (128, 128))
+        ran = k2_launched(label, k2_plan(qc, kc, vc, (128, 128)), variant)
         yp = kfa.flash_attention_plain(qc, kc, vc, causal=True,
                                        scale=d ** -0.5, bq=128, bkv=128)
         err = float((y.float() - yp.float()).abs().max())
         print(f"[k2:{label}] shape={tuple(qc.shape)} variant={variant} "
-              f"|k-plain|={err:.3e} (tol {K2_TOL})", flush=True)
+              f"launched={ran} |k-plain|={err:.3e} (tol {K2_TOL})",
+              flush=True)
         if variant != want or not torch.isfinite(y).all() or err >= K2_TOL:
             fail(f"K2 {label}: variant {variant} (want {want}), abs err "
                  f"{err:.3e}")
@@ -4579,6 +4672,7 @@ def main() -> int:
     k2_d80, k2_small_err = k2_head_dim_checks(gen)
     torch.cuda.empty_cache()
     k2_mla = k2_mla_checks(gen)
+    k2_widths = k2_width_checks(gen)
     xl_sites = extract_serve_sites(build_model(get_config(XLSTM)), BATCH,
                                    PROMPT, GEN)
     xl_scan = next(s for s in xl_sites if s.kind == "chunk_scan")
@@ -4901,6 +4995,7 @@ def main() -> int:
                             + [r["err"] for r in k2_d80.values()]
                             + [r["err"] for label, r in k2_mla.items()
                                if label != "small_model"]
+                            + [r["err"] for r in k2_widths.values()]
                             + [k2_small_err]
                             + [r["err"] for a in p12_checks.values()
                                for r in a["k2"].values()]
@@ -4929,9 +5024,19 @@ def main() -> int:
              "library_device_ms": r["lib_device_ms"],
              "bound_ms": r["bound_s"] * 1e3,
              "bound_by": bound_s(r["flops"], r["bytes"])[1],
-             "max_abs_err": r["err"], "tiles": r["tiles"], "plan": r["plan"]}
+             "max_abs_err": r["err"], "tiles": r["tiles"],
+             "launched": r["launched"]}
              for label, r in k2_mla.items() if label != "small_model"},
          "mla_small_model_logits_rel": k2_mla["small_model"]["logits_rel"],
+         "widths": {label: {
+             "ms": r["ms"], "device_ms": r["device_ms"],
+             "plain_ms": r["plain_ms"], "library_ms": r["lib_ms"],
+             "library_device_ms": r["lib_device_ms"],
+             "bound_ms": r["bound_s"] * 1e3,
+             "bound_by": bound_s(r["flops"], r["bytes"])[1],
+             "max_abs_err": r["err"], "tiles": r["tiles"],
+             "launched": r["launched"]}
+             for label, r in k2_widths.items()},
          **arch_records("k2")},
         {"name": "ssd_chunk_scan", "route": "cuda",
          "source": "src/repro_torch/csrc/chunk_scan.cu",

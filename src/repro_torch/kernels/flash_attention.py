@@ -13,8 +13,8 @@ variants (``ops.attention_launch_plan`` picks one):
   tensors' own strides, so the model's transposed ``v`` is read in place);
   one or two consumer warpgroups of 64 query rows compute ``Q.K^T`` and
   ``P.V`` with ``wgmma`` and the online softmax in registers (P in bf16 as
-  the register operand of ``P.V``).  A ``bkv`` above 128 is walked in
-  128-key stages with the rescale per stage, the same function up to
+  the register operand of ``P.V``).  A ``bkv`` above the stage is walked
+  in stages with the rescale per stage, the same function up to
   rounding.
 * ``unaligned``: operands TMA cannot take (a base or a stride that is not
   a multiple of 16 bytes, or D not contiguous) go through the first
@@ -27,15 +27,17 @@ memory and each K/V tile is loaded once a CTA for both warpgroups.
 
 Head dims: D any multiple of 8 up to 192, and v's own value dim Dv
 likewise, padded no wider than D (``ops.head_dim_ok``; MLA's D = 192, Dv
-= 128).  The kernel computes ``Q.K^T`` in 64-column slabs, two (128) up
-to D = 128 and three (192) above (``ops.attn_d_pad``), and ``P.V`` in
-parts of 128 columns, one tile each (two where Dv > 128, each computing
-the scores anew): TMA's tensor maps carry the true D and Dv, so the
-columns past them load as zeros (``Q.K^T`` over them adds nothing, the
-``P.V`` columns past Dv are never stored), and the epilogue stores only
-the first Dv columns of the (B, Hq, Sq, Dv) output.  A D below its padded
-width so pays the tensor work of the padding (StableLM-3B's 80: 1.6x its
-own; the runner's D = Dv = 192: 1.5x, the scores twice).
+= 128).  ``tma_wgmma`` computes ``Q.K^T`` at D's own padded width and
+``P.V`` at Dv's (``ops.attn_widths``: 64, 96, 128 or 192; the 96 in a
+64-column slab and a 32-column one), all of Dv in one tile a (query
+block, batch, head), so the scores are computed once; the unaligned
+variant at 128, or 192 above (``ops.attn_d_pad``).  TMA's tensor maps
+carry the true D and Dv, so the columns past them load as zeros
+(``Q.K^T`` over them adds nothing, the ``P.V`` columns past Dv are never
+stored), and the epilogue stores only the first Dv columns of the (B, Hq,
+Sq, Dv) output.  What padding is left costs tensor work: StableLM-3B's D
+= 80 computes at 96 (1.2x its own), SeamlessM4T's 64 and the runner's D =
+Dv = 192 at their own widths.
 
 On a CPU tensor :func:`repro_torch.kernels.ops.flash_attention` takes
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel or
@@ -61,7 +63,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 _TMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 8
                  + [ctypes.c_float, ctypes.c_void_p])
 _CALLS: dict = {}       # call signature -> (variant, C function, arguments)
 
@@ -167,7 +169,7 @@ def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
         return plan.variant, _fn("repro_flash_fwd_tma_bf16", _TMA_ARGTYPES), (
             B, Hq, Hkv, Sq, Skv, D, Dv, *strides[0][:3], *strides[1][:3],
             *strides[2][:3], plan.bq, plan.warpgroups, plan.stage_keys,
-            plan.n_stages, plan.ring, int(causal))
+            plan.n_stages, plan.ring, plan.d_pad, plan.dv_pad, int(causal))
     # 16-byte loads where a tensor's rows are contiguous and aligned
     vec = [int(t.stride(3) == 1 and t.data_ptr() % 16 == 0
                and all(st % 8 == 0 for st in t.stride()[:3]))
@@ -175,6 +177,19 @@ def _prepare(q, k, v, causal: bool, bq: int, bkv: int):
     return plan.variant, _fn("repro_flash_fwd_unaligned_bf16", _ARGTYPES), (
         B, Hq, Hkv, Sq, Skv, D, Dv, *q.stride(), *k.stride(), *v.stride(),
         plan.bq, plan.bkv, int(causal), *vec)
+
+
+def tma_last_launch() -> dict:
+    """What the last launch of the tma_wgmma variant in this process ran
+    at, as its C entry point recorded it: warpgroups, stage keys, the
+    widths of ``Q.K^T`` and ``P.V``, the ring and the dynamic shared memory
+    bytes it asked for (all 0 before the first launch)."""
+    fn = build.load("flash_attention").repro_flash_tma_last_launch
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], None
+    vals = (ctypes.c_int * 6)()
+    fn(vals)
+    return dict(zip(("warpgroups", "stage_keys", "d_pad", "dv_pad", "ring",
+                     "smem"), vals))
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool, scale: float, bq: int,

@@ -18,11 +18,13 @@ launch plans and the kernels' own argument checks all call:
 * head dim (:func:`head_dim_ok`, K2 at Sq > 1): D, and the value dim Dv
   of v and the output (MLA: D = 192, Dv = 128), multiples of 8 (TMA's
   16-byte strides, the epilogue's 16-byte stores) up to ``ATTN_D_MAX`` =
-  192, Dv padded no wider than D.  K2 computes each in 64-column slabs of
-  its padded width (:func:`attn_d_pad`: two slabs, 128, up to 128; three,
-  192, above): TMA fills the columns past D (Dv) with zeros on load and
-  the epilogue stores only the first Dv.  A site carries D alone; the
-  value dims of the models (Dv <= D) always pass.
+  192, Dv padded no wider than D (:func:`attn_d_pad`: 128 up to 128, 192
+  above).  K2's tma_wgmma variant computes ``Q.K^T`` at D's own padded
+  width and ``P.V`` at Dv's (:func:`attn_widths`: 64, 96, 128 or 192),
+  the unaligned variant at :func:`attn_d_pad`'s: TMA fills the columns
+  past D (Dv) with zeros on load and the epilogue stores only the first
+  Dv.  A site carries D alone; the value dims of the models (Dv <= D)
+  always pass.
 * the tile: the reference clamps are applied first: ``bm <= ceil8(M)``,
   ``bn, bk <= ceil128(N | K)`` for matmul and ``bq <= Sq``, ``bkv <= Skv``
   for attention.  The f32 accumulator of a CTA lives in registers, and
@@ -109,8 +111,11 @@ F32_MIN_WIDTH = 16              # the narrowest f32 column layout
 F32_MIN_HEIGHT = 4              # the lowest f32 row layout (decode)
 ATTN_WG_ROWS = 64               # query rows of a K2 consumer warpgroup
 ATTN_MAX_BQ = 2 * ATTN_WG_ROWS  # two consumer warpgroups a CTA
-ATTN_RING = 2                   # stages of K2's TMA ring (PERF.md, PR 14)
+ATTN_RING = 2                   # stages of K2's TMA ring at D = Dv = 128
+                                # (PERF.md)
 ATTN_MAX_RING = 4
+ATTN_WIDTHS = ((64, 64), (96, 96), (128, 128), (192, 128), (192, 192))
+                                # (D, Dv) widths K2's tma_wgmma compiles
 ATTN_SMEM_DYN = 232448 - 1024   # dynamic shared memory a K2 CTA may take
 CHUNK_BOX = 64                  # every K3 TMA box is 64 x 64 bf16 (8 KB)
 CHUNK_RING = 4                  # the deepest ring of a K3 pass
@@ -160,10 +165,30 @@ def torch_dtype_ok(*tensors, kind: Optional[str] = None) -> bool:
 
 
 def attn_d_pad(D):
-    """The width K2 computes a head dim in (elementwise): 128 (two slabs)
-    up to 128, ``ATTN_D_MAX`` (three) above."""
+    """A head dim's class in the rule (elementwise), and the width K2's
+    unaligned variant computes it in: 128 (two slabs) up to 128,
+    ``ATTN_D_MAX`` (three) above."""
     return np.where(np.asarray(D, np.int64) <= 2 * ATTN_SLAB, 2 * ATTN_SLAB,
                     ATTN_D_MAX)
+
+
+def attn_widths(D: int, Dv: Optional[int] = None) -> Tuple[int, int]:
+    """``(d_pad, dv_pad)``: the widths K2's tma_wgmma variant computes
+    ``Q.K^T`` and ``P.V`` at (``Dv`` default D): the narrowest pair of
+    ``ATTN_WIDTHS`` at least as wide as D and Dv, so each is rounded up to
+    64, 96 (a 64-column slab and a 32-column one), 128 or 192, the two
+    equal up to 128."""
+    Dv = D if Dv is None else Dv
+    return min((w for w in ATTN_WIDTHS if w[0] >= D and w[1] >= Dv),
+               key=sum)
+
+
+def attn_staging_pitch(dv_pad: int) -> int:
+    """Bytes of a row of K2's output staging at the padded value width:
+    ``dv_pad`` bf16, and one 16-byte chunk more where a row is not a
+    multiple of 8 chunks (96), so that a warp's stores spread over the
+    banks (``csrc/flash_attention.cu``: ``Staging``)."""
+    return 2 * dv_pad + (0 if (dv_pad // 8) % 8 == 0 else 16)
 
 
 def head_dim_ok(D, Dv=None):
@@ -427,16 +452,21 @@ class AttentionLaunch(NamedTuple):
     """How K2 runs one call (``csrc/flash_attention.cu``): the variant, the
     clamped blocks, the consumer warpgroups of 64 query rows, the keys a
     stage of the TMA ring holds, the stages over ``Skv`` (before the
-    causal skip), the stages of the ring and its shared memory."""
+    causal skip), the stages of the ring and its shared memory, and the
+    padded widths of ``Q.K^T`` and ``P.V``."""
     variant: str        # "tma_wgmma" or "unaligned"
     bq: int
     bkv: int
     warpgroups: int
-    stage_keys: int     # 128, or 64 where bkv < 128 or D > 128
+    stage_keys: int     # 128, or 64 where bkv < 128 or d_pad is 192
     n_stages: int       # ceil(Skv / stage_keys)
-    ring: int
+    ring: int           # 2 at (128, 128); the deepest that fits (at most
+                        # ATTN_MAX_RING) at other widths
     smem: int           # dynamic shared memory bytes (tma_wgmma): Q,
                         # the output staging and the ring
+    d_pad: int          # the widths tma_wgmma computes Q.K^T and P.V at
+    dv_pad: int         # (attn_widths), passed to the kernel, which
+                        # refuses a pair it does not compile
 
 
 def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
@@ -444,21 +474,28 @@ def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
                           Dv: Optional[int] = None
                           ) -> Optional[AttentionLaunch]:
     """The launch of K2 for a legal tile (``None`` if the rule refuses the
-    tile or the head dims D and ``Dv``, default D).  Shared memory is
-    sized at D's padded width (:func:`attn_d_pad`) for Q and a stage's K
-    tile, and at 128 columns for a stage's V tile and the output staging:
-    the tma_wgmma variant computes P.V in parts of 128 columns, one tile
-    each (two where Dv > 128).  At D above 128 a stage holds 64 keys,
-    whatever ``bkv``: a ring of 2 then fits beside Q and the staging (at D
-    = 192 a 128-key stage would take 80 KB, and only one would fit), and a
-    consumer's scores and P fragments take half the registers beside its
-    (64, 128) accumulator.  At D <= 128 the plan is the first
-    redesign's, whatever Dv.  ``strides`` are q's, k's and v's (elements;
+    tile or the head dims D and ``Dv``, default D).  The tma_wgmma variant
+    computes ``Q.K^T`` at D's padded width and ``P.V`` at Dv's
+    (:func:`attn_widths`), every column of Dv in one tile a (query block,
+    batch, head), so the scores are computed once; shared memory holds Q
+    at ``d_pad``, the output staging at ``dv_pad``
+    (:func:`attn_staging_pitch`) and the ring's stages of a K tile at
+    ``d_pad`` and a V tile at ``dv_pad``.  A stage holds 128 keys, or 64
+    where ``bkv`` is below 128 or ``d_pad`` is 192 (beside an O of up to
+    96 registers a consumer; a 96-key stage ran slower at ``mla.core`` on
+    an H100, PERF.md).  At ``(128, 128)`` the ring is ``ATTN_RING`` deep:
+    the first redesign's plan.  At the other widths it is the deepest that
+    fits ``ATTN_SMEM_DYN``, up to ``ATTN_MAX_RING``: 4 at (64, 64), 3 at
+    (96, 96), 3 at ``mla.core``'s (192, 128) and 2 at D = Dv = 192 with
+    two warpgroups.  A ring is never deeper than the stages over Skv; the
+    kernel sizes its shared memory alike (``launch_tma``) and refuses a
+    ring that does not fit.  ``strides`` are q's, k's and v's (elements;
     ``None``: contiguous; a dimension of one element carries its
     contiguous stride) and ``aligned`` says their base pointers are
     16-byte aligned.  TMA takes a tensor whose last dim is contiguous and
     whose other strides are positive multiples of 16 bytes; an operand it
-    cannot take runs the unaligned variant."""
+    cannot take runs the unaligned variant (at :func:`attn_d_pad`'s
+    widths; the plan's other fields are tma_wgmma's)."""
     Dv = D if Dv is None else Dv
     if not attention_tiles_legal(Sq, Skv, D, bq, bkv) or (
             Sq > 1 and not head_dim_ok(D, Dv)):
@@ -470,18 +507,19 @@ def attention_launch_plan(Sq: int, Skv: int, D: int, bq: int, bkv: int,
         st[3] == 1 and all(x > 0 and x % 8 == 0 for x in st[:3])
         for st in strides))
     wgs = -(-bq // ATTN_WG_ROWS)
-    d_pad, v_cols = int(attn_d_pad(D)), 2 * ATTN_SLAB
-    # blocks below 128 keys, or three slabs: 64 keys a stage
-    keys = 128 if bkv >= 128 and d_pad == 2 * ATTN_SLAB else 64
-    n_stages = -(-Skv // keys)
-    stage_bytes = 2 * keys * (d_pad + v_cols)       # a K and a V tile, bf16
+    d_pad, dv_pad = attn_widths(min(D, ATTN_D_MAX), min(Dv, ATTN_D_MAX))
     q_bytes = wgs * ATTN_WG_ROWS * d_pad * 2        # Q
-    o_bytes = wgs * ATTN_WG_ROWS * v_cols * 2       # the output staging
+    o_bytes = wgs * ATTN_WG_ROWS * attn_staging_pitch(dv_pad)  # staging
+    keys = 128 if bkv >= 128 and d_pad <= 128 else 64
+    n_stages = -(-Skv // keys)
+    stage_bytes = 2 * keys * (d_pad + dv_pad)       # a K and a V tile, bf16
     fit = (ATTN_SMEM_DYN - 1024 - q_bytes - o_bytes) // stage_bytes
-    ring = max(1, min(ATTN_RING, fit, ATTN_MAX_RING, n_stages))
+    deepest = ATTN_RING if (d_pad, dv_pad) == (128, 128) else ATTN_MAX_RING
+    ring = max(1, min(deepest, fit, ATTN_MAX_RING, n_stages))
     return AttentionLaunch("tma_wgmma" if tma else "unaligned", bq, bkv,
                            wgs, keys, n_stages, ring,
-                           q_bytes + o_bytes + ring * stage_bytes + 1024)
+                           q_bytes + o_bytes + ring * stage_bytes + 1024,
+                           d_pad, dv_pad)
 
 
 class ChunkLaunch(NamedTuple):

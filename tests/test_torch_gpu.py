@@ -1351,24 +1351,26 @@ def _mla_inputs(B, h, S, d, dv, layout, device, seed=70):
     return q, k, v
 
 
-@pytest.mark.parametrize("d,dv,layout,causal,tiles", [
-    (192, 128, _MODEL, True, (128, 512)),       # mla.core, the baseline
-    (192, 128, _MODEL, True, (64, 128)),        # a tile PPO can pick
-    (192, 128, _MODEL, False, (128, 256)),
-    (192, 192, _CONTIG, True, (128, 512)),      # the runner's D = Dv = 192
-    (192, 192, _CONTIG, False, (64, 64)),
-    (136, 136, _CONTIG, True, (128, 128)),      # a third slab partly past D
-    (192, 64, _MODEL, True, (128, 512)),        # Dv in two slabs, one empty
-])
-def test_flash_kernel_at_mla_head_dims(cuda, d, dv, layout, causal, tiles):
-    """K2 at D > 128 (three 64-column slabs of Q.K^T, 64-key stages) with a
-    value dim of its own (P.V over two or three slabs), against its plain
-    version at the true dims and the scale 1/sqrt(D); the output is (B,
-    H, S, Dv) and nothing is written at or past column Dv."""
+@pytest.mark.parametrize("d,dv,layout,causal,tiles,keys,ring", [
+    (192, 128, _MODEL, True, (128, 512), 64, 3),    # mla.core, the baseline
+    (192, 128, _MODEL, True, (64, 128), 64, 4),     # a tile PPO can pick
+    (192, 128, _MODEL, False, (128, 256), 64, 3),
+    (192, 192, _CONTIG, True, (128, 512), 64, 2),   # the runner's D = Dv
+    (192, 192, _CONTIG, False, (64, 64), 64, 3),
+    (136, 136, _CONTIG, True, (128, 128), 64, 2),   # a third slab part past D
+    (192, 64, _MODEL, True, (128, 512), 64, 3),     # Dv in two slabs, one
+])                                                  # empty
+def test_flash_kernel_at_mla_head_dims(cuda, d, dv, layout, causal, tiles,
+                                       keys, ring):
+    """K2 at D > 128 (three 64-column slabs of Q.K^T, 64-key stages in the
+    deepest ring that fits) with a value dim of its own (P.V at 128 or 192
+    in one tile), against its plain version at the true dims
+    and the scale 1/sqrt(D); the output is (B, H, S, Dv) and nothing is
+    written at or past column Dv."""
     B, h, S = 2, 8, 512
     q, k, v = _mla_inputs(B, h, S, d, dv, layout, cuda)
     p = ops.attention_launch_plan(S, S, d, *tiles, Dv=dv)
-    assert p.stage_keys == 64 and p.ring == 2
+    assert (p.stage_keys, p.ring) == (keys, ring)
     y, ran = _flash_variant_ran(lambda: ops.flash_attention(
         q, k, v, causal=causal, scale=d ** -0.5, tiles=tiles))
     assert ran == {"tma_wgmma": 1, "unaligned": 0}
@@ -1379,6 +1381,109 @@ def test_flash_kernel_at_mla_head_dims(cuda, d, dv, layout, causal, tiles):
     variant, yc, canary = _flash_into_canary(q, k, v, causal, tiles)
     assert variant == "tma_wgmma" and torch.equal(yc, y)
     assert bool((canary == 7.0).all())
+
+
+# (D, Dv) at each compiled width: D = Dv, and Dv below D where the rule
+# admits it (a narrower P.V width, or the same width with columns past Dv)
+_WIDTH_PAIRS = [(16, 16), (24, 24), (24, 16), (64, 64), (64, 32), (72, 72),
+                (72, 40), (80, 80), (80, 48), (96, 96), (96, 64),
+                (104, 104), (104, 56), (136, 136), (136, 64), (192, 192),
+                (192, 128), (192, 64)]
+
+
+@pytest.mark.parametrize("d,dv", _WIDTH_PAIRS)
+@pytest.mark.parametrize("B,hq,hkv,sq,skv,tiles,causal,layout", [
+    (2, 8, 2, 512, 512, (128, 512), True, _MODEL),     # served, GQA
+    (1, 4, 4, 256, 384, (64, 128), False, _CONTIG),    # Sq < Skv, 1 WG
+    (2, 4, 2, 96, 200, (128, 256), True, _MODEL),      # ragged last stage
+])
+def test_flash_kernel_at_its_own_widths(cuda, d, dv, B, hq, hkv, sq, skv,
+                                        tiles, causal, layout):
+    """K2 at Q.K^T's and P.V's own padded widths (``ops.attn_widths``: 64,
+    96 as a 64- and a 32-column slab, 128, 192) against its plain version
+    at the true D and Dv, causal and not, in the model's layout (v the
+    transposed view of its projection) and contiguous; nothing is written
+    at or past column Dv."""
+    q = _normal(110, B, hq, sq, d, device=cuda)
+    k = _normal(111, B, hkv, skv, d, device=cuda)
+    if layout == _MODEL:
+        v = _normal(112, B, skv, hkv, dv, device=cuda).transpose(1, 2)
+    else:
+        v = _normal(112, B, hkv, skv, dv, device=cuda)
+    p = ops.attention_launch_plan(sq, skv, d, *tiles, Dv=dv)
+    assert (p.d_pad, p.dv_pad) == ops.attn_widths(d, dv)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=causal, scale=d ** -0.5, tiles=tiles))
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
+    yp = kfa.flash_attention_plain(q, k, v, causal=causal, scale=d ** -0.5,
+                                   bq=tiles[0], bkv=tiles[1])
+    assert y.shape == (B, hq, sq, dv) and torch.isfinite(y.float()).all()
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+    variant, yc, canary = _flash_into_canary(q, k, v, causal, tiles)
+    assert variant == "tma_wgmma" and torch.equal(yc, y)
+    assert bool((canary == 7.0).all())
+
+
+def test_flash_kernel_at_192_computes_the_scores_once(cuda):
+    """At D = Dv = 192 (the runner's MLA layout) the kernel walks one tile
+    a (query block, batch, head): P.V at 192 columns in the tile that
+    computed the scores, none computed twice."""
+    import ctypes
+    B, h, S, bq = 1, 16, 512, 128
+    tiles_of = kfa._fn("repro_flash_tma_tiles", [ctypes.c_int] * 4)
+    assert tiles_of(B, h, S, bq) == (S // bq) * B * h
+    assert tiles_of(B, h, S, 96) == -1
+    p = ops.attention_launch_plan(S, S, 192, bq, 512, Dv=192)
+    assert (p.d_pad, p.dv_pad, p.stage_keys, p.ring) == (192, 192, 64, 2)
+    q, k, v = _mla_inputs(B, h, S, 192, 192, _CONTIG, cuda, seed=120)
+    y, ran = _flash_variant_ran(lambda: ops.flash_attention(
+        q, k, v, causal=True, scale=192 ** -0.5, tiles=(bq, 512)))
+    assert ran == {"tma_wgmma": 1, "unaligned": 0}
+    assert kfa.tma_last_launch() == dict(
+        warpgroups=2, stage_keys=64, d_pad=192, dv_pad=192, ring=2,
+        smem=p.smem)
+    yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=192 ** -0.5,
+                                   bq=bq, bkv=512)
+    assert float((y.float() - yp.float()).abs().max()) < K2_ABS_TOL
+
+
+def test_flash_entry_point_runs_at_the_widths_it_is_given(cuda):
+    """Variant A's entry point runs at the widths the plan passes it: D =
+    Dv = 64 given (128, 128) in a ring of 2 gives the output of its own
+    (64, 64) bit for bit (the columns past 64 add exact zeros) and its
+    launch reads back (128, 128); a pair of widths it does not compile, or
+    one narrower than D or Dv, is refused with nothing written."""
+    B, h, S, d = 2, 4, 256, 64
+    q, k, v = (_normal(130 + i, B, h, S, d, device=cuda) for i in range(3))
+    variant, fn, args = kfa._prepare(q, k, v, True, 128, 128)
+    assert variant == "tma_wgmma" and args[20:23] == (2, 64, 64)
+
+    def run(fn, q, k, a, ring, dqk, dvp):
+        out = torch.full((B, h, S, d), 7.0, dtype=torch.bfloat16,
+                         device=cuda)
+        a = list(a)
+        a[20:23] = ring, dqk, dvp
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *a, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return rc, out
+
+    rc, own = run(fn, q, k, args, 2, 64, 64)
+    assert rc == 0 and kfa.tma_last_launch()["d_pad"] == 64
+    rc, wide = run(fn, q, k, args, 2, 128, 128)
+    assert rc == 0 and torch.equal(wide, own)
+    assert kfa.tma_last_launch() == dict(
+        warpgroups=2, stage_keys=128, d_pad=128, dv_pad=128, ring=2,
+        smem=2 * 2 * 64 * 128 * 2 + 2 * 4 * 128 * 128 + 1024)
+    for dqk, dvp in ((96, 64), (64, 96), (160, 160), (48, 48), (192, 96)):
+        rc, out = run(fn, q, k, args, 2, dqk, dvp)
+        assert rc == 1 and bool((out == 7.0).all()), (dqk, dvp)
+    q80 = _normal(136, B, h, S, 80, device=cuda)
+    k80 = _normal(137, B, h, S, 80, device=cuda)
+    _, fn80, args80 = kfa._prepare(q80, k80, v, True, 128, 128)
+    assert args80[21:23] == (96, 96)
+    rc, out = run(fn80, q80, k80, args80, 2, 64, 64)   # D = 80 past 64
+    assert rc == 1 and bool((out == 7.0).all())
 
 
 @pytest.mark.parametrize("d,dv", [(192, 128), (192, 192), (136, 136)])
@@ -1402,12 +1507,13 @@ def test_flash_unaligned_variant_at_mla_head_dims(cuda, d, dv):
 def test_flash_kernel_at_head_dim_128_runs_the_plan_before_mla(cuda):
     """At D = Dv = 128 (Qwen3-8B's prefill in the served layout) the call
     passes the C entry point the arguments of the plan it had before K2
-    took D > 128: 128-key stages, a ring of 2, two warpgroups."""
+    took D > 128: 128-key stages, a ring of 2, two warpgroups, and the
+    widths 128 and 128."""
     q, k, v = _attention_inputs(4, 32, 8, 512, 512, _MODEL, cuda, seed=90)
     variant, _, args = kfa._prepare(q, k, v, True, 128, 512)
     assert variant == "tma_wgmma"
     assert args[5:7] == (128, 128)
-    assert args[-6:] == (128, 2, 128, 4, 2, 1)
+    assert args[-8:] == (128, 2, 128, 4, 2, 128, 128, 1)
     y, ran = _flash_variant_ran(lambda: ops.flash_attention(
         q, k, v, causal=True, scale=128 ** -0.5, tiles=(128, 512)))
     yp = kfa.flash_attention_plain(q, k, v, causal=True, scale=128 ** -0.5,

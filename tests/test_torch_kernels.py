@@ -439,12 +439,14 @@ def _model_strides(B, H, S, D):
 
 def test_attention_launch_plan_covers_every_legal_tile():
     """Every legal tile, at every head dim the rule admits, plans the
-    tma_wgmma variant with one or two 64-row warpgroups covering bq, 64- or
-    128-key stages (64 above D = 128) that cover Skv, whose edges fall on
-    the bkv block edges where bkv >= 64 (or the block is the whole
-    sequence), and a ring of at least 2 stages (where Skv has them) whose
-    shared memory, counted at the padded head dim (128, or 192 above),
-    fits;
+    tma_wgmma variant with one or two 64-row warpgroups covering bq, at
+    D's own padded width (64, 96, 128 or 192), with 64- or 128-key stages
+    (64 above D = 128) that cover Skv, whose edges fall on the bkv block
+    edges where bkv >= 64 (or the block is the whole sequence), and a ring
+    of at least 2
+    stages (where Skv has them), 2 at the width 128 and the deepest that
+    fits elsewhere, whose shared memory, counted at the padded widths (the
+    output staging's 96-column rows one 16-byte chunk longer), fits;
     a tile whose blocks do not divide the sequence (legal at Sq == 1,
     where K2 never runs) plans nothing; the model's
     strided v and the runner's contiguous layout plan tma_wgmma, and an
@@ -463,6 +465,8 @@ def test_attention_launch_plan_covers_every_legal_tile():
             assert p.variant == "tma_wgmma" and (p.bq, p.bkv) == (bq, bkv)
             assert p.warpgroups in (1, 2)
             assert (p.warpgroups - 1) * 64 < bq <= p.warpgroups * 64
+            pad = next(w for w in (64, 96, 128, 192) if min(D, 192) <= w)
+            assert (p.d_pad, p.dv_pad) == (pad, pad)
             assert p.stage_keys == (128 if bkv >= 128 and D <= 128 else 64)
             assert (p.n_stages - 1) * p.stage_keys < Skv
             assert p.n_stages * p.stage_keys >= Skv
@@ -470,10 +474,14 @@ def test_attention_launch_plan_covers_every_legal_tile():
                 assert bkv % p.stage_keys == 0 or bkv == Skv
             assert 1 <= p.ring <= min(ops.ATTN_MAX_RING, p.n_stages)
             assert p.ring >= min(2, p.n_stages)
-            pad = 128 if D <= 128 else 192      # V and the staging: 128
-            assert p.smem == (p.warpgroups * 64 * (pad + 128) * 2
-                              + p.ring * 2 * p.stage_keys * (pad + 128)
-                              + 1024)
+            staging = 64 * (2 * pad + (16 if pad == 96 else 0))
+            stage = 2 * p.stage_keys * 2 * pad
+            room = 232448 - 1024 - 1024 - p.warpgroups * (
+                64 * pad * 2 + staging)
+            deepest = 2 if pad == 128 else 4
+            assert p.ring == min(deepest, room // stage, p.n_stages)
+            assert p.smem == (p.warpgroups * (64 * pad * 2 + staging)
+                              + p.ring * stage + 1024)
             assert p.smem <= 232448 - 1024
     assert n > 0
     model = ops.attention_launch_plan(512, 512, 128, 128, 128,
@@ -630,11 +638,31 @@ def _first_redesign_plan(Sq, Skv, D, bq, bkv, strides=None, aligned=True):
             n_stages, ring, 2 * q_bytes + ring * stage_bytes + 1024)
 
 
+def _at_own_width(first, D, Dv):
+    """The first redesign's plan ``first`` at the one width that covers D
+    and Dv up to 128 (64, 96 or 128): the same variant, blocks,
+    warpgroups, keys and stages; Q, the output staging (a 96-column row
+    one 16-byte chunk longer) and each stage's K and V tiles counted at
+    that width; the ring the deepest that fits, up to 4, and 2 at the
+    width 128; then the widths.  At 128 this is ``first`` itself."""
+    pad = next(w for w in (64, 96, 128) if w >= max(D, Dv))
+    wgs, keys, n_stages = first[3:6]
+    fixed = wgs * (64 * pad * 2 + 64 * (2 * pad + (16 if pad == 96 else 0)))
+    stage = 2 * keys * 2 * pad
+    fit = (232448 - 1024 - 1024 - fixed) // stage
+    ring = max(1, min(2 if pad == 128 else 4, fit, n_stages))
+    return first[:6] + (ring, fixed + ring * stage + 1024, pad, pad)
+
+
 def test_attention_plan_at_head_dims_up_to_128_is_the_first_redesigns():
-    """At every D <= 128 (a Dv of its own up to 128 too) the legal set and
-    the launch plan are what they were before K2 took D > 128: the same
-    variant, warpgroups, stage keys, ring and shared memory, so no served
-    head dim's K2 time can move."""
+    """At every D <= 128 (a Dv of its own up to 128 too) the legal set is
+    what it was before K2 took D > 128, and the plan is the first
+    redesign's at the pair's own width (64, 96 or 128): the same variant,
+    blocks, warpgroups, stage keys and stages, so each call sums its
+    scores in the same blocks, with the ring and shared memory that width
+    gives (:func:`_at_own_width`).  Where the pair computes at the width
+    128 (D or Dv above 96) that is the first redesign's plan field for
+    field, ring and shared memory too."""
     n = 0
     for Sq, Skv, D in _attention_site_shapes():
         if D > 128:
@@ -643,14 +671,23 @@ def test_attention_plan_at_head_dims_up_to_128_is_the_first_redesigns():
             want = _first_redesign_plan(Sq, Skv, D, *t)
             for dv in (D, 16, 64, 128):
                 got = ops.attention_launch_plan(Sq, Skv, D, *t, Dv=dv)
-                assert (None if got is None else tuple(got)) == want, (
+                assert (got is None) == (want is None), (Sq, Skv, D, dv, t)
+                if got is None:
+                    continue
+                assert tuple(got) == _at_own_width(want, D, dv), (
                     Sq, Skv, D, dv, t)
+                if max(D, dv) > 96:
+                    assert tuple(got)[:8] == want, (Sq, Skv, D, dv, t)
             n += want is not None
         if Sq == Skv:
             strided = _model_strides(2, 8, Sq, D)
             got = ops.attention_launch_plan(Sq, Skv, D, 128, 512, strided)
-            assert (None if got is None else tuple(got)) == \
-                _first_redesign_plan(Sq, Skv, D, 128, 512, strided)
+            want = _first_redesign_plan(Sq, Skv, D, 128, 512, strided)
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert tuple(got) == _at_own_width(want, D, D)
+                if D > 96:
+                    assert tuple(got)[:8] == want
     assert n > 0
 
 

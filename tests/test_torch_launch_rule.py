@@ -172,8 +172,11 @@ def test_serve_sites_keep_the_parents_legal_sets(arch):
 
 def test_stablelm_sites_launch_at_head_dim_80():
     """StableLM-3B's prefill attention (D = 80) launches K2 at the blocks
-    the parent's rule admitted, now with a plan sized at the padded 128;
-    its baseline tiles launch at every serve site."""
+    the parent's rule admitted, now with a plan sized at the padded 96 (a
+    64-column slab and a 32-column one) and a ring of 3; its baseline
+    tiles launch at every serve site.  At D = Dv = 136 and 192 the plan
+    holds 64 keys a stage in a ring of 2 (beside Q and the staging at
+    192 two 64-key stages fit, three do not)."""
     sites = _serve_sites("stablelm_3b")
     att = next(s for s in sites if s.kind == "attention" and s.m > 1)
     assert (att.m, att.n, att.k, att.dtype) == (512, 80, 512, "bfloat16")
@@ -183,12 +186,15 @@ def test_stablelm_sites_launch_at_head_dim_80():
             assert ops.tile_ok(s, t) == _parent_rule(s, t), (s.key(), t)
     p = ops.attention_launch_plan(512, 512, 80, 128, 512)
     assert (p.variant, p.warpgroups, p.stage_keys, p.ring) == (
-        "tma_wgmma", 2, 128, 2)
-    assert p.smem == 2 * 2 * 64 * 128 * 2 + 2 * 4 * 128 * 128 + 1024
+        "tma_wgmma", 2, 128, 3)
+    assert (p.d_pad, p.dv_pad) == (96, 96)
+    assert p.smem == (2 * (64 * 96 * 2 + 64 * (96 * 2 + 16))
+                      + 3 * 2 * 128 * (96 + 96) + 1024)
     for d in (136, 192):
         p = ops.attention_launch_plan(512, 512, d, 128, 512)
         assert (p.variant, p.warpgroups, p.stage_keys, p.ring) == (
             "tma_wgmma", 2, 64, 2)
+        assert (p.d_pad, p.dv_pad) == (192, 192)
     for d in (20, 200, 256):
         assert ops.attention_launch_plan(512, 512, d, 128, 512) is None
 

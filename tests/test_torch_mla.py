@@ -428,7 +428,9 @@ def test_arch_sites_are_the_references_whole_corpus():
 def test_mla_core_launches_k2_at_the_baseline_and_every_192_site_has_tiles():
     """At full width ``mla.core`` (D = 192) has the D = 128 legal set: the
     baseline tile (128, 512) launches in the served and the runner's
-    layouts, with 64-key stages and a ring of 2."""
+    layouts, with 64-key stages: the served (192, 128) in a ring of 3, the
+    runner's D = Dv = 192 in a ring of 2, each P.V at its own width in one
+    tile."""
     from repro_torch.core.costmodel import baseline_tiles
     site = next(s for s in extractor.extract_serve_sites(
         build_model(get_config(ARCH)), 4, 512, 16) if s.site == "mla.core")
@@ -439,9 +441,10 @@ def test_mla_core_launches_k2_at_the_baseline_and_every_192_site_has_tiles():
     served = ops.attention_launch_plan(512, 512, 192, 128, 512,
                                        (qk, qk, v), Dv=128)
     runner = ops.attention_launch_plan(512, 512, 192, 128, 512, Dv=192)
-    for p in (served, runner):
+    for p, ring, dv in ((served, 3, 128), (runner, 2, 192)):
         assert (p.variant, p.warpgroups, p.stage_keys, p.ring) == (
-            "tma_wgmma", 2, 64, 2)
+            "tma_wgmma", 2, 64, ring)
+        assert (p.d_pad, p.dv_pad) == (192, dv)
         assert p.smem <= ops.ATTN_SMEM_DYN
     at128 = KernelSite("a", "attention", m=512, n=128, k=512, batch=512,
                        causal=True)
