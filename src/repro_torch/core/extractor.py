@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.models import compute
 from repro_torch.models.lm import build_model
+from repro_torch.obs import trace
 
 META = torch.device("meta")
 
@@ -88,16 +89,25 @@ def extract_arch_sites(arch: str, batch: int = 8,
 def extract_serve_sites(model, batch: int, prompt_len: int,
                         gen: int) -> List[compute.KernelSite]:
     """The sites of the prefill step and of a decode step, de-duplicated
-    (the serve driver's extraction)."""
+    (the serve driver's extraction).  Traced as ``nv.extract``, its parts
+    ``nv.extract.init`` (the ``meta`` parameters and cache),
+    ``nv.extract.prefill`` and ``nv.extract.decode``."""
     from repro_torch.train.steps import make_prefill_step, make_serve_step
-    params = model.init(device=META)
-    cache = model.make_cache(batch, serve_ctx(model.cfg, prompt_len, gen),
-                             device=META)
-    prompts = torch.empty((batch, prompt_len), dtype=torch.long, device=META)
-    sites = {s.key(): s for s in extract_sites(
-        make_prefill_step(model), params, serve_batch(model.cfg, prompts),
-        cache)}
-    sites.update((s.key(), s) for s in extract_sites(
-        make_serve_step(model), params,
-        torch.empty((batch, 1), dtype=torch.long, device=META), 0, cache))
+    tr = trace.active()
+    with tr.span("nv.extract", batch=batch, prompt_len=prompt_len, gen=gen):
+        with tr.span("nv.extract.init"):
+            params = model.init(device=META)
+            cache = model.make_cache(
+                batch, serve_ctx(model.cfg, prompt_len, gen), device=META)
+            prompts = torch.empty((batch, prompt_len), dtype=torch.long,
+                                  device=META)
+        with tr.span("nv.extract.prefill"):
+            sites = {s.key(): s for s in extract_sites(
+                make_prefill_step(model), params,
+                serve_batch(model.cfg, prompts), cache)}
+        with tr.span("nv.extract.decode"):
+            sites.update((s.key(), s) for s in extract_sites(
+                make_serve_step(model), params,
+                torch.empty((batch, 1), dtype=torch.long, device=META), 0,
+                cache))
     return list(sites.values())

@@ -11,6 +11,7 @@ from repro_torch.configs.base import BlockDesc, ModelConfig
 from repro_torch.distributed.sharding import P, flatten_with_path
 from repro_torch.models import attention, compute, mla, moe, ssm, xlstm
 from repro_torch.models.common import apply_mlp, apply_norm, mlp_init, norm_init
+from repro_torch.obs import trace
 
 
 def block_init(cfg: ModelConfig, b: BlockDesc, draw, dtype, device):
@@ -101,27 +102,41 @@ def block_apply(cfg: ModelConfig, b: BlockDesc, p, x, *, positions,
                 decode_pos: Optional[int] = None):
     """``(x, aux)``: the block's output and, for an MoE MLP, its
     ``{"lb_loss", "router_z"}`` (``None`` otherwise); ``cache`` (views
-    into the stacked cache) is updated in place."""
-    h = apply_norm(p["norm1"], x)
-    if b.kind == "attn":
-        attn = mla.apply_mla if cfg.mla else attention.apply_attn
-        y = attn(cfg, p["mixer"], h, positions=positions, causal=causal,
-                 cache=cache, decode_pos=decode_pos)
-    elif b.kind in _RECURRENT:
-        fn, kw = _RECURRENT[b.kind](cfg)
-        if compute.is_dtensor(h):
-            y = _data_parallel(fn, cfg, p["mixer"], h, cache,
-                               decode_pos=decode_pos, **kw)
+    into the stacked cache) is updated in place.  Traced as the mixer's
+    span (``nv.attn``, ``nv.mla``, ``nv.<recurrent kind>``) and the MLP's
+    (``nv.mlp``, ``nv.moe``), each with its norm and residual add."""
+    tr = trace.active()
+    with tr.span(_mixer_span(cfg, b)) if tr.enabled else trace.NO_SPAN:
+        h = apply_norm(p["norm1"], x)
+        if b.kind == "attn":
+            attn = mla.apply_mla if cfg.mla else attention.apply_attn
+            y = attn(cfg, p["mixer"], h, positions=positions, causal=causal,
+                     cache=cache, decode_pos=decode_pos)
+        elif b.kind in _RECURRENT:
+            fn, kw = _RECURRENT[b.kind](cfg)
+            if compute.is_dtensor(h):
+                y = _data_parallel(fn, cfg, p["mixer"], h, cache,
+                                   decode_pos=decode_pos, **kw)
+            else:
+                y = fn(cfg, p["mixer"], h, cache=cache,
+                       decode_pos=decode_pos, **kw)
         else:
-            y = fn(cfg, p["mixer"], h, cache=cache, decode_pos=decode_pos,
-                   **kw)
-    else:
-        raise ValueError(b.kind)
-    x = x + y
-    aux = None
-    if b.mlp == "moe":
-        y, aux = moe.apply_moe(cfg, p["mlp"], apply_norm(p["norm2"], x))
+            raise ValueError(b.kind)
         x = x + y
-    elif b.mlp != "none":
-        x = x + apply_mlp(cfg, p["mlp"], apply_norm(p["norm2"], x))
+    aux = None
+    if b.mlp == "none":
+        return x, aux
+    with tr.span("nv.moe" if b.mlp == "moe" else "nv.mlp") if tr.enabled \
+            else trace.NO_SPAN:
+        if b.mlp == "moe":
+            y, aux = moe.apply_moe(cfg, p["mlp"], apply_norm(p["norm2"], x))
+            x = x + y
+        else:
+            x = x + apply_mlp(cfg, p["mlp"], apply_norm(p["norm2"], x))
     return x, aux
+
+
+def _mixer_span(cfg: ModelConfig, b: BlockDesc) -> str:
+    if b.kind == "attn":
+        return "nv.mla" if cfg.mla else "nv.attn"
+    return "nv." + b.kind

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.site import KernelSite, SiteRecorder  # noqa: F401
+from repro_torch.obs import trace
 
 MODES = ("eager", "kernel")
 NEG_INF = -1e30
@@ -153,6 +154,14 @@ def _tiles_for(st: _ComputeState, site: KernelSite):
     return None if st.tiles is None else st.tiles.get(site.key())
 
 
+def _site_span(tr, st: _ComputeState, site: KernelSite, kernel: bool):
+    """The ``nv.site`` span of one call: the site's key, the tile it
+    runs at (``None``: the baseline's) and its path."""
+    return tr.span("nv.site", site=site.key(),
+                   tile=_tiles_for(st, site) if kernel else None,
+                   path="kernel" if kernel else "eager")
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor, *, site: str,
            fused_ops: int = 0) -> torch.Tensor:
     """``x @ w`` where x is (..., K) and w is (K, N)."""
@@ -166,11 +175,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, site: str,
                        dtype=dtype_name(x.dtype), fused_ops=fused_ops)
     if st.recorder is not None:
         st.recorder.record(ksite)
-    if st.mode == "kernel" and x.device.type != "meta":
-        from repro_torch.kernels import ops
-        y = ops.matmul(x.reshape(M, K), w, tiles=_tiles_for(st, ksite))
-        return y.reshape(*lead, N)
-    return torch.matmul(x, w)
+    kernel = st.mode == "kernel" and x.device.type != "meta"
+    tr = trace.active()
+    with _site_span(tr, st, ksite, kernel) if tr.enabled else trace.NO_SPAN:
+        if kernel:
+            from repro_torch.kernels import ops
+            y = ops.matmul(x.reshape(M, K), w, tiles=_tiles_for(st, ksite))
+            return y.reshape(*lead, N)
+        return torch.matmul(x, w)
 
 
 def einsum(spec: str, *args: torch.Tensor, site: str) -> torch.Tensor:
@@ -223,32 +235,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         st.recorder.record(ksite)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    kernel = st.mode == "kernel" and Sq > 1 and q.device.type != "meta"
+    tr = trace.active()
+    with _site_span(tr, st, ksite, kernel) if tr.enabled else trace.NO_SPAN:
+        if kernel:
+            from repro_torch.kernels import ops
+            return ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                                       tiles=_tiles_for(st, ksite))
 
-    if st.mode == "kernel" and Sq > 1 and q.device.type != "meta":
-        from repro_torch.kernels import ops
-        return ops.flash_attention(q, k, v, causal=causal, scale=scale,
-                                   tiles=_tiles_for(st, ksite))
+        if is_dtensor(q) and Sq > 1:
+            return _sharded_attention(q, k, v, causal=causal, scale=scale,
+                                      bq=min(q_chunk, Sq),
+                                      bkv=min(kv_chunk, Skv))
 
-    if is_dtensor(q) and Sq > 1:
-        return _sharded_attention(q, k, v, causal=causal, scale=scale,
-                                  bq=min(q_chunk, Sq), bkv=min(kv_chunk, Skv))
+        if Sq == 1:
+            if is_dtensor(q):
+                return _sharded_decode_attention(q, k, v, causal=causal,
+                                                 scale=scale,
+                                                 base_offset=base_offset)
+            return _decode_attention(q, k, v, causal=causal, scale=scale,
+                                     base_offset=base_offset)
 
-    if Sq == 1:
-        if is_dtensor(q):
-            return _sharded_decode_attention(q, k, v, causal=causal,
-                                             scale=scale,
-                                             base_offset=base_offset)
-        return _decode_attention(q, k, v, causal=causal, scale=scale,
-                                 base_offset=base_offset)
-
-    if Hq != Hkv:
-        k = k.repeat_interleave(Hq // Hkv, dim=1)
-        v = v.repeat_interleave(Hq // Hkv, dim=1)
-    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
-    if Sq % q_chunk or Skv % kv_chunk:
-        raise ValueError(f"{site}: chunks must divide Sq={Sq}, Skv={Skv}")
-    return _mem_efficient_attention(q, k, v, causal=causal, scale=scale,
-                                    bq=q_chunk, bkv=kv_chunk)
+        if Hq != Hkv:
+            k = k.repeat_interleave(Hq // Hkv, dim=1)
+            v = v.repeat_interleave(Hq // Hkv, dim=1)
+        q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Skv)
+        if Sq % q_chunk or Skv % kv_chunk:
+            raise ValueError(f"{site}: chunks must divide Sq={Sq}, "
+                             f"Skv={Skv}")
+        return _mem_efficient_attention(q, k, v, causal=causal, scale=scale,
+                                        bq=q_chunk, bkv=kv_chunk)
 
 
 def _decode_attention(q, k, v, *, causal, scale, base_offset):

@@ -36,6 +36,7 @@ from repro_torch.distributed.sharding import P
 from repro_torch.models import attention, blocks, compute
 from repro_torch.models.common import (WeightDraw, apply_norm, dense_init,
                                        norm_init, torch_dtype)
+from repro_torch.obs import trace
 
 
 @dataclass(frozen=True)
@@ -238,26 +239,29 @@ def _run_stack(cfg, stack, x, *, positions, causal, caches=None,
     aux = {"lb_loss": x.new_zeros((), dtype=torch.float32),
            "router_z": x.new_zeros((), dtype=torch.float32)}
     remat = torch.is_grad_enabled() and caches is None
-    layers = [_unstack(slot, n) for slot in stack]
+    tr = trace.active()
+    with tr.span("nv.unstack") if tr.enabled else trace.NO_SPAN:
+        layers = [_unstack(slot, n) for slot in stack]
     for i in range(n):
-        # pin the carry under sharding hints: batch over DP, d over TP
-        x = compute.constrain(x, lambda dp, tp: P(
-            dp if x.shape[0] > 1 else None, None,
-            tp if compute._HINTS["carry_tp"] else None))
-        for slot, b in enumerate(cfg.period):
-            cache = mc = None
-            if caches is not None:
-                cache = {k: v[i] for k, v in caches[slot].items()}
-            if mem_caches is not None:
-                mc = {k: v[i] for k, v in mem_caches[slot].items()}
-            apply = functools.partial(
-                _slot_apply, cfg, b, layers[slot][i], memory=memory,
-                positions=positions, causal=causal, cache=cache,
-                decode_pos=decode_pos, mem_cache=mc)
-            x, a = checkpoint(apply, x, use_reentrant=False) if remat \
-                else apply(x)
-            if a is not None:
-                aux = {k: aux[k] + a[k] for k in aux}
+        with tr.span("nv.layer", index=i) if tr.enabled else trace.NO_SPAN:
+            # pin the carry under sharding hints: batch over DP, d over TP
+            x = compute.constrain(x, lambda dp, tp: P(
+                dp if x.shape[0] > 1 else None, None,
+                tp if compute._HINTS["carry_tp"] else None))
+            for slot, b in enumerate(cfg.period):
+                cache = mc = None
+                if caches is not None:
+                    cache = {k: v[i] for k, v in caches[slot].items()}
+                if mem_caches is not None:
+                    mc = {k: v[i] for k, v in mem_caches[slot].items()}
+                apply = functools.partial(
+                    _slot_apply, cfg, b, layers[slot][i], memory=memory,
+                    positions=positions, causal=causal, cache=cache,
+                    decode_pos=decode_pos, mem_cache=mc)
+                x, a = checkpoint(apply, x, use_reentrant=False) if remat \
+                    else apply(x)
+                if a is not None:
+                    aux = {k: aux[k] + a[k] for k in aux}
     return x, aux
 
 
@@ -412,7 +416,18 @@ def make_cache(cfg: ModelConfig, batch: int, ctx: int, dtype=None,
 
 
 def prefill(cfg: ModelConfig, params, batch, cache):
-    """Fill the cache from a full-sequence forward; return last logits."""
+    """Fill the cache from a full-sequence forward; return last logits.
+    Traced as ``nv.prefill`` where tracing is on or a ``torch.profiler``
+    records (``obs.trace.for_step``)."""
+    tr = trace.for_step()
+    if not tr.enabled:
+        return _prefill(cfg, params, batch, cache)
+    B, S = batch["tokens"].shape
+    with trace.tracing(tr), tr.span("nv.prefill", batch=B, tokens=B * S):
+        return _prefill(cfg, params, batch, cache)
+
+
+def _prefill(cfg: ModelConfig, params, batch, cache):
     x, _, _ = forward(cfg, params, batch, caches=cache["caches"],
                       mem_caches=cache.get("mem"))
     return _logits(cfg, params, x[:, -1:])[:, 0], cache

@@ -24,6 +24,11 @@ positions come from each TP rank's experts, summed over TP.
 Every shape depends on the config and the token count alone (``C`` is
 static, no ``.item()``), so the layer runs on ``meta`` tensors for site
 extraction.
+
+On one card the layer's parts are traced as ``nv.moe.route``,
+``nv.moe.dispatch``, ``nv.moe.combine`` and ``nv.moe.shared``, and, while
+tracing is on, the token-choices kept count into the device counter
+``moe.kept`` (of the ``E * C`` slots the expert products compute).
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import P
 from repro_torch.models import compute
 from repro_torch.models.common import dense_init
+from repro_torch.obs import trace
 
 CAPACITY_FACTOR = 1.25
 
@@ -121,30 +127,37 @@ def apply_moe(cfg: ModelConfig, p, x):
     T = B * S
     xt = x.reshape(T, d)
     logits = compute.matmul(xt.float(), p["router"], site="moe.router")
-    eidx, pos_tk, _, w, idx, aux = route(cfg, logits)
+    tr = trace.active()
+    with tr.span("nv.moe.route") if tr.enabled else trace.NO_SPAN:
+        eidx, pos_tk, keep_tk, w, idx, aux = route(cfg, logits)
+    if tr.enabled:              # the token-choices kept, of E * C slots
+        tr.count("moe.kept", keep_tk.sum())
     C = idx.shape[1]
 
     # dispatch: (T, d) -> (E, C, d), empty slots zero
-    valid = (idx >= 0)[..., None]
-    buf = torch.where(valid, xt[idx.clamp(0, T - 1)],
-                      torch.zeros((), dtype=x.dtype, device=x.device))
-    h = torch.einsum("ecd,edf->ecf", buf, p["ewi"])
-    g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["ewg"]))
-    y_flat = torch.einsum("ecf,efd->ecd", h * g, p["ewo"]).reshape(-1, d)
+    with tr.span("nv.moe.dispatch") if tr.enabled else trace.NO_SPAN:
+        valid = (idx >= 0)[..., None]
+        buf = torch.where(valid, xt[idx.clamp(0, T - 1)],
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+        h = torch.einsum("ecd,edf->ecf", buf, p["ewi"])
+        g = F.silu(torch.einsum("ecd,edf->ecf", buf, p["ewg"]))
+        y_flat = torch.einsum("ecf,efd->ecd", h * g, p["ewo"]).reshape(-1, d)
 
     # combine: each token's k buffer rows, weighted in f32
-    y = None
-    for k in range(cfg.moe_top_k):
-        flat = eidx[:, k] * C + pos_tk[:, k].clamp(0, C - 1)
-        y_k = y_flat[flat].float() * w[:, k:k + 1]
-        y = y_k if y is None else y + y_k
+    with tr.span("nv.moe.combine") if tr.enabled else trace.NO_SPAN:
+        y = None
+        for k in range(cfg.moe_top_k):
+            flat = eidx[:, k] * C + pos_tk[:, k].clamp(0, C - 1)
+            y_k = y_flat[flat].float() * w[:, k:k + 1]
+            y = y_k if y is None else y + y_k
 
     if cfg.n_shared_experts:
-        hs = (F.silu(compute.matmul(xt, p["shared_wg"],
-                                    site="moe.shared_gate", fused_ops=1))
-              * compute.matmul(xt, p["shared_wi"], site="moe.shared_up"))
-        y = y + compute.matmul(hs, p["shared_wo"],
-                               site="moe.shared_down").float()
+        with tr.span("nv.moe.shared") if tr.enabled else trace.NO_SPAN:
+            hs = (F.silu(compute.matmul(xt, p["shared_wg"],
+                                        site="moe.shared_gate", fused_ops=1))
+                  * compute.matmul(xt, p["shared_wi"], site="moe.shared_up"))
+            y = y + compute.matmul(hs, p["shared_wo"],
+                                   site="moe.shared_down").float()
     return y.to(x.dtype).reshape(B, S, d), aux
 
 

@@ -4,7 +4,11 @@ tuning stack.
 
 * :mod:`~repro_torch.obs.metrics` — Counter/Gauge/Histogram registry with
   ``snapshot()`` and Prometheus ``render_prom()``.
-* :mod:`~repro_torch.obs.trace` — JSONL span tracing + ``to_chrome_trace()``.
+* :mod:`~repro_torch.obs.trace` — span tracing, to JSONL or kept in
+  memory, + ``to_chrome_trace()``; the process's active tracer
+  (:func:`tracing`, ``trace.active()``), which the model step's ``nv.*``
+  spans and the MoE's ``moe.kept`` device counter report to, mirrored
+  into a recording ``torch.profiler`` on its clock.
 * :mod:`~repro_torch.obs.instrument` — wrap the live measured env, its
   surrogate, its transport (in process, pool or fleet) and DB, the
   program store and the batch server into a registry without behavior
@@ -14,7 +18,10 @@ tuning stack.
 
 The facade and the tuning service wire all of this by default into the
 process-wide registry (:func:`get_registry`); tracing is opt-in
-(``NeuroVectorizer(trace="t.jsonl")``).
+(``NeuroVectorizer(trace="t.jsonl")``; ``with tracing(Tracer()):`` for
+the model step and site extraction).  Off, a span site in the model step
+costs one flag check; a prefill run under ``torch.profiler`` with no
+tracer active puts its spans into the profiler alone.
 """
 from repro_torch.obs.exporter import MetricsServer
 from repro_torch.obs.instrument import (ObsHandle, instrument_db,
@@ -29,13 +36,13 @@ from repro_torch.obs.metrics import (DEFAULT_LATENCY_BUCKETS, Counter, Gauge,
                                      Histogram, MetricsRegistry,
                                      get_registry)
 from repro_torch.obs.trace import (NULL_TRACER, NullTracer, Span, Tracer,
-                                   read_trace, to_chrome_trace)
+                                   read_trace, to_chrome_trace, tracing)
 
 __all__ = [
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "get_registry",
     "DEFAULT_LATENCY_BUCKETS",
     "Tracer", "NullTracer", "NULL_TRACER", "Span", "read_trace",
-    "to_chrome_trace",
+    "to_chrome_trace", "tracing",
     "ObsHandle", "instrument_transport", "instrument_pool",
     "instrument_fleet", "instrument_db", "instrument_env",
     "instrument_surrogate", "instrument_program_store",

@@ -3,8 +3,8 @@ the port of ``repro/obs/trace.py``, pure Python, with the reference's
 JSONL schema (so one reader serves traces of either package).
 
 A :class:`Tracer` appends one JSON line per finished span (or instant
-event) to a trace file: name, monotonic-clock start/duration anchored to
-wall time, span id, parent id, thread, attributes, and the exception type
+event) to a trace file: name, start on the wall clock, duration on the
+monotonic one, span id, parent id, thread, attributes, and the exception type
 if the span body raised.  Parentage is implicit — a span opened while
 another is open on the same thread becomes its child — with an explicit
 ``parent=`` override for work that hops threads.
@@ -19,11 +19,33 @@ Chrome events keep the reference's category, ``"repro"``.
 Tracing off is the default everywhere: :data:`NULL_TRACER` swallows every
 call at the cost of one attribute lookup, so instrumented code paths need
 no ``if tracing:`` branches.
+
+Inside the model step, where a prefill opens about 300 spans, each span
+site reads the process's active tracer (:func:`active`, set by
+:func:`tracing`) and checks its ``enabled`` flag before it builds a name,
+an attribute or a profiler range::
+
+    tr = trace.active()
+    with tr.span("nv.attn") if tr.enabled else trace.NO_SPAN:
+        ...
+
+A tracer with ``path=None`` keeps its records in memory
+(:meth:`Tracer.records`) and writes nothing.  While a ``torch.profiler``
+records, every span a :class:`Tracer` opens (a detached root aside) is
+also a profiler range of the same name, its attributes the range's
+arguments (in an exported trace where the profiler records shapes); the
+record and the range stamp their start on the wall clock, which is the
+profiler's.  A model step run under a profiler with no tracer active
+puts its spans into the profiler alone (:func:`for_step`).
+:meth:`Tracer.count` adds a device tensor into a buffer on its device
+without a sync; :meth:`Tracer.counters` reads the buffers back once.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import sys
 import threading
 import time
 from typing import Optional, Union
@@ -32,15 +54,34 @@ from typing import Optional, Union
 # JSONEncoder per call, which dominates the span write path
 _ENCODER = json.JSONEncoder(separators=(",", ":"), default=str)
 
-__all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER", "read_trace",
-           "to_chrome_trace"]
+__all__ = ["Span", "Tracer", "NullTracer", "NULL_TRACER", "NO_SPAN",
+           "active", "tracing", "for_step", "read_trace", "to_chrome_trace"]
+
+
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process (none can
+    where torch is not loaded)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+def _profiler_range(name: str, attrs: dict):
+    """An unentered profiler range ``name`` with ``attrs`` as its
+    arguments.  A plain function range, not a user annotation: the
+    profiler copies no range of it onto the device's timeline, and it
+    costs a fraction of ``record_function``."""
+    import torch
+    return torch._C._profiler._RecordFunctionFast(name, [], {
+        k: v if isinstance(v, (bool, int, float, str)) else str(v)
+        for k, v in attrs.items()})
 
 
 class Span:
     """One open span; close with :meth:`end` (or use as context manager —
     the body raising still closes the span, recording the error)."""
 
-    __slots__ = ("tracer", "name", "id", "parent", "attrs", "t0", "tid")
+    __slots__ = ("tracer", "name", "id", "parent", "attrs", "ts", "t0",
+                 "tid", "range")
 
     def __init__(self, tracer: "Tracer", name: str, span_id: int,
                  parent: Optional[int], attrs: dict):
@@ -49,8 +90,10 @@ class Span:
         self.id = span_id
         self.parent = parent
         self.attrs = attrs
-        self.t0 = time.monotonic()
+        self.ts = time.time()           # the start, on the profiler's clock
+        self.t0 = time.monotonic()      # the duration's
         self.tid = threading.get_ident()
+        self.range = None               # the profiler's, while one records
 
     def set(self, **attrs) -> "Span":
         """Attach/overwrite attributes before the span ends."""
@@ -90,6 +133,7 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+NO_SPAN = _NULL_SPAN     # a span site's context while tracing is off
 
 
 class Tracer:
@@ -97,6 +141,7 @@ class Tracer:
 
     ``path`` is opened lazily on the first record (mode ``"w"`` truncates
     by default — one trace file per run; pass ``mode="a"`` to accumulate).
+    With ``path=None`` the records stay in memory (:meth:`records`).
     Thread-safe: span ids and file writes are serialized under one lock;
     the open-span stack is thread-local, so concurrent sessions nest
     correctly without seeing each other.
@@ -104,21 +149,19 @@ class Tracer:
 
     enabled = True
 
-    def __init__(self, path: str, mode: str = "w"):
+    def __init__(self, path: Optional[str] = None, mode: str = "w"):
         self.path = path
         self._mode = mode
         self._fh = None
+        self._records: list = []
+        self._counts: dict = {}
         self._lock = threading.Lock()
         self._local = threading.local()
         self._next_id = 1
         self.n_spans = 0
         self.n_events = 0
-        # wall-clock anchor for the monotonic timestamps: one pair taken
-        # at construction, so all spans share a consistent absolute axis
-        self._anchor_wall = time.time()
-        self._anchor_mono = time.monotonic()
         self._unflushed = 0
-        self._last_flush = self._anchor_mono
+        self._last_flush = time.monotonic()
 
     # -- the write path ------------------------------------------------------
     def _stack(self) -> list:
@@ -127,10 +170,11 @@ class Tracer:
             st = self._local.stack = []
         return st
 
-    def _wall(self, mono: float) -> float:
-        return self._anchor_wall + (mono - self._anchor_mono)
-
     def _write(self, rec: dict) -> None:
+        if self.path is None:
+            with self._lock:
+                self._records.append(rec)
+            return
         line = _ENCODER.encode(rec)
         with self._lock:
             if self._fh is None:
@@ -167,6 +211,9 @@ class Tracer:
         span = Span(self, name, span_id, parent_id, attrs)
         if not detached:
             self._stack().append(span)
+            if _profiling():
+                span.range = _profiler_range(name, attrs)
+                span.range.__enter__()
         return span
 
     def span(self, name: str, parent: Union[int, Span, None] = None,
@@ -180,6 +227,8 @@ class Tracer:
 
     def _end(self, span: Span, error: Optional[str]) -> None:
         t1 = time.monotonic()
+        if span.range is not None:
+            span.range.__exit__(None, None, None)
         st = self._stack()
         # exception-safe pop: the span may be closed out of order (or from
         # a different thread than it was opened on) — remove, don't assert
@@ -188,7 +237,7 @@ class Tracer:
                 del st[i]
                 break
         rec = {"type": "span", "name": span.name, "id": span.id,
-               "parent": span.parent, "ts": self._wall(span.t0),
+               "parent": span.parent, "ts": span.ts,
                "dur": t1 - span.t0, "pid": os.getpid(), "tid": span.tid}
         if span.attrs:
             rec["attrs"] = span.attrs
@@ -205,13 +254,37 @@ class Tracer:
         st = self._stack()
         rec = {"type": "event", "name": name,
                "parent": st[-1].id if st else None,
-               "ts": self._wall(time.monotonic()),
+               "ts": time.time(),
                "pid": os.getpid(), "tid": threading.get_ident()}
         if attrs:
             rec["attrs"] = attrs
         self._write(rec)
         with self._lock:
             self.n_events += 1
+
+    # -- device counters -----------------------------------------------------
+    def count(self, name: str, value) -> None:
+        """Add the scalar tensor ``value`` into the counter ``name``, a
+        buffer on its device: no sync.  A ``meta`` value (a step traced
+        for its sites) counts nothing."""
+        if value.device.type == "meta":
+            return
+        buf = self._counts.get(name)
+        if buf is None:
+            import torch
+            with torch.inference_mode(False):   # usable in and out of it
+                buf = self._counts[name] = torch.zeros(
+                    (), dtype=value.dtype, device=value.device)
+        buf.add_(value.detach())
+
+    def counters(self) -> dict:
+        """Each counter's value, read back from its device (a sync)."""
+        return {k: v.item() for k, v in self._counts.items()}
+
+    def records(self) -> list:
+        """The records an in-memory tracer (``path=None``) kept."""
+        with self._lock:
+            return list(self._records)
 
     # -- lifecycle -----------------------------------------------------------
     def flush(self) -> None:
@@ -251,6 +324,15 @@ class NullTracer:
     def event(self, name, **attrs) -> None:
         pass
 
+    def count(self, name, value) -> None:
+        pass
+
+    def counters(self) -> dict:
+        return {}
+
+    def records(self) -> list:
+        return []
+
     def flush(self) -> None:
         pass
 
@@ -265,6 +347,46 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+
+
+class _ProfilerRanges(NullTracer):
+    """A model step's spans put into a recording ``torch.profiler``
+    alone: no record, no counter (:func:`for_step`)."""
+
+    enabled = True
+
+    def span(self, name, parent=None, **attrs):
+        return _profiler_range(name, attrs)
+
+
+_PROFILER_RANGES = _ProfilerRanges()
+_active: Union[Tracer, NullTracer] = NULL_TRACER
+
+
+def active() -> Union[Tracer, NullTracer]:
+    """The process's active tracer, which code that is passed none
+    reports to: :data:`NULL_TRACER` unless :func:`tracing` set one."""
+    return _active
+
+
+@contextlib.contextmanager
+def tracing(tracer: Union[Tracer, NullTracer]):
+    """Make ``tracer`` the active one for the block."""
+    global _active
+    prev, _active = _active, tracer
+    try:
+        yield tracer
+    finally:
+        _active = prev
+
+
+def for_step() -> Union[Tracer, NullTracer]:
+    """The tracer a model step reports to: the active one where tracing
+    is on; else, while a ``torch.profiler`` records, one that puts the
+    step's spans into the profiler alone; else :data:`NULL_TRACER`."""
+    if _active.enabled or not _profiling():
+        return _active
+    return _PROFILER_RANGES
 
 
 def read_trace(path: str) -> list:
