@@ -21,9 +21,20 @@ product.  Routing is global, as on one card: each rank routes its own
 tokens, the (T, K) expert choices are gathered, and the capacity
 positions come from each TP rank's experts, summed over TP.
 
+A choice's position in its expert's buffer is its rank among the
+slot-major choices of that expert (:func:`_positions`): a stable sort of
+the choices by expert, each one's sorted index less the start of its
+expert's run (``searchsorted`` on the sorted ids), scattered back.  The
+reference writes it as a cumsum of a ``(K*T, E)`` one-hot down the
+token axis, which XLA runs as a parallel scan; PyTorch's CUDA scan along
+an outer dimension walks the K*T rows in sequence, a thread a column, and
+took as much device time as the expert products at DeepSeek-V2's 12288
+choices of 160 experts.  The sort does work in proportion to K*T and
+gives the same positions bit for bit.
+
 Every shape depends on the config and the token count alone (``C`` is
-static, no ``.item()``), so the layer runs on ``meta`` tensors for site
-extraction.
+static; no ``.item()``, ``nonzero``, ``bincount`` or ``unique``, so no
+host sync), and the layer runs on ``meta`` tensors for site extraction.
 
 On one card the layer's parts are traced as ``nv.moe.route``,
 ``nv.moe.dispatch``, ``nv.moe.combine`` and ``nv.moe.shared``, and, while
@@ -112,11 +123,20 @@ def _slots(eidx: torch.Tensor, pos: torch.Tensor, E: int, C: int):
 
 def _positions(eidx: torch.Tensor, E: int, e0: int = 0):
     """Each slot-major choice's position in its expert's buffer, counted
-    over the experts ``[e0, e0 + E)`` (zero for the others), plus one."""
+    over the experts ``[e0, e0 + E)`` (zero for the others), plus one.
+
+    The position is the choice's rank among its expert's choices in
+    slot-major order: the stable sort by expert keeps that order within
+    each expert's run, and ``searchsorted`` of the sorted ids in
+    themselves finds where each run starts.  The reference's one-hot
+    cumsum gives the same numbers (the module's docstring says why it is
+    not used here)."""
     a_e = eidx.T.reshape(-1)                                    # (K*T,)
-    onehot = (a_e[:, None] == torch.arange(e0, e0 + E,
-                                           device=eidx.device)).int()
-    return (torch.cumsum(onehot, dim=0) * onehot).sum(-1)
+    ids, order = torch.sort(a_e, stable=True)
+    pos = (torch.arange(1, a_e.numel() + 1, device=a_e.device)
+           - torch.searchsorted(ids, ids))          # rank in the run, + 1
+    pos = torch.empty_like(pos).scatter_(0, order, pos)
+    return torch.where((a_e >= e0) & (a_e < e0 + E), pos, 0)
 
 
 def apply_moe(cfg: ModelConfig, p, x):

@@ -1334,6 +1334,57 @@ def test_moe_archs_under_inject_match_eager_on_the_card(cuda, arch):
     assert float((lk - le).abs().max() / le.abs().max()) < 5e-2
 
 
+def _onehot_positions(eidx, E, e0=0):
+    """The reference's capacity positions: a cumsum of the slot-major
+    one-hot down the choices (``moe._positions``' oracle)."""
+    a_e = eidx.T.reshape(-1)
+    onehot = (a_e[:, None] == torch.arange(e0, e0 + E,
+                                           device=eidx.device)).int()
+    return (torch.cumsum(onehot, dim=0) * onehot).sum(-1)
+
+
+def test_moe_routing_on_the_card_syncs_nothing_and_matches(cuda,
+                                                           monkeypatch):
+    """DeepSeek-V2's routing shape (T = 2048, E = 160, K = 6): ``route``
+    on the card under the sync debug mode "error" (no host sync), its
+    ``pos_tk``, ``keep_tk`` and ``idx`` the CPU's, with experts 0-7
+    favoured so that their buffers overflow.  The logits are distinct
+    multiples of 0.025 a token, so both devices' top-k agree.  Then a
+    bf16 ``apply_moe`` at that routing shape on the card (its seeded
+    router drops about 3% of the choices on the CPU), bitwise its output
+    with the one-hot cumsum's positions."""
+    from repro_torch.models import moe
+    from repro_torch.models.common import WeightDraw
+    cfg = get_config("deepseek_v2_236b").reduced(
+        dtype="bfloat16", d_model=128, moe_d_ff=64, n_experts=160,
+        moe_top_k=6)
+    T, E = 2048, 160
+    rng = np.random.default_rng(80)
+    logits = rng.permuted(np.tile(np.arange(E, dtype=np.float32), (T, 1)),
+                          axis=1) * 0.05
+    logits[:, :8] += 4.025
+    lc = torch.from_numpy(logits)
+    want = moe.route(cfg, lc)
+    lg = lc.to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe.route(cfg, lg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, i in (("eidx", 0), ("pos_tk", 1), ("keep_tk", 2), ("idx", 4)):
+        assert torch.equal(got[i].cpu(), want[i]), name
+    assert not bool(want[2].all())
+
+    p = moe.moe_init(cfg, WeightDraw(0), torch.bfloat16, cuda)
+    x = _normal(81, 2, T // 2, cfg.d_model, device=cuda)
+    with torch.inference_mode():
+        y, _ = moe.apply_moe(cfg, p, x)
+        monkeypatch.setattr(moe, "_positions", _onehot_positions)
+        y_ref, _ = moe.apply_moe(cfg, p, x)
+    assert torch.equal(y, y_ref)
+
+
 # ---------------------------------------------------------------------------
 # MLA (DeepSeek-V2): K2 at head dims up to 192 with a value dim of its own
 # ---------------------------------------------------------------------------

@@ -159,6 +159,45 @@ def test_capacity_priority_is_slot_major():
     assert bool((idx[2:] == -1).all())
 
 
+def _onehot_positions(eidx, E, e0=0):
+    """The reference's capacity positions (``repro/models/moe.py``): a
+    cumsum of the slot-major one-hot down the choices; the oracle of
+    ``moe._positions``."""
+    a_e = eidx.T.reshape(-1)
+    onehot = (a_e[:, None] == torch.arange(e0, e0 + E,
+                                           device=eidx.device)).int()
+    return (torch.cumsum(onehot, dim=0) * onehot).sum(-1)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("choices", ["random", "same"])
+@pytest.mark.parametrize("T,K,E", [(2048, 6, 160), (256, 1, 128),
+                                   (64, 2, 4)])
+def test_positions_equal_the_onehot_cumsum(T, K, E, choices, device):
+    """``_positions`` bitwise the one-hot cumsum, over all E experts and
+    over each TP rank's slice ``[e0, e0 + E_l)`` as ``_sharded_moe``
+    passes it, with top-k choices of random logits and with every token
+    choosing the same K experts (all but C of each overflow).  On
+    ``meta`` tensors the shape and dtype alone."""
+    if choices == "random":
+        g = torch.Generator().manual_seed(T * K + E)
+        eidx = torch.topk(torch.randn(T, E, generator=g), K, dim=-1).indices
+    else:
+        eidx = torch.arange(K).repeat(T, 1)
+    eidx = eidx.to(device)
+    for n_tp in (1, 2, 4):
+        E_l = E // n_tp
+        for e0 in range(0, E, E_l):
+            got, want = moe._positions(eidx, E_l, e0), \
+                _onehot_positions(eidx, E_l, e0)
+            assert got.shape == want.shape == (K * T,)
+            assert got.dtype == want.dtype
+            if device != "meta":
+                assert torch.equal(got, want), (n_tp, e0)
+    if device != "meta" and choices == "same":
+        assert torch.equal(moe._positions(eidx, E)[:T], torch.arange(1, T + 1))
+
+
 # ---------------------------------------------------------------------------
 # the Mamba (SSD) mixer
 # ---------------------------------------------------------------------------
